@@ -8,23 +8,29 @@ Phases, each of which raises on failure (no result line is printed then):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every ``sifsr_tpu_torch/csrc/*.cu`` by nvcc for sm_90a, in
    parallel;
-3. kernels: each hand-written kernel of the int8 serving path at the shapes
-   the path gives it (batch 324), held against its plain PyTorch version on
-   the same seeded inputs: the outputs must be identical (int8 and the
-   generic conv's float32 alike); CUDA-event times of kernel and plain
-   version, and the least time the card could take (bytes or operations);
+3. kernels: each hand-written kernel of the int8 serving paths at the
+   shapes the paths give it (batch 324), held against its plain PyTorch
+   version on the same seeded inputs: the outputs must be identical (int8 and
+   the generic conv's float32 alike); CUDA-event times of kernel and plain
+   version, the least time the card could take (bytes or operations), and,
+   for kernel A, of the PyTorch interpolate calls that compute its float
+   function;
 4. float anchor: ModelB2 in float32 (TF32 off) vs the reference torch
    outputs in golden/ at rtol 1e-4 / atol 5e-5;
 5. whole granule: a seeded synthetic 1200² LST / 4800² NDVI granule through
    ``predict_granule`` at batch 324 with the float32 step, the bf16 step
-   (``predict_granule``'s default) and the int8 step
-   (``make_quantized_step(..., use_pallas=True)``). The bf16 mosaic must
-   stay within RMSE 0.1 K / max 0.5 K of the float32 one (the bound of the
-   port's CPU test of the bf16 step); the int8 mosaic within RMSE 0.3 K /
-   max 1 K, inside 250-350 K, and the launch counters, zeroed just before the int8 run,
-   must show every kernel of the path ran (per batch: upsample_phases 2,
-   conv_i8_exact 2, conv_i8_exact_dual 1, conv_i8_in1_split 1,
-   conv_i8_generic 14).
+   (``predict_granule``'s default), the int8 step of
+   ``make_quantized_step(..., use_pallas=True)`` (mid='prow', kernels G-K)
+   and the int8 ``mid='xla'`` step on the same parameters. The bf16 mosaic
+   must stay within RMSE 0.1 K / max 0.5 K of the float32 one (the bound of
+   the port's CPU test of the bf16 step); each int8 mosaic within RMSE 0.3 K
+   / max 1 K, inside 250-350 K. The launch counters, zeroed just before each
+   int8 run, must show exactly the kernels of that path, per batch:
+   prow: upsample_phases 1, conv_i8_in1_split 1, conv_i8_exact 2,
+   conv_i8_exact_dual 1, conv_i8_generic 1, conv_prow 6,
+   conv_prow_split_pool 2, conv_prow_up2 2, conv_prow_dual_planes 2,
+   conv_prow_up2_pack 1; xla: upsample_phases 2, conv_i8_in1_split 1,
+   conv_i8_exact 2, conv_i8_exact_dual 1, conv_i8_generic 14.
 
 The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero
@@ -76,7 +82,10 @@ def main() -> None:
     from sifsr_tpu_torch.cli.predict import load_variables, make_quantized_step
     from sifsr_tpu_torch.data.statistics import Statistics
     from sifsr_tpu_torch.inference import predict_granule
-    from sifsr_tpu_torch.kernels import _build, conv_i8, resize_phases
+    import torch.nn.functional as F
+
+    from sifsr_tpu_torch.kernels import _build, conv_i8, conv_px, resize_phases
+    from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
     from sifsr_tpu_torch.models.unet import ModelB2
 
     torch.backends.cudnn.allow_tf32 = False
@@ -120,11 +129,16 @@ def main() -> None:
 
     entries = {}
 
-    def check(name, calls, reps=10, plain_reps=2):
-        """calls: [(kernel_fn, plain_fn, nbytes, ops, ops_rate)] -- the kernel's
-        work in one serving batch."""
+    def int8_ms(ops):
+        return ops / INT8_OPS_PER_S * 1e3
+
+    def check(name, calls, reps=10, plain_reps=2, library=None):
+        """calls: [(kernel_fn, plain_fn, nbytes, ops_ms)] -- the kernel's work
+        in one serving batch, ops_ms its operations over the card's peak rate
+        for their type. library: PyTorch calls computing the same function
+        (timed only)."""
         err, ms, plain_ms, b_ms, ops_ms = 0.0, 0.0, 0.0, 0.0, 0.0
-        for kern, plain, nbytes, ops, rate in calls:
+        for kern, plain, nbytes, o_ms in calls:
             got, want = kern(), plain()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
@@ -138,17 +152,19 @@ def main() -> None:
             ms += k_ms
             plain_ms += p_ms
             b_ms += nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms += ops / rate * 1e3
+            ops_ms += o_ms
             log(f"  {name} call: {k_ms:.4f} ms (plain {p_ms:.2f} ms), bytes bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, ops bound {ops / rate * 1e3:.4f} ms")
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, ops bound {o_ms:.4f} ms")
         if err != 0.0:
             raise AssertionError(f"{name}: kernel differs from its plain version, max|d| = {err}")
+        lib_ms = None if library is None else sum(time_ms(torch, f, reps) for f in library)
         entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=max(b_ms, ops_ms),
                              bound_by="bytes" if b_ms >= ops_ms else "operations",
-                             calls=len(calls))
+                             library_ms=lib_ms, calls=len(calls))
         log(f"kernel {name}: {len(calls)} call(s)/batch, identical to plain; "
-            f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {max(b_ms, ops_ms):.4f} ms)")
+            f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {max(b_ms, ops_ms):.4f} ms"
+            + ("" if lib_ms is None else f", library {lib_ms:.4f} ms") + ")")
 
     # A: cubic x4 of the normalised LST, align-corners x2 of ub2's output
     lst_n = f32(rng.normal(0.0, 1.5, (N, 64, 64, 1)))
@@ -165,10 +181,18 @@ def main() -> None:
         nbytes = x.numel() * 4 + n * factor * h * factor * w * c
         return (lambda: K.upsample_phases(x, factor, kind, scale=scale),
                 lambda: resize_phases.upsample_phases_plain(x, factor, kind, scale),
-                nbytes, ops, F32_OPS_PER_S)
+                nbytes, ops / F32_OPS_PER_S * 1e3)
 
+    # A's float function is F.interpolate's (checked on the CPU to float32
+    # rounding); the library time leaves out the int8 quantise
+    xa = mid_out.permute(0, 3, 1, 2)           # NCHW view of the NHWC tensor
     check("upsample_phases", [up_call(lst_n, 4, "cubic", 0.02),
-                              up_call(mid_out, 2, "linear_ac", 0.025)])
+                              up_call(mid_out, 2, "linear_ac", 0.025)],
+          library=[lambda: F.interpolate(lst_n.permute(0, 3, 1, 2), scale_factor=4,
+                                         mode="bicubic", align_corners=False),
+                   lambda: F.interpolate(xa, scale_factor=2, mode="bilinear",
+                                         align_corners=True)])
+    del xa, mid_out
 
     # D: inbloc.conv1, LST and NDVI int8 planes -> 16 channels at 256²
     x2, w1, sc1, b1 = conv_args(2, 16, (N, 256, 256))
@@ -177,7 +201,7 @@ def main() -> None:
     check("conv_i8_in1_split", [(
         lambda: K.conv_i8_in1_split(lst_q, ndvi_q, w1, sc1, b1),
         lambda: conv_i8.conv_i8_in1_split_plain(lst_q, ndvi_q, w1, sc1, b1),
-        conv_bytes(N, 256, 256, 2, 16, 1), conv_ops(N, 256, 256, 2, 16), INT8_OPS_PER_S)])
+        conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))])
     del lst_q, ndvi_q
 
     # B: inbloc.conv2 with the fused phase mean, ub3.conv2 without
@@ -187,10 +211,10 @@ def main() -> None:
         (lambda: K.conv_i8_exact(x, w, sc, b, pm_scale=pm_scale),
          lambda: conv_i8.conv_i8_exact_plain(x, w, sc, b, pm_scale=pm_scale),
          conv_bytes(N, 256, 256, 16, 16, 1) + N * 128 * 128 * 16,
-         conv_ops(N, 256, 256, 16, 16), INT8_OPS_PER_S),
+         int8_ms(conv_ops(N, 256, 256, 16, 16))),
         (lambda: K.conv_i8_exact(x, w, sc, b),
          lambda: conv_i8.conv_i8_exact_plain(x, w, sc, b),
-         conv_bytes(N, 256, 256, 16, 16, 1), conv_ops(N, 256, 256, 16, 16), INT8_OPS_PER_S)])
+         conv_bytes(N, 256, 256, 16, 16, 1), int8_ms(conv_ops(N, 256, 256, 16, 16)))])
 
     # C: ub3.conv1 over concat(up, s0)
     z, wz, scz, _ = conv_args(16, 16, (N, 256, 256))
@@ -198,7 +222,7 @@ def main() -> None:
         lambda: K.conv_i8_exact_dual(x, z, w, wz, sc, scz, b),
         lambda: conv_i8.conv_i8_exact_dual_plain(x, z, w, wz, sc, scz, b),
         N * 256 * 256 * (16 + 16 + 16) + 2 * 9 * 16 * 16 + 12 * 16,
-        2 * conv_ops(N, 256, 256, 16, 16), INT8_OPS_PER_S)])
+        int8_ms(2 * conv_ops(N, 256, 256, 16, 16)))])
     del x, z
 
     # generic: the 13 mid-chain convs and the outlay of one batch
@@ -213,9 +237,75 @@ def main() -> None:
             (lambda gx=gx, gw=gw, gs=gs, gb=gb, relu=relu: K.conv_i8_generic(gx, gw, gs, gb, relu)),
             (lambda gx=gx, gw=gw, gs=gs, gb=gb, relu=relu:
              conv_i8.conv_i8_generic_plain(gx, gw, gs, gb, relu)),
-            conv_bytes(N, hw, hw, cin, cout, 4), conv_ops(N, hw, hw, cin, cout), INT8_OPS_PER_S))
+            conv_bytes(N, hw, hw, cin, cout, 4), int8_ms(conv_ops(N, hw, hw, cin, cout))))
     check("conv_i8_generic", generic_calls, reps=5, plain_reps=1)
     del generic_calls
+    torch.cuda.empty_cache()
+
+    # G: res.conv1 and res.conv2 (residual fused) of db1, db2, db3
+    prow_calls = []
+    for hw, c in ((128, 16), (64, 32), (32, 64)):
+        gx, gw, gs, gb = conv_args(c, c, (N, hw, hw))
+        v0 = i8((N, hw, hw, c))
+        for res in (None, v0):
+            kw = {} if res is None else dict(residual=res, res_sc=0.71)
+            prow_calls.append((
+                (lambda gx=gx, gw=gw, gs=gs, gb=gb, kw=kw: K.conv_prow(gx, gw, gs, gb, **kw)),
+                (lambda gx=gx, gw=gw, gs=gs, gb=gb, kw=kw:
+                 conv_px.conv_prow_plain(gx, gw, gs, gb, **kw)),
+                conv_bytes(N, hw, hw, c, c, 1) + (0 if res is None else N * hw * hw * c),
+                int8_ms(conv_ops(N, hw, hw, c, c))))
+    check("conv_prow", prow_calls, reps=5, plain_reps=1)
+    del prow_calls
+
+    # H: db1/db2 lastconv with the fused 2x2 pool
+    pool_calls = []
+    for hw, cin, cout in ((128, 16, 32), (64, 32, 64)):
+        gx, gw, gs, gb = conv_args(cin, cout, (N, hw, hw))
+        pool_calls.append((
+            (lambda gx=gx, gw=gw, gs=gs, gb=gb: K.conv_prow_split_pool(gx, gw, gs, gb, 0.19)),
+            (lambda gx=gx, gw=gw, gs=gs, gb=gb:
+             conv_px.conv_prow_split_pool_plain(gx, gw, gs, gb, 0.19)),
+            conv_bytes(N, hw, hw, cin, cout, 1) + N * hw * hw * cout // 4,
+            int8_ms(conv_ops(N, hw, hw, cin, cout))))
+    check("conv_prow_split_pool", pool_calls, reps=5, plain_reps=1)
+    del pool_calls
+
+    def up2_call(kernel, hw, cin, cout):
+        """conv + requantise + align-corners x2: the conv's int8 operations
+        and, at the float32 rate of the CUDA cores, the x2's integer
+        multiply-adds (two row taps per source column, two column taps per
+        output)."""
+        gx, gw, gs, gb = conv_args(cin, cout, (N, hw, hw))
+        rnum, cnum, inv = conv_px.up2_coeffs_mxu(hw, hw, 0.05, 0.06)
+        tabs = (torch.from_numpy(rnum).to(dev), torch.from_numpy(cnum).to(dev), inv)
+        up_ops = 2.0 * N * cout * (2 * (2 * hw) * hw + 2 * (2 * hw) * (2 * hw))
+        return ((lambda: kernel(gx, gw, gs, gb, *tabs)),
+                (lambda: conv_px.conv_prow_up2_plain(gx, gw, gs, gb, *tabs)),
+                N * hw * hw * cin + N * 4 * hw * hw * cout + 9 * cin * cout + 8 * cout
+                + 2 * 6 * hw * 4,
+                int8_ms(conv_ops(N, hw, hw, cin, cout)) + up_ops / F32_OPS_PER_S * 1e3)
+
+    # I: db3 lastconv (32² -> 64²) and ub1.conv2 (64² -> 128²)
+    check("conv_prow_up2", [up2_call(K.conv_prow_up2, 32, 64, 64),
+                            up2_call(K.conv_prow_up2, 64, 64, 32)], reps=5, plain_reps=1)
+    # K: ub2.conv2 (128² -> 256²), the serving tail
+    check("conv_prow_up2_pack", [up2_call(K.conv_prow_up2_pack, 128, 32, 16)],
+          reps=5, plain_reps=1)
+
+    # J: ub1.conv1 over concat(up, s2), ub2.conv1 over concat(up, s1)
+    dual_calls = []
+    for hw, c in ((64, 64), (128, 32)):
+        gx, gwx, gsx, gb = conv_args(c, c, (N, hw, hw))
+        gz, gwz, gsz, _ = conv_args(c, c, (N, hw, hw))
+        args = (gx, gz, gwx, gwz, gsx, gsz, gb)
+        dual_calls.append((
+            (lambda args=args: K.conv_prow_dual_planes(*args)),
+            (lambda args=args: conv_px.conv_prow_dual_planes_plain(*args)),
+            N * hw * hw * 3 * c + 2 * 9 * c * c + 12 * c,
+            int8_ms(2 * conv_ops(N, hw, hw, c, c))))
+    check("conv_prow_dual_planes", dual_calls, reps=5, plain_reps=1)
+    del dual_calls
     torch.cuda.empty_cache()
 
     # 4. float anchor vs the reference torch goldens
@@ -255,29 +345,37 @@ def main() -> None:
     t = time.perf_counter()
     step, qparams = make_quantized_step(variables, lst, ndvi, stats, use_pallas=True, device=dev)
     t_cal = time.perf_counter() - t
-    run(sr_step=step, step_params=qparams)
-    K.reset_launches()
-    sr, t_i8 = run(sr_step=step, step_params=qparams)
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    xla_step = make_int8_sr_step(stats, mid="xla", device=dev)
     n_blocks = (lst.shape[0] // 64) * (lst.shape[1] // 64)
     n_batches = -(-n_blocks // N)
-    want = {"upsample_phases": 2, "conv_i8_exact": 2, "conv_i8_exact_dual": 1,
-            "conv_i8_in1_split": 1, "conv_i8_generic": 14}
-    for name, per_batch in want.items():
-        if launches[name] != per_batch * n_batches:
-            raise AssertionError(f"{name} launched {launches[name]} times, "
-                                 f"expected {per_batch * n_batches}: {launches}")
+    per_batch = {
+        "prow": {"upsample_phases": 1, "conv_i8_in1_split": 1, "conv_i8_exact": 2,
+                 "conv_i8_exact_dual": 1, "conv_i8_generic": 1, "conv_prow": 6,
+                 "conv_prow_split_pool": 2, "conv_prow_up2": 2, "conv_prow_dual_planes": 2,
+                 "conv_prow_up2_pack": 1},
+        "xla": {"upsample_phases": 2, "conv_i8_in1_split": 1, "conv_i8_exact": 2,
+                "conv_i8_exact_dual": 1, "conv_i8_generic": 14},
+    }
     mosaic = (256 * (lst.shape[0] // 64), 256 * (lst.shape[1] // 64))  # partial blocks drop
-    assert ref.shape == sr.shape == mosaic, (ref.shape, sr.shape)
-    assert np.isfinite(sr).all() and np.isfinite(ref).all()
-    d = sr.astype(np.float64) - ref
-    rmse, dmax = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
-    log(f"granule: int8 vs f32 RMSE {rmse:.4f} K, max {dmax:.4f} K, "
-        f"int8 range {sr.min():.2f}..{sr.max():.2f} K")
-    if not (rmse < 0.3 and dmax < 1.0 and sr.min() > 250.0 and sr.max() < 350.0
-            and ref.min() > 250.0 and ref.max() < 350.0):
-        raise AssertionError(f"int8 contract failed: rmse {rmse}, max {dmax}, "
-                             f"range {sr.min()}..{sr.max()}")
+    launches, wall = {}, {}
+    for mid, int8_step in (("prow", step), ("xla", xla_step)):
+        run(sr_step=int8_step, step_params=qparams)
+        K.reset_launches()
+        sr, wall[mid] = run(sr_step=int8_step, step_params=qparams)
+        launches[mid] = {k.__name__: k.launches for k in K.KERNELS}
+        want = {k.__name__: per_batch[mid].get(k.__name__, 0) * n_batches for k in K.KERNELS}
+        if launches[mid] != want:
+            raise AssertionError(f"{mid}: launches {launches[mid]}, expected {want}")
+        assert ref.shape == sr.shape == mosaic, (ref.shape, sr.shape)
+        assert np.isfinite(sr).all() and np.isfinite(ref).all()
+        d = sr.astype(np.float64) - ref
+        rmse, dmax = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
+        log(f"granule: int8 ({mid}) vs f32 RMSE {rmse:.4f} K, max {dmax:.4f} K, "
+            f"int8 range {sr.min():.2f}..{sr.max():.2f} K; launches {launches[mid]}")
+        if not (rmse < 0.3 and dmax < 1.0 and sr.min() > 250.0 and sr.max() < 350.0
+                and ref.min() > 250.0 and ref.max() < 350.0):
+            raise AssertionError(f"int8 ({mid}) contract failed: rmse {rmse}, max {dmax}, "
+                                 f"range {sr.min()}..{sr.max()}")
 
     # device time of one serving batch for each step
     lst_d = torch.from_numpy(lst[:64 * 18, :64 * 18].reshape(18, 64, 18, 64)
@@ -293,28 +391,43 @@ def main() -> None:
     bmodel = InferenceModelB2.from_variables(variables).to(dev, torch.bfloat16)
     b_step = make_sr_step(stats, torch.bfloat16, dev)
     ms_bf16 = time_ms(torch, lambda: b_step(bmodel, lst_d, ndvi_d), 5)
-    ms_i8 = time_ms(torch, lambda: step(qparams, lst_d, ndvi_d), 10)
+    ms_i8 = {mid: time_ms(torch, lambda f=f: f(qparams, lst_d, ndvi_d), 10)
+             for mid, f in (("prow", step), ("xla", xla_step))}
     log(f"granule f32: {n_blocks / t_f32:.1f} patches/s wall ({t_f32:.3f} s), "
         f"step {ms_f32:.3f} ms/batch of {N} on device")
     log(f"granule bf16: {n_blocks / t_bf16:.1f} patches/s wall ({t_bf16:.3f} s), "
         f"step {ms_bf16:.3f} ms/batch of {N} on device")
-    log(f"granule int8: {n_blocks / t_i8:.1f} patches/s wall ({t_i8:.3f} s), "
-        f"step {ms_i8:.3f} ms/batch of {N} on device; calibration {t_cal:.2f} s")
-    log(f"launches in the int8 granule run: {launches}")
+    for mid in ("prow", "xla"):
+        log(f"granule int8 ({mid}): {n_blocks / wall[mid]:.1f} patches/s wall "
+            f"({wall[mid]:.3f} s), step {ms_i8[mid]:.3f} ms/batch of {N} on device")
+    log(f"int8 calibration (make_quantized_step): {t_cal:.2f} s")
 
     src = "sifsr_tpu_torch/csrc/"
     meta = {
         "upsample_phases": (src + "resize_phases.cu", "sifsr_tpu/pallas/resize_phases.py:93"),
         "conv_i8_in1_split": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:732"),
         "conv_i8_exact": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:333"),
-        "conv_i8_exact_dual": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:395"),
+        "conv_i8_exact_dual": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:395",
+                               "the dual template of csrc/conv_tile.cuh at 16 channels, "
+                               "shared with conv_prow_dual_planes"),
         "conv_i8_generic": (src + "conv_i8.cu", "sifsr_tpu/models/quantized_packed.py:66"),
+        "conv_prow": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:335"),
+        "conv_prow_split_pool": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:488"),
+        "conv_prow_up2": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:971",
+                          "entry sifsr_conv_prow_up2, shared with conv_prow_up2_pack"),
+        "conv_prow_dual_planes": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:549",
+                                  "the dual template of csrc/conv_tile.cuh at 64 and 32 "
+                                  "channels, shared with conv_i8_exact_dual"),
+        "conv_prow_up2_pack": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:908",
+                               "entry sifsr_conv_prow_up2, shared with conv_prow_up2"),
     }
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+         "launches": launches["prow"][name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
-         "library_ms": None, "calls_per_batch": e["calls"]}
+         "library_ms": e["library_ms"], "calls_per_batch": e["calls"],
+         "launches_by_path": {mid: launches[mid][name] for mid in launches},
+         **({"shares": meta[name][2]} if len(meta[name]) > 2 else {})}
         for name, e in entries.items()]}
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,14 +35,17 @@ def load_variables(model_dir: str, model_name: str = "modelB") -> dict:
 
 
 def make_quantized_step(variables, lst, ndvi, stats, use_pallas: bool,
-                        calib_quantile: float | None = None,
+                        calib_quantile: float | None = None, up2_impl: str = "mxu",
                         device: str | torch.device = "cuda"):
     """Build the int8 serving step, statically calibrated on up to 8
     fully-valid 64x64 blocks of the given granule. Returns (step, params).
 
     use_pallas=True is the port's int8 step with its hand-written kernels
-    (``models.int8_serving``, mid='xla'). The plain XLA int8 step of the JAX
-    package (use_pallas=False) is not ported yet."""
+    (``models.int8_serving``, mid='prow', for 64x64 LST blocks; the same
+    params also serve ``make_int8_sr_step(stats, mid='xla')``). up2_impl:
+    the x2 upsamples' rounding chain, 'mxu' (integer-exact row mix) as in
+    the JAX package; 'vpu' is not ported yet. The plain XLA int8 step of the
+    JAX package (use_pallas=False) is not ported yet."""
     if not use_pallas:
         raise NotImplementedError(
             "the XLA int8 step (models/quantized.make_int8_sr_step) is not ported "
@@ -62,5 +65,6 @@ def make_quantized_step(variables, lst, ndvi, stats, use_pallas: bool,
             "contains 0 K fill): serve it with the float step, or calibrate on a "
             "different granule first")
     params = build_int8_serving_params(variables, lst_b[sel], ndvi_b[sel], stats,
-                                       calib_quantile=calib_quantile, device=device)
+                                       calib_quantile=calib_quantile, device=device,
+                                       up2_impl=up2_impl)
     return make_int8_sr_step(stats, device=device), params

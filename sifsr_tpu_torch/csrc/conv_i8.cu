@@ -23,144 +23,17 @@
 //
 // Bound on the H100: memory at the serving shapes (about 1 MB of int8 in
 // and out per 256x256x16 image against ~38 M int8 multiply-adds, far below
-// the card's int8 rate). Design, simple first: one block of 256 threads per
-// 8x32 output tile, each thread one pixel and all its output channels; the
-// (8+2)x(32+2) input halo is loaded once into shared memory with the
-// replicate clamp applied to the load addresses (no padded copy in device
-// memory), four channels per 32-bit word; weights sit in shared memory in
-// the same 4-channel words and the inner product is dp4a, fed by 128-bit
-// shared loads (4 weight words of 4 output channels, 4 input words). Each
-// tensor is read once from device memory and written once, outputs as
-// 16-byte stores. The dp4a inner loop, not memory, is the likely limit of
-// this form (times against the bound: PERF.md); int8 tensor-core MMA is the
-// planned next step.
+// the card's int8 rate). Design, simple first: the 8x32-tile dp4a main loop
+// of conv_tile.cuh (halo and weights in shared memory, one thread per output
+// pixel and all its channels). Each tensor is read once from device memory
+// and written once, outputs as 16-byte stores. The dp4a inner loop, not
+// memory, is the likely limit of this form (times against the bound:
+// PERF.md); int8 tensor-core MMA is the planned next step. Kernel C is the
+// shared dual template of conv_tile.cuh at 16 channels.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv_tile.cuh"
 
 namespace {
-
-constexpr int TH = 8, TW = 32, NT = TH * TW;  // output tile, threads
-constexpr int HH = TH + 2, HW = TW + 2, HALO = HH * HW;
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
-// Halo tile of a CIN-channel int8 NHWC image (CIN % 4 == 0) as words of 4
-// channels, replicate-clamped at the image border.
-template <int CIN>
-__device__ __forceinline__ void load_halo(int32_t* s, const int8_t* __restrict__ x,
-                                          int n, int y0, int x0, int h, int w) {
-  constexpr int CW = CIN / 4;
-  const int32_t* xw = reinterpret_cast<const int32_t*>(x);
-  for (int i = threadIdx.x; i < HALO * CW; i += NT) {
-    const int cw = i % CW, p = i / CW;
-    const int gy = clampi(y0 - 1 + p / HW, 0, h - 1);
-    const int gx = clampi(x0 - 1 + p % HW, 0, w - 1);
-    s[i] = __ldg(xw + (((size_t)n * h + gy) * w + gx) * CW + cw);
-  }
-}
-
-// Halo tile of two single-channel int8 images in one word: byte 0 from a,
-// byte 1 from b (channels 2, 3 zero).
-__device__ __forceinline__ void load_halo_pair(int32_t* s, const int8_t* __restrict__ a,
-                                               const int8_t* __restrict__ b, int n,
-                                               int y0, int x0, int h, int w) {
-  for (int i = threadIdx.x; i < HALO; i += NT) {
-    const int gy = clampi(y0 - 1 + i / HW, 0, h - 1);
-    const int gx = clampi(x0 - 1 + i % HW, 0, w - 1);
-    const size_t o = ((size_t)n * h + gy) * w + gx;
-    s[i] = (int32_t)((uint32_t)(uint8_t)__ldg(a + o) |
-                     ((uint32_t)(uint8_t)__ldg(b + o) << 8));
-  }
-}
-
-// HWIO int8 weights (3,3,CIN,COUT) -> words [tap][ceil(CIN/4)][COUT] holding
-// four input channels each (zero-padded past CIN).
-template <int CIN, int COUT>
-__device__ __forceinline__ void load_weights(int32_t* s, const int8_t* __restrict__ wt) {
-  constexpr int CW = (CIN + 3) / 4;
-  for (int i = threadIdx.x; i < 9 * CW * COUT; i += NT) {
-    const int co = i % COUT, t = i / COUT, cw = t % CW, tap = t / CW;
-    uint32_t word = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = cw * 4 + j;
-      if (ci < CIN)
-        word |= (uint32_t)(uint8_t)__ldg(wt + (tap * CIN + ci) * COUT + co) << (8 * j);
-    }
-    s[i] = (int32_t)word;
-  }
-}
-
-// acc[co] += x[co-th word] . w for 4 output channels at a time: one 128-bit
-// shared load brings the weight words of 4 output channels.
-template <int COUT>
-__device__ __forceinline__ void dot_word(int (&acc)[COUT], int xv, const int32_t* wrow) {
-  if constexpr (COUT % 4 == 0) {
-    const int4* w4 = reinterpret_cast<const int4*>(wrow);
-#pragma unroll
-    for (int q = 0; q < COUT / 4; ++q) {
-      const int4 wv = w4[q];
-      acc[4 * q + 0] = __dp4a(xv, wv.x, acc[4 * q + 0]);
-      acc[4 * q + 1] = __dp4a(xv, wv.y, acc[4 * q + 1]);
-      acc[4 * q + 2] = __dp4a(xv, wv.z, acc[4 * q + 2]);
-      acc[4 * q + 3] = __dp4a(xv, wv.w, acc[4 * q + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int co = 0; co < COUT; ++co) acc[co] = __dp4a(xv, wrow[co], acc[co]);
-  }
-}
-
-// acc[co] += sum over the 3x3 taps and CW channel words of this thread's
-// pixel; input words come four at a time (one 128-bit load) when CW allows.
-template <int CW, int COUT>
-__device__ __forceinline__ void accumulate(int (&acc)[COUT], const int32_t* s_in,
-                                           const int32_t* s_w) {
-  const int ty = threadIdx.x / TW, tx = threadIdx.x % TW;
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int32_t* px = s_in + ((ty + dy) * HW + tx + dx) * CW;
-      const int32_t* wt = s_w + (dy * 3 + dx) * CW * COUT;
-      if constexpr (CW % 4 == 0) {
-#pragma unroll 2
-        for (int cw = 0; cw < CW; cw += 4) {
-          const int4 xv = *reinterpret_cast<const int4*>(px + cw);
-          dot_word(acc, xv.x, wt + (cw + 0) * COUT);
-          dot_word(acc, xv.y, wt + (cw + 1) * COUT);
-          dot_word(acc, xv.z, wt + (cw + 2) * COUT);
-          dot_word(acc, xv.w, wt + (cw + 3) * COUT);
-        }
-      } else {
-#pragma unroll
-        for (int cw = 0; cw < CW; ++cw) dot_word(acc, px[cw], wt + cw * COUT);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
-}
-
-__device__ __forceinline__ int8_t requant(float y, bool relu) {
-  if (relu) y = fmaxf(y, 0.f);
-  y = fminf(fmaxf(rintf(y), -127.f), 127.f);
-  return (int8_t)(int)y;
-}
-
-__device__ __forceinline__ uint32_t pack4(const int8_t* q) {
-  return (uint32_t)(uint8_t)q[0] | ((uint32_t)(uint8_t)q[1] << 8) |
-         ((uint32_t)(uint8_t)q[2] << 16) | ((uint32_t)(uint8_t)q[3] << 24);
-}
-
-__device__ __forceinline__ void store16(int8_t* dst, const int8_t (&q)[16]) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(pack4(q), pack4(q + 4), pack4(q + 8), pack4(q + 12));
-}
 
 // B: 16 -> 16 int8, optional fused phase mean (2x2 pool of the requantised
 // output, requantised by pm_scale) into pm (N, H/2, W/2, 16).
@@ -203,36 +76,6 @@ conv_i8_exact_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt
       }
     }
   }
-}
-
-// C: conv(concat(x, z)) = conv_x(x)*scale_x + conv_z(z)*scale_z + bias,
-// 16 + 16 -> 16 int8; the concat is never formed.
-__global__ void __launch_bounds__(NT)
-conv_i8_dual_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ z,
-                    const int8_t* __restrict__ wx, const int8_t* __restrict__ wz,
-                    const float* __restrict__ sx, const float* __restrict__ sz,
-                    const float* __restrict__ bias, int8_t* __restrict__ out, int h,
-                    int w, int relu) {
-  __shared__ __align__(16) int32_t s_x[HALO * 4], s_z[HALO * 4];
-  __shared__ __align__(16) int32_t s_wx[9 * 4 * 16], s_wz[9 * 4 * 16];
-  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  load_halo<16>(s_x, x, n, y0, x0, h, w);
-  load_halo<16>(s_z, z, n, y0, x0, h, w);
-  load_weights<16, 16>(s_wx, wx);
-  load_weights<16, 16>(s_wz, wz);
-  __syncthreads();
-  int ax[16] = {}, az[16] = {};
-  accumulate<4, 16>(ax, s_x, s_wx);
-  accumulate<4, 16>(az, s_z, s_wz);
-  int8_t q[16];
-#pragma unroll
-  for (int co = 0; co < 16; ++co) {
-    const float yx = __fmul_rn(__int2float_rn(ax[co]), __ldg(sx + co));
-    const float yz = __fmul_rn(__int2float_rn(az[co]), __ldg(sz + co));
-    q[co] = requant(__fadd_rn(__fadd_rn(yx, yz), __ldg(bias + co)), relu);
-  }
-  const int gy = y0 + threadIdx.x / TW, gx = x0 + threadIdx.x % TW;
-  if (gy < h && gx < w) store16(out + (((size_t)n * h + gy) * w + gx) * 16, q);
 }
 
 // D: inbloc.conv1, 2 -> 16 int8 with LST and NDVI as separate (N,H,W) inputs.
@@ -297,20 +140,10 @@ int launch_generic(const void* x, const void* wt, const void* scale, const void*
                    void* out, int n, int h, int w, int relu, cudaStream_t s) {
   constexpr int CW = CIN / 4;
   const size_t smem = (size_t)(HALO * CW + 9 * CW * COUT) * sizeof(int32_t);
-  auto kern = conv_i8_generic_kernel<CIN, COUT>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-  kern<<<grid, NT, smem, s>>>(static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-                              static_cast<const float*>(scale), static_cast<const float*>(bias),
-                              static_cast<float*>(out), h, w, relu);
-  return (int)cudaGetLastError();
-}
-
-inline dim3 tile_grid(int n, int h, int w) {
-  return dim3((w + TW - 1) / TW, (h + TH - 1) / TH, n);
+  return launch(conv_i8_generic_kernel<CIN, COUT>, tile_grid(n, h, w), smem, s,
+                static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
+                static_cast<const float*>(scale), static_cast<const float*>(bias),
+                static_cast<float*>(out), h, w, relu);
 }
 
 }  // namespace
@@ -355,12 +188,8 @@ int sifsr_conv_i8_exact(const void* x, const void* wt, const void* scale, const 
 int sifsr_conv_i8_exact_dual(const void* x, const void* z, const void* wx, const void* wz,
                              const void* sx, const void* sz, const void* bias, void* out,
                              int n, int h, int w, int relu, void* stream) {
-  conv_i8_dual_kernel<<<tile_grid(n, h, w), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(z),
-      static_cast<const int8_t*>(wx), static_cast<const int8_t*>(wz),
-      static_cast<const float*>(sx), static_cast<const float*>(sz),
-      static_cast<const float*>(bias), static_cast<int8_t*>(out), h, w, relu);
-  return (int)cudaGetLastError();
+  return launch_dual<16>(x, z, wx, wz, sx, sz, bias, out, n, h, w, relu,
+                         static_cast<cudaStream_t>(stream));
 }
 
 int sifsr_conv_i8_in1_split(const void* lst, const void* ndvi, const void* wt,

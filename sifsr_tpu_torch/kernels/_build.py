@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under
-``sifsr_tpu_torch/build/``, named by a hash of its source and flags so that an edited source is rebuilt, and loaded with
+``sifsr_tpu_torch/build/``, named by a hash of its source, the shared
+``csrc/*.cuh`` headers and the flags, so that an edited source is rebuilt, and loaded with
 ``ctypes``. ``build()`` compiles several sources at once, one ``nvcc``
 process each, all started together.
 
@@ -42,8 +43,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """Source and library path; the hash covers every ``csrc/*.cuh`` header
+    as well, so that an edited header rebuilds the sources that include it."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,4 +1,4 @@
-"""The int8 serving step with its hand-written kernels (mid='xla').
+"""The int8 serving step with its hand-written kernels.
 
 Counterpart of ``sifsr_tpu/models/pallas_serving.py`` ("pallas" would
 mislead here). Per batch (N, 64, 64) K LST + (N, 256, 256) NDVI:
@@ -9,11 +9,17 @@ mislead here). Per batch (N, 64, 64) K LST + (N, 256, 256) NDVI:
 3. inbloc.conv2 -> s0 int8, with the mid chain's input (the 2x2 phase mean
    of s0, requantised to db1's input scale) as a fused second output
    (kernel B);
-4. the mid chain db1..db3, ub1, ub2 as calibrated int8 convs
-   (``models.quantized_packed``, the JAX ``mid='xla'`` chain);
-5. align-corners x2 of the mid output quantised to the ``up`` scale
-   (kernel A), ub3.conv1 over concat(up, s0) without forming the concat
-   (kernel C), ub3.conv2 (kernel B);
+4. the mid chain db1..db3, ub1, ub2, in one of two configurations:
+   - ``mid='prow'`` (the default, as in the JAX package): int8 from end to
+     end through kernels G-K (``kernels/conv_px.py``): the residual adds,
+     the 2x2 pools and the align-corners x2 upsamples fused into the convs'
+     epilogues, the skip concats never formed; ub2.conv2 ends in the final
+     x2 to the ``up`` scale (kernel K);
+   - ``mid='xla'``: the calibrated int8 convs of ``models.quantized_packed``
+     with float32 tensors between them (the JAX ``mid='xla'`` chain), then
+     the align-corners x2 quantised to the ``up`` scale (kernel A);
+5. ub3.conv1 over concat(up, s0) without forming the concat (kernel C),
+   ub3.conv2 (kernel B);
 6. the outlay, a replicate-pad 16->1 int8 conv with the Kelvin de-normalise
    folded into its dequantise step. The JAX step computes it as a
    zero-padded conv plus exact replicate border strips
@@ -21,17 +27,15 @@ mislead here). Per batch (N, 64, 64) K LST + (N, 256, 256) NDVI:
    is what the port runs.
 
 The JAX package works on the 2x2 space-to-depth packed tensors of the
-256²-level layers; the port's kernels take the unpacked NHWC tensors. The
-packed and unpacked convs are the same function with the same int8 weights
-and per-channel scales, so the parameters are quantised from the unpacked
-folded kernels.
+256²-level layers and on p-pixel rows in the mid chain; the port's kernels
+take the unpacked NHWC tensors. The packed and unpacked convs are the same
+function with the same int8 weights and per-channel scales, so the
+parameters are quantised from the unpacked folded kernels.
 
 Everything is calibrated statically: ``_f32_packed_mirror`` runs the float32
 packed graph on a few patches and records max|x| of each tensor that gets
-an int8 scale (scale = max/127 * headroom).
-
-``mid='prow'`` (the JAX default: the mid chain as the conv_px kernels G-K)
-is not ported yet; see ROADMAP.md.
+an int8 scale (scale = max/127 * headroom). The ``prow`` parameters bind
+the x2 tables to the LST block size they were built for.
 """
 
 from __future__ import annotations
@@ -46,8 +50,14 @@ from sifsr_tpu_torch.kernels import (
     conv_i8_exact_dual,
     conv_i8_generic,
     conv_i8_in1_split,
+    conv_prow,
+    conv_prow_dual_planes,
+    conv_prow_split_pool,
+    conv_prow_up2,
+    conv_prow_up2_pack,
     upsample_phases,
 )
+from sifsr_tpu_torch.kernels.conv_px import prow_leaf, up2_coeffs_mxu
 from sifsr_tpu_torch.models.fused import fold_batchnorm, upsample_bilinear_x2_nhwc
 from sifsr_tpu_torch.models.packed import (
     _packed_concat,
@@ -62,7 +72,7 @@ from sifsr_tpu_torch.models.quantized import _quantize_kernel
 from sifsr_tpu_torch.models.quantized_packed import _conv_i8_mid, _double_mid, _down, _quant
 
 __all__ = ["calibrate", "int8_serving_params", "build_int8_serving_params",
-           "make_int8_sr_step"]
+           "prow_mid_params", "make_int8_sr_step"]
 
 
 # ---------------------------------------------------------------- calibration
@@ -167,27 +177,99 @@ def calibrate(variables: dict, sample_lst, sample_ndvi, stats, calib_quantile=No
 
 # ------------------------------------------------------------ parameter build
 
-def _leaf(kernel, bias, s_in, s_out) -> dict:
-    """int8 weights with the input and output scales folded into the
-    per-channel dequantise scale/bias (``pallas_serving.pallas_leaf``)."""
-    q, sw = _quantize_kernel(kernel)
-    comb = s_in * sw
-    b = np.asarray(bias, np.float64)
-    if s_out is not None:
-        comb, b = comb / s_out, b / s_out
-    return {"w": q, "scale": comb.astype(np.float32), "bias": b.astype(np.float32)}
-
-
 def _to_device(node, dev: torch.device):
+    """Arrays to tensors on ``dev``; Python numbers (the kernels' scalar
+    arguments, the block size) stay on the host."""
     if isinstance(node, dict):
         return {k: _to_device(v, dev) for k, v in node.items()}
+    if isinstance(node, (int, float)):
+        return node
     return torch.as_tensor(np.asarray(node), device=dev)
 
 
+def prow_mid_params(folded: dict, mid_rec: dict, s: dict, headroom: float, hp: int,
+                    up2_impl: str = "mxu") -> dict:
+    """The ``mid='prow'`` chain's parameters on the host (port of
+    ``pallas_serving._build_prow_mid``, ``pallas_serving.py:292-377``).
+
+    folded: the BN-folded float32 state tree; mid_rec: per-conv input maxes;
+    s: the emission scales (``m_*``) of the calibration record; hp: the
+    256²-level size / 2 (2 x the LST block size), to which the x2 tables
+    are bound. Per-conv input scales come from the same calibration as the
+    ``mid='xla'`` chain. The epilogues fold the next tensor's scale in:
+    res.conv2 is prescaled by 1/s(lastconv input) with the residual at
+    ``res_sc``; db1/db2's lastconv pools at ``pool_sc``; db3's lastconv and
+    ub1/ub2's conv2 upsample from their output scale to the consumer's."""
+    if up2_impl == "vpu":
+        raise NotImplementedError(
+            "up2_impl='vpu' (the roll/fma rounding chain of conv_px.up2_coeffs) is not "
+            "ported yet (ROADMAP.md, TPU kernel queue); use up2_impl='mxu'")
+    if up2_impl != "mxu":
+        raise ValueError(f"up2_impl must be 'mxu' or 'vpu', got {up2_impl!r}")
+
+    def cal(*path):
+        return mid_rec[tuple(path)] / 127.0 * headroom
+
+    def kb(node):
+        return node["conv"]["kernel"], node["conv"]["bias"]
+
+    def attach_up2(leaf, size, s_mid, s_up):
+        leaf["rnum"], leaf["cnum"], inv = up2_coeffs_mxu(size, size, s_mid, s_up)
+        leaf["inv"] = float(inv)
+
+    def down_leaves(name):
+        tree = folded[name]
+        k1, b1 = kb(tree["res"]["conv1"])
+        k2, b2 = kb(tree["res"]["conv2"])
+        kl, bl = kb(tree["lastconv"])
+        s_in = cal(name, "res", "conv1", "conv")
+        s_c2 = cal(name, "res", "conv2", "conv")
+        s_lc = cal(name, "lastconv", "conv")
+        s_out = s[{"db1": "m_s1", "db2": "m_s2", "db3": "m_t3"}[name]]
+        conv1 = prow_leaf(k1, b1, s_in, s_c2)
+        conv2 = prow_leaf(k2, b2, s_c2, None, post_scale=1.0 / s_lc)
+        conv2["res_sc"] = float(np.float32(s_in / s_lc))
+        last = prow_leaf(kl, bl, s_lc, s_out)
+        if name in ("db1", "db2"):                  # fused 2x2 pool
+            s_next = cal({"db1": "db2", "db2": "db3"}[name], "res", "conv1", "conv")
+            last["pool_sc"] = float(np.float32(s_out / (4 * s_next)))
+        else:                                       # db3: fused x2 upsample
+            attach_up2(last, hp // 4, s["m_t3"], s["m_upt3"])
+        return {"conv1": conv1, "conv2": conv2, "last": last}
+
+    def up_leaves(name, s_x, s_z):
+        tree = folded[name]["convbloc"]
+        k1, b1 = kb(tree["conv1"])
+        k2, b2 = kb(tree["conv2"])
+        s_c2 = cal(name, "convbloc", "conv2", "conv")
+        s_out = s[{"ub1": "m_u1", "ub2": "m_u2"}[name]]
+        half = k1.shape[2] // 2                     # channels 0:half = up path, half: = skip
+        conv1x = prow_leaf(k1[:, :, :half], b1, s_x, s_c2)
+        conv1z = prow_leaf(k1[:, :, half:], np.zeros_like(b1), s_z, s_c2)
+        conv2 = prow_leaf(k2, b2, s_c2, s_out)
+        if name == "ub1":
+            attach_up2(conv2, hp // 2, s["m_u1"], s["m_upu1"])
+        else:                                       # ub2: the serving tail
+            attach_up2(conv2, hp, s["m_u2"], s["up"])
+        return {"conv1x": conv1x, "conv1z": conv1z, "conv2": conv2}
+
+    return {
+        "db1": down_leaves("db1"),
+        "db2": down_leaves("db2"),
+        "db3": down_leaves("db3"),
+        "ub1": up_leaves("ub1", s["m_upt3"], s["m_s2"]),
+        "ub2": up_leaves("ub2", s["m_upu1"], s["m_s1"]),
+        "hp": int(hp),
+    }
+
+
 def int8_serving_params(variables: dict, rec: dict, mid_rec: dict, headroom: float = 1.05,
-                        device: str | torch.device = "cuda") -> dict:
+                        device: str | torch.device = "cuda", lst_size: int = 64,
+                        up2_impl: str = "mxu") -> dict:
     """ModelB2 state dict + a calibration record -> the int8 step's
-    parameters (JAX ``build_pallas_serving_params`` without ``pmid``)."""
+    parameters for (N, lst_size, lst_size) LST blocks (JAX
+    ``build_pallas_serving_params``): ``mid`` for ``mid='xla'`` and
+    ``pmid`` for ``mid='prow'``."""
     dev = resolve_device(device)
     folded = _to_numpy_tree(fold_batchnorm(variables))
     s = {k: v / 127.0 * headroom for k, v in rec.items()}
@@ -208,7 +290,7 @@ def int8_serving_params(variables: dict, rec: dict, mid_rec: dict, headroom: flo
         "bias": (np.asarray(b1, np.float64) / s["in2"]).astype(np.float32),
         "in_scale": np.float32(s["in1"]),
     }
-    in2 = _leaf(*kb(folded["inbloc"]["conv2"]), s["in2"], s["s0"])
+    in2 = prow_leaf(*kb(folded["inbloc"]["conv2"]), s["in2"], s["s0"])
 
     # ub3.conv1 split halves: input channels 0:16 = up path, 16:32 = skip s0
     w31, b31 = kb(folded["ub3"]["convbloc"]["conv1"])
@@ -220,7 +302,7 @@ def int8_serving_params(variables: dict, rec: dict, mid_rec: dict, headroom: flo
         "scale_z": (s["s0"] * swb / s["u32"]).astype(np.float32),
         "bias": (np.asarray(b31, np.float64) / s["u32"]).astype(np.float32),
     }
-    u32 = _leaf(*kb(folded["ub3"]["convbloc"]["conv2"]), s["u32"], s["ol"])
+    u32 = prow_leaf(*kb(folded["ub3"]["convbloc"]["conv2"]), s["u32"], s["ol"])
 
     def walk_mid(node, base):
         if "kernel" in node:
@@ -230,10 +312,11 @@ def int8_serving_params(variables: dict, rec: dict, mid_rec: dict, headroom: flo
         return {k: walk_mid(v, base + (k,)) for k, v in node.items()}
 
     mid = {k: walk_mid(folded[k], (k,)) for k in ("db1", "db2", "db3", "ub1", "ub2")}
+    pmid = prow_mid_params(folded, mid_rec, s, headroom, 2 * lst_size, up2_impl)
     s32 = {k: np.float32(v) for k, v in s.items()}
     s_db1 = mid["db1"]["res"]["conv1"]["conv"]["in_scale"]
     params = _to_device({"in1": in1, "in2": in2, "u31": u31, "u32": u32, "ol": ol,
-                         "mid": mid}, dev)
+                         "mid": mid, "pmid": pmid}, dev)
     params["s"] = s32
     # float32 phase_mean / 4 of the fused phase-mean output (conv_i8.py:386)
     params["pm_scale"] = float(s32["s0"] / s_db1 / np.float32(4.0))
@@ -242,11 +325,14 @@ def int8_serving_params(variables: dict, rec: dict, mid_rec: dict, headroom: flo
 
 def build_int8_serving_params(variables: dict, sample_lst, sample_ndvi, stats,
                               headroom: float = 1.05, calib_quantile: float | None = None,
-                              device: str | torch.device = "cuda") -> dict:
-    """ModelB2 state dict + calibration patches -> the int8 step's parameters.
+                              device: str | torch.device = "cuda",
+                              up2_impl: str = "mxu") -> dict:
+    """ModelB2 state dict + calibration patches -> the int8 step's parameters,
+    for LST blocks of the patches' size.
     calib_quantile: None uses max|x| per tensor; a quantile clips the tail."""
     rec, mid_rec = calibrate(variables, sample_lst, sample_ndvi, stats, calib_quantile, device)
-    return int8_serving_params(variables, rec, mid_rec, headroom, device)
+    return int8_serving_params(variables, rec, mid_rec, headroom, device,
+                               lst_size=np.asarray(sample_lst).shape[1], up2_impl=up2_impl)
 
 
 # -------------------------------------------------------------- serving step
@@ -268,16 +354,43 @@ def _xla_mid(mid: dict, pm: torch.Tensor) -> torch.Tensor:
                        mid["ub2"]["convbloc"])
 
 
-def make_int8_sr_step(stats, mid: str = "xla", device: str | torch.device = "cuda"):
+def _prow_mid(pmid: dict, pm: torch.Tensor) -> torch.Tensor:
+    """db1..db3, ub1, ub2 as kernels G-K (``pallas_serving.py:395-440``):
+    the int8 phase mean (N, hp, hp, 16) at db1's input scale -> ub2's x2
+    output (N, 2hp, 2hp, 16) int8 at the ``up`` scale."""
+
+    def down(tree, x):
+        c1, c2 = tree["conv1"], tree["conv2"]
+        a = conv_prow(x, c1["w"], c1["scale"], c1["bias"])
+        return conv_prow(a, c2["w"], c2["scale"], c2["bias"], residual=x, res_sc=c2["res_sc"])
+
+    def pool(tree, x):
+        last = tree["last"]
+        return conv_prow_split_pool(x, last["w"], last["scale"], last["bias"], last["pool_sc"])
+
+    def up2(kernel, leaf, x):
+        return kernel(x, leaf["w"], leaf["scale"], leaf["bias"], leaf["rnum"], leaf["cnum"],
+                      leaf["inv"])
+
+    def dual(tree, up, skip):
+        cx, cz = tree["conv1x"], tree["conv1z"]
+        return conv_prow_dual_planes(up, skip, cx["w"], cz["w"], cx["scale"], cz["scale"],
+                                     cx["bias"])
+
+    s1, x2 = pool(pmid["db1"], down(pmid["db1"], pm))
+    s2, x3 = pool(pmid["db2"], down(pmid["db2"], x2))
+    up3 = up2(conv_prow_up2, pmid["db3"]["last"], down(pmid["db3"], x3))
+    upu1 = up2(conv_prow_up2, pmid["ub1"]["conv2"], dual(pmid["ub1"], up3, s2))
+    return up2(conv_prow_up2_pack, pmid["ub2"]["conv2"], dual(pmid["ub2"], upu1, s1))
+
+
+def make_int8_sr_step(stats, mid: str = "prow", device: str | torch.device = "cuda"):
     """The int8 twin of ``inference.make_sr_step``:
-    (params, lst (N,64,64) K, ndvi (N,256,256)) -> (N,256,256) K, params
-    from ``build_int8_serving_params`` on the same device."""
-    if mid == "prow":
-        raise NotImplementedError(
-            "mid='prow' needs the conv_px kernels (G-K), which are not ported yet "
-            "(ROADMAP.md, TPU kernel queue); use mid='xla'")
-    if mid != "xla":
-        raise ValueError(f"mid must be 'xla' or 'prow', got {mid!r}")
+    (params, lst (N,h,h) K, ndvi (N,4h,4h)) -> (N,4h,4h) K, params from
+    ``build_int8_serving_params`` on the same device. mid: 'prow' (the
+    default, kernels G-K) or 'xla' (the JAX comparison chain)."""
+    if mid not in ("prow", "xla"):
+        raise ValueError(f"mid must be 'prow' or 'xla', got {mid!r}")
     dev = resolve_device(device)
 
     def f32(v):
@@ -290,6 +403,9 @@ def make_int8_sr_step(stats, mid: str = "xla", device: str | torch.device = "cud
     def sr_step(params, lst_blocks, ndvi_blocks):
         lst = torch.as_tensor(lst_blocks, dtype=torch.float32, device=dev)
         ndvi = torch.as_tensor(ndvi_blocks, dtype=torch.float32, device=dev)
+        if mid == "prow" and 2 * lst.shape[1] != params["pmid"]["hp"]:
+            raise ValueError(f"the prow parameters were built for {params['pmid']['hp'] // 2}² "
+                             f"LST blocks, got {lst.shape[1]}²")
         s = params["s"]
         in1, in2, u31, u32, ol = (params[k] for k in ("in1", "in2", "u31", "u32", "ol"))
         lst_n = (lst - mean_lst) / std_lst
@@ -299,8 +415,10 @@ def make_int8_sr_step(stats, mid: str = "xla", device: str | torch.device = "cud
         s1 = conv_i8_in1_split(lst_q, ndvi_q, in1["w"], in1["scale"], in1["bias"])
         s0, pm = conv_i8_exact(s1, in2["w"], in2["scale"], in2["bias"],
                                pm_scale=params["pm_scale"])
-        t = _xla_mid(params["mid"], pm)
-        up = upsample_phases(t, 2, "linear_ac", scale=s["up"])
+        if mid == "prow":
+            up = _prow_mid(params["pmid"], pm)
+        else:
+            up = upsample_phases(_xla_mid(params["mid"], pm), 2, "linear_ac", scale=s["up"])
         u = conv_i8_exact_dual(up, s0, u31["wx"], u31["wz"], u31["scale_x"],
                                u31["scale_z"], u31["bias"])
         olp = conv_i8_exact(u, u32["w"], u32["scale"], u32["bias"])

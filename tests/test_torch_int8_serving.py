@@ -1,6 +1,7 @@
 """The port's int8 serving slice against the JAX package (CPU, Pallas kernels
 in interpret mode): weight quantisation, calibration, the whole int8 step
-(mid='xla') and whole-granule prediction with both steps."""
+(mid='prow', the default, and mid='xla') and whole-granule prediction with
+the float32 and int8 steps."""
 
 import os
 
@@ -17,6 +18,7 @@ from sifsr_tpu.inference import predict_granule as jax_predict_granule
 from sifsr_tpu.models import pallas_serving as jax_serving
 from sifsr_tpu.models.quantized import _quantize_kernel as jax_quantize_kernel
 from sifsr_tpu.models.unet import ModelB2 as JaxModelB2
+from sifsr_tpu.pallas.conv_px import nhwc_to_rows
 
 from sifsr_tpu_torch.cli.predict import load_variables
 from sifsr_tpu_torch.data.statistics import Statistics
@@ -30,7 +32,7 @@ ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 WEIGHTS = os.path.join(ROOT, "weights", "modelB_1009")
 STATS_JSON = os.path.join(ROOT, "data", "statistics_testset.json")
 
-# The int8 step's end-to-end tolerance vs JAX's mid='xla' step. The kernels
+# The mid='xla' int8 step's end-to-end tolerance vs JAX's mid='xla' step. The kernels
 # are bit-exact against the Pallas kernels; what may differ is float32
 # summation order in the XLA mid chain (the 2x2 means, the bilinear einsums,
 # the calibration convs), which can flip an int8 requantisation by one
@@ -124,19 +126,26 @@ def test_calibration_record_matches_jax(rng, weights, stats):
         np.testing.assert_allclose(mid[k], jmid[k], rtol=1e-5, err_msg=str(k))
 
 
-def test_int8_step_matches_jax_xla_mid(rng, weights, stats):
-    """The slice as a whole: JAX's calibration record goes into both
-    builders; the port's int8 step vs make_pallas_sr_step(mid='xla')."""
-    cal_lst, cal_ndvi = _patches(rng, 2, 32)
+def _jax_record(rng, weights, stats, size=32):
+    """JAX's calibration record on seeded patches, and JAX's parameters."""
+    cal_lst, cal_ndvi = _patches(rng, 2, size)
     pp = jax.device_get(jax_serving.pack_serving_params(weights[1]))
     rec, mid_rec = jax_serving._f32_packed_mirror(pp, cal_lst, cal_ndvi, stats[1])
     jparams = jax_serving.build_pallas_serving_params(weights[1], cal_lst, cal_ndvi, stats[1])
-    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu")
+    return rec, mid_rec, jparams
 
+
+def test_int8_step_matches_jax_xla_mid(rng, weights, stats):
+    """The slice as a whole: JAX's calibration record goes into both
+    builders; the port's int8 step vs make_pallas_sr_step(mid='xla')."""
+    rec, mid_rec, jparams = _jax_record(rng, weights, stats)
+    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu",
+                                              lst_size=32)
     lst, ndvi = _patches(rng, 2, 32)
     want = np.asarray(jax_serving.make_pallas_sr_step(stats[1], interpret=True, mid="xla")(
         jparams, jnp.asarray(lst), jnp.asarray(ndvi)))
-    got = int8_serving.make_int8_sr_step(stats[0], device="cpu")(params, lst, ndvi).numpy()
+    got = int8_serving.make_int8_sr_step(stats[0], mid="xla", device="cpu")(
+        params, lst, ndvi).numpy()
     assert got.shape == want.shape == (2, 128, 128) and got.dtype == np.float32
     d = got - want
     assert np.sqrt((d ** 2).mean()) <= RMSE_K
@@ -144,9 +153,66 @@ def test_int8_step_matches_jax_xla_mid(rng, weights, stats):
     assert 250.0 < got.min() and got.max() < 350.0
 
 
-def test_mid_prow_not_ported(stats):
+def _port_phase_mean(params, stats, lst, ndvi):
+    """The port's input to the mid chain: kernels A, D and B of the step."""
+    from sifsr_tpu_torch.kernels import conv_i8_exact, conv_i8_in1_split, upsample_phases
+    from sifsr_tpu_torch.models.quantized_packed import _quant
+
+    def norm(x, mean, std):
+        return (torch.from_numpy(x) - torch.tensor(mean)) / torch.tensor(std)
+
+    in1, in2 = params["in1"], params["in2"]
+    lst_q = upsample_phases(norm(lst, stats.mean_lst, stats.std_lst)[..., None], 4, "cubic",
+                            scale=params["s"]["in1"])[..., 0]
+    ndvi_q = _quant(norm(ndvi, stats.mean_ndvi, stats.std_ndvi), in1["in_scale"])
+    s1 = conv_i8_in1_split(lst_q, ndvi_q, in1["w"], in1["scale"], in1["bias"])
+    return conv_i8_exact(s1, in2["w"], in2["scale"], in2["bias"], pm_scale=params["pm_scale"])[1]
+
+
+def test_int8_step_matches_jax_prow_mid(rng, weights, stats):
+    """The slice as a whole with the default mid chain (kernels G-K): JAX's
+    calibration record goes into both builders. The mid chain's int8 output
+    (kernel K's, the x2 of ub2 at the up scale) equals JAX's _prow_mid on the
+    same input after unpacking its pair rows; the Kelvin output then runs the
+    same int8 tail. Expected max|d| is 0 K: the 1e-4 K allows only for the
+    order of the outlay's float32 de-normalise fold (scale * std, bias * std
+    + mean), which XLA may fuse differently from PyTorch."""
+    rec, mid_rec, jparams = _jax_record(rng, weights, stats)
+    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu",
+                                              lst_size=32)
+    lst, ndvi = _patches(rng, 2, 32)
+
+    pm = _port_phase_mean(params, stats[0], lst, ndvi)
+    got_mid = int8_serving._prow_mid(params["pmid"], pm).numpy()
+    want_mid = np.asarray(jax_serving._prow_mid(jparams["pmid"], nhwc_to_rows(
+        jnp.asarray(pm.numpy()), 8), 64, True))
+    want_mid = want_mid.reshape(2, 64, 64, 2, 2, 16).transpose(0, 1, 3, 2, 4, 5)
+    assert got_mid.shape == (2, 128, 128, 16) and got_mid.dtype == np.int8
+    np.testing.assert_array_equal(got_mid, want_mid.reshape(2, 128, 128, 16))
+    assert np.abs(got_mid.astype(int)).mean() > 2
+
+    want = np.asarray(jax_serving.make_pallas_sr_step(stats[1], interpret=True)(
+        jparams, jnp.asarray(lst), jnp.asarray(ndvi)))
+    got = int8_serving.make_int8_sr_step(stats[0], device="cpu")(params, lst, ndvi).numpy()
+    assert got.shape == want.shape == (2, 128, 128) and got.dtype == np.float32
+    assert np.abs(got - want).max() <= 1e-4
+    assert 250.0 < got.min() and got.max() < 350.0
+
+
+def test_mid_and_up2_impl_are_checked(rng, weights, stats):
+    """mid takes 'prow' or 'xla'; the 'vpu' x2 rounding chain is not ported
+    and says where it is queued; a prow step refuses blocks of another size
+    than its parameters' x2 tables were built for."""
+    with pytest.raises(ValueError, match="mid"):
+        int8_serving.make_int8_sr_step(stats[0], mid="bogus", device="cpu")
+    rec, mid_rec, _ = _jax_record(rng, weights, stats, size=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        int8_serving.make_int8_sr_step(stats[0], mid="prow", device="cpu")
+        int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu", lst_size=16,
+                                         up2_impl="vpu")
+    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu",
+                                              lst_size=16)
+    with pytest.raises(ValueError, match="16"):
+        int8_serving.make_int8_sr_step(stats[0], device="cpu")(params, *_patches(rng, 1, 32))
 
 
 def _granule(rng):
@@ -170,34 +236,49 @@ def test_predict_granule_f32_matches_jax(rng, weights, stats):
     assert np.all(got[:64, :64] == 0.0) and np.all(got[64:] > 250.0)
 
 
-def test_predict_granule_int8_matches_jax(rng, weights, stats):
+def _predict_granule_int8(rng, weights, stats, mid):
     """Whole-granule prediction with the int8 steps, both calibrated on the
-    same (JAX) record, vs JAX's predict_granule with mid='xla'."""
+    same (JAX) record at the granule's window size: (port, JAX) mosaics."""
     lst, ndvi, kw = _granule(rng)
-    cal_lst, cal_ndvi = _patches(rng, 2, 32)
-    jparams = jax_serving.build_pallas_serving_params(weights[1], cal_lst, cal_ndvi, stats[1])
-    pp = jax.device_get(jax_serving.pack_serving_params(weights[1]))
-    rec, mid_rec = jax_serving._f32_packed_mirror(pp, cal_lst, cal_ndvi, stats[1])
-    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu")
+    rec, mid_rec, jparams = _jax_record(rng, weights, stats, size=kw["window"])
+    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu",
+                                              lst_size=kw["window"])
     want = jax_predict_granule(weights[1], lst, ndvi, stats[1],
                                sr_step=jax_serving.make_pallas_sr_step(stats[1], interpret=True,
-                                                                       mid="xla"),
+                                                                       mid=mid),
                                step_params=jparams, **kw)
     got = predict_granule(weights[0], lst, ndvi, stats[0], device="cpu",
-                          sr_step=int8_serving.make_int8_sr_step(stats[0], device="cpu"),
+                          sr_step=int8_serving.make_int8_sr_step(stats[0], mid=mid,
+                                                                 device="cpu"),
                           step_params=params, **kw)
+    assert np.all(got[:64, :64] == 0.0)
+    return got, want
+
+
+def test_predict_granule_int8_matches_jax(rng, weights, stats):
+    """Whole-granule prediction with the default (prow) int8 steps: the same
+    tolerance as test_int8_step_matches_jax_prow_mid."""
+    got, want = _predict_granule_int8(rng, weights, stats, "prow")
+    assert np.abs(got - want).max() <= 1e-4
+
+
+def test_predict_granule_int8_xla_matches_jax(rng, weights, stats):
+    """Whole-granule prediction with the mid='xla' int8 steps."""
+    got, want = _predict_granule_int8(rng, weights, stats, "xla")
     d = got - want
     assert np.sqrt((d ** 2).mean()) <= RMSE_K and np.abs(d).max() <= MAX_K
-    assert np.all(got[:64, :64] == 0.0)
 
 
 def test_make_quantized_step_within_int8_contract(rng, weights, stats):
     """predict's own wiring: an int8 step calibrated on a granule's valid
     64x64 blocks stays within the int8 contract of the float32 mosaic
-    (RMSE < 0.3 K, max < 1 K)."""
+    (RMSE < 0.3 K, max < 1 K). The step is the prow one, bound to 64x64 LST
+    blocks, so the granule is served at predict's own window."""
     from sifsr_tpu_torch.cli.predict import make_quantized_step
 
-    lst, ndvi, kw = _granule(rng)
+    lst = (296.0 + 20.0 * rng.random((64, 128))).astype(np.float32)
+    ndvi = (0.1 + 0.7 * rng.random((256, 512))).astype(np.float32)
+    kw = dict(batch_size=2)
     cal_lst, cal_ndvi = _patches(rng, 1, 64)
     step, qparams = make_quantized_step(weights[0], cal_lst[0], cal_ndvi[0], stats[0],
                                         use_pallas=True, device="cpu")
@@ -205,7 +286,8 @@ def test_make_quantized_step_within_int8_contract(rng, weights, stats):
                           step_params=qparams, **kw)
     ref = predict_granule(weights[0], lst, ndvi, stats[0], compute_dtype=torch.float32,
                           device="cpu", **kw)
-    d = (got - ref)[64:]
+    d = got - ref
+    assert got.shape == (256, 512)
     assert np.sqrt((d ** 2).mean()) < 0.3 and np.abs(d).max() < 1.0
     with pytest.raises(ValueError, match="fully-valid"):
         make_quantized_step(weights[0], np.zeros((64, 64), np.float32), cal_ndvi[0], stats[0],
@@ -228,10 +310,13 @@ def test_first_block_calibration_shared_with_jax(weights, stats):
     the granule's first 8 fully-valid 64x64 blocks. On a granule whose last
     block row holds a steep front that the first 8 blocks lack, activations
     there pass the calibrated range and clip, and the int8 step leaves the
-    int8 contract (RMSE < 0.3 K, max < 1 K) on those blocks. JAX's step
-    (mid='xla') clips the same way: the port stays within the slice's
-    tolerance of it there too. This pins the calibration-coverage fault
-    recorded in ROADMAP.md; a rule that covers the granule changes it."""
+    int8 contract (RMSE < 0.3 K, max < 1 K) on those blocks. JAX's default
+    step (mid='prow') clips the same way: the port stays within the slice's
+    tolerance of it there too (each package calibrates on its own here, and
+    float32 summation order in the calibration mirrors can move a scale by
+    an ulp and flip an int8 quantum). This pins the calibration-coverage
+    fault recorded in ROADMAP.md; a rule that covers the granule changes
+    it."""
     from sifsr_tpu.cli.predict import make_quantized_step as jax_make_quantized_step
     from sifsr_tpu_torch.cli.predict import make_quantized_step
     from sifsr_tpu_torch.inference import make_sr_step, tile_granule
@@ -253,7 +338,7 @@ def test_first_block_calibration_shared_with_jax(weights, stats):
     lst_b, ndvi_b, _ = tile_granule(lst, ndvi)
     far = (lst_b[10:], ndvi_b[10:])                    # two blocks after the first 8
     got = step(qparams, *far).numpy()
-    want = np.asarray(jax_serving.make_pallas_sr_step(stats[1], interpret=True, mid="xla")(
+    want = np.asarray(jax_serving.make_pallas_sr_step(stats[1], interpret=True)(
         jparams, *map(jnp.asarray, far)))
     # the float32 step, held to JAX's in test_torch_model.py
     ref = make_sr_step(stats[0], torch.float32, "cpu")(
