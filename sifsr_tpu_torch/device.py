@@ -6,7 +6,7 @@ import contextlib
 
 import torch
 
-__all__ = ["full_f32_convs", "resolve_device"]
+__all__ = ["full_f32", "full_f32_convs", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -35,3 +35,19 @@ def full_f32_convs(enable: bool = True):
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def full_f32(enable: bool = True):
+    """Full float32 for cuDNN convolutions and for matmuls inside the block:
+    ``full_f32_convs`` plus ``torch.backends.cuda.matmul.allow_tf32`` off (its
+    default, which a caller may have changed). The training steps wrap their
+    forward, losses, metrics and backward in it under precision='highest'."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    if enable:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with full_f32_convs(enable):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before

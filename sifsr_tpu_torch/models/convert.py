@@ -11,7 +11,8 @@ the flax ndarray extension (ext type 1 holding ``[shape, dtype, bytes]``).
 kernels become OIHW, BN ``scale/bias/mean/var`` become ``weight/bias/
 running_mean/running_var``, under the reference torch model's key names, so
 the result loads into ``models.unet.ModelB2`` with ``strict=True`` (as does a
-reference ``modelB_state_dict.pt``).
+reference ``modelB_state_dict.pt``). ``to_jax_variables`` is its inverse, so
+that trained parameters and BatchNorm statistics compare tree against tree.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-__all__ = ["unpackb", "load_msgpack_variables", "from_jax_variables"]
+__all__ = ["unpackb", "load_msgpack_variables", "from_jax_variables", "to_jax_variables"]
 
 _NDARRAY_EXT = 1  # flax.serialization._MsgpackExtType.ndarray
 
@@ -175,3 +176,40 @@ def from_jax_variables(variables: dict) -> "OrderedDict[str, torch.Tensor]":
         if key.endswith(".running_var"):
             out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def to_jax_variables(state_dict) -> dict:
+    """The inverse of ``from_jax_variables``: a ModelB2 state dict (tensors on
+    any device, or arrays) -> ``{'params', 'batch_stats'}`` with float32 numpy
+    leaves in the JAX ModelB2's tree; ``num_batches_tracked`` is dropped."""
+    def arr(key):
+        v = state_dict[key]
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        return np.ascontiguousarray(v, np.float32)
+
+    def kernel(key):
+        return np.ascontiguousarray(arr(key).transpose(2, 3, 1, 0))  # OIHW->HWIO
+
+    def bn(prefix):
+        return ({"scale": arr(f"{prefix}.weight"), "bias": arr(f"{prefix}.bias")},
+                {"mean": arr(f"{prefix}.running_mean"), "var": arr(f"{prefix}.running_var")})
+
+    params: dict = {}
+    stats: dict = {}
+
+    def node(tree, path):
+        for k in path:
+            tree = tree.setdefault(k, {})
+        return tree
+
+    for path, prefix in _double_convs():
+        p, s = node(params, path), node(stats, path)
+        p["conv1"] = {"kernel": kernel(f"{prefix}.0.weight")}
+        p["bn1"], s["bn1"] = bn(f"{prefix}.1")
+        p["conv2"] = {"kernel": kernel(f"{prefix}.3.weight")}
+        p["bn2"], s["bn2"] = bn(f"{prefix}.4")
+    for name in ("db1", "db2", "db3"):
+        params[name]["lastconv"] = {"kernel": kernel(f"{name}.lastconv.0.weight")}
+        params[name]["lastbn"], stats[name]["lastbn"] = bn(f"{name}.lastconv.1")
+    params["outlay"] = {"kernel": kernel("outlay.weight"), "bias": arr("outlay.bias")}
+    return {"params": params, "batch_stats": stats}

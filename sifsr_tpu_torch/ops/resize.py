@@ -1,8 +1,9 @@
 """Separable image resampling as precomputed matrices.
 
 Port of ``sifsr_tpu/ops/resize.py``. The reference pipeline resamples with
-cv2 ``INTER_CUBIC`` (dataset bicubic x4 upsample) and torch align-corners
-bilinear x2 (the U-Net decoder). Both are linear maps with a fixed tap
+cv2 ``INTER_CUBIC`` (dataset bicubic x4 upsample), torch bicubic 1/4
+decimation (the sensor model) and torch align-corners bilinear x2 (the U-Net
+decoder). All are linear maps with a fixed tap
 pattern, so each axis gets a dense ``(out, in)`` float64 matrix and the
 resize is two matmuls, ``y = A_h @ x @ A_w^T``:
 
@@ -24,7 +25,9 @@ import torch
 
 __all__ = [
     "resize_matrix",
+    "cubic_resize",
     "upsample_bicubic",
+    "downsample_bicubic",
     "upsample_bilinear_x2",
 ]
 
@@ -94,10 +97,22 @@ def _apply_separable(x: torch.Tensor, out_h: int, out_w: int, kind: str) -> torc
     return torch.matmul(torch.matmul(mat_h, x), mat_w.T)
 
 
+def cubic_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize of the trailing two axes to ``out_hw`` (cv2/torch parity),
+    in x's dtype with float64-precomputed weights."""
+    return _apply_separable(x, out_hw[0], out_hw[1], "cubic")
+
+
 def upsample_bicubic(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
     """cv2.INTER_CUBIC x`factor` upsample of (..., H, W) (reference utils.py:163-180)."""
     h, w = x.shape[-2], x.shape[-1]
-    return _apply_separable(x, h * factor, w * factor, "cubic")
+    return cubic_resize(x, (h * factor, w * factor))
+
+
+def downsample_bicubic(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
+    """torch bicubic 1/`factor` decimation, antialias=False (utils.py:1698-1706)."""
+    h, w = x.shape[-2], x.shape[-1]
+    return cubic_resize(x, (h // factor, w // factor))
 
 
 def upsample_bilinear_x2(x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from sifsr_tpu_torch.kernels import conv_i8, conv_px, resize_phases
+from sifsr_tpu_torch.kernels import conv_i8, conv_px, fused_ops, resize_phases
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +133,90 @@ def test_conv_prow_dual_planes_cuda(rng, cuda, c):
     got = conv_px.conv_prow_dual_planes(x, z, wx, wz, sx, sz, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+MEAN, STD = 295.0, 10.0
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_fused_psf_downscale_cuda(rng, cuda, size):
+    """Kernel M forward and backward on an odd batch (64 -> 16, 128 -> 32)
+    against the plain version in float64; 1e-5 covers float32 sums of
+    `size` terms taken in another order."""
+    x = _f32(rng.standard_normal((3, size, size)))
+    g = _f32(rng.standard_normal((3, size // 4, size // 4)))
+    xd = x.to(cuda).requires_grad_()
+    fused_ops.fused_psf_downscale.launches = fused_ops.fused_psf_downscale.backward_launches = 0
+    y = fused_ops.fused_psf_downscale(xd, MEAN, STD)
+    # an expanded (stride-0) view must also do as the incoming gradient
+    (dx,) = torch.autograd.grad(y, xd, g.to(cuda))
+    (dx1,) = torch.autograd.grad(fused_ops.fused_psf_downscale(xd, MEAN, STD), xd,
+                                 torch.ones((), device=cuda).expand(3, size // 4, size // 4))
+    torch.cuda.synchronize()
+    assert (fused_ops.fused_psf_downscale.launches,
+            fused_ops.fused_psf_downscale.backward_launches) == (2, 2)
+    x64 = x.double().requires_grad_()
+    want = fused_ops.fused_psf_downscale_plain(x64, MEAN, STD)
+    (want_dx,) = torch.autograd.grad(want, x64, g.double(), retain_graph=True)
+    (want_dx1,) = torch.autograd.grad(want, x64, torch.ones_like(want))
+    assert y.shape == (3, size // 4, size // 4) and dx.shape == x.shape
+    assert float((y.detach().cpu().double() - want.detach()).abs().max()) <= 1e-5
+    assert float((dx.cpu().double() - want_dx).abs().max()) <= 1e-5
+    assert float((dx1.cpu().double() - want_dx1).abs().max()) <= 1e-5
+
+
+def test_fused_psf_downscale_autograd_cuda(rng, cuda):
+    """huber(fused_psf_downscale(x), t): value and gradient against the plain
+    chain (value 1e-5, gradient rtol 1e-4 / atol 1e-6, the JAX package's own
+    bounds for its kernel's gradient)."""
+    from sifsr_tpu_torch.losses.losses import huber
+
+    x = _f32(rng.standard_normal((3, 64, 64)))
+    t = _f32(rng.standard_normal((3, 16, 16))).to(cuda)
+    got_x, want_x = x.to(cuda).requires_grad_(), x.to(cuda).requires_grad_()
+    got = huber(fused_ops.fused_psf_downscale(got_x, MEAN, STD), t)
+    want = huber(fused_ops.fused_psf_downscale_plain(want_x, MEAN, STD), t)
+    got.backward()
+    want.backward()
+    assert abs(float(got.detach()) - float(want.detach())) < 1e-5
+    torch.testing.assert_close(got_x.grad, want_x.grad, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (40, 36)])
+@pytest.mark.parametrize("factor", [4, 2])
+@pytest.mark.parametrize("renorm", [False, True])
+def test_fused_norm_l4_cuda(rng, cuda, h, w, factor, renorm):
+    """Kernel N against its float64 plain version, relative 1e-6 (on the
+    un-normalised value when renorm is set: the final (y - mean)/std cancels
+    the leading digits)."""
+    x = _f32(rng.standard_normal((3, h, w)))
+    got = fused_ops.fused_norm_l4(x.to(cuda), MEAN, STD, factor, renorm)
+    torch.cuda.synchronize()
+    want = fused_ops.fused_norm_l4_plain(x.double(), MEAN, STD, factor, renorm)
+    assert got.shape == (3, h // factor, w // factor)
+    got, scale = got.cpu().double(), want.abs()
+    if renorm:
+        got, want = got * STD + MEAN, want * STD + MEAN
+        scale = want.abs()
+    assert float(((got - want).abs() / scale).max()) <= 1e-6
+    # an input that is not 16-byte aligned takes the scalar loads
+    x1 = torch.cat([torch.zeros(1), x.reshape(-1)]).to(cuda)[1:].reshape(3, h, w)
+    got1 = fused_ops.fused_norm_l4(x1, MEAN, STD, factor, renorm)
+    assert torch.equal(got1, fused_ops.fused_norm_l4(x.to(cuda), MEAN, STD, factor, renorm))
+
+
+def test_degrade_batch_runs_norm_l4_kernel_cuda(rng, cuda):
+    """The scale-invariance batch degradation launches kernel N once on the
+    card and agrees with the CPU route (the kernel's plain version) to the
+    float32 rounding of a Kelvin-scale value renormalised by std 10 (2e-5)."""
+    from sifsr_tpu_torch.data.datasets import degrade_batch_scale_invariance
+
+    batch = {"lst": rng.standard_normal((3, 64, 64, 1)).astype(np.float32),
+             "ndvi": rng.standard_normal((3, 256, 256, 1)).astype(np.float32)}
+    fused_ops.fused_norm_l4.launches = 0
+    got = degrade_batch_scale_invariance(batch, MEAN, STD, device=cuda)
+    assert fused_ops.fused_norm_l4.launches == 1
+    want = degrade_batch_scale_invariance(batch, MEAN, STD, device="cpu")
+    for k in want:
+        assert got[k].shape == want[k].shape
+        assert float((got[k].cpu() - want[k]).abs().max()) <= 2e-5, k
