@@ -11,7 +11,11 @@ Phases, each of which raises on failure (no result line is printed then):
 3. kernels: each hand-written kernel of the int8 serving paths at the
    shapes the paths give it (batch 324), held against its plain PyTorch
    version on the same seeded inputs: the outputs must be identical (int8 and
-   the generic conv's float32 alike); CUDA-event times of kernel and plain
+   the generic conv's float32 alike). Kernel E (conv_i8_in1) must also equal
+   D on the de-interleaved planes, F (conv_i8_outlay) the generic conv, L
+   (conv_prow_dual) its plain version at both shapes, and I and K with the
+   float32 tables of up2_impl='vpu' both their plain chain and kernel A with
+   in_scale on the conv's int8 output; CUDA-event times of kernel and plain
    version, the least time the card could take (bytes or operations), and,
    for kernel A, of the PyTorch interpolate calls that compute its float
    function. The float kernels of the training losses at training batch 32:
@@ -26,7 +30,8 @@ Phases, each of which raises on failure (no result line is printed then):
    outputs in golden/ at rtol 1e-4 / atol 5e-5;
 5. whole granule: a seeded synthetic 1200² LST / 4800² NDVI granule through
    ``predict_granule`` at batch 324 with the float32 step, the bf16 step
-   (``predict_granule``'s default), the int8 step of
+   (``predict_granule``'s default, fused pads; the float32 step defaults to
+   explicit pads), the int8 step of
    ``make_quantized_step(..., use_pallas=True)`` (mid='prow', kernels G-K)
    and the int8 ``mid='xla'`` step on the same parameters. The bf16 mosaic
    must stay within RMSE 0.1 K / max 0.5 K of the float32 one (the bound of
@@ -37,15 +42,39 @@ Phases, each of which raises on failure (no result line is printed then):
    conv_i8_exact_dual 1, conv_i8_generic 1, conv_prow 6,
    conv_prow_split_pool 2, conv_prow_up2 2, conv_prow_dual_planes 2,
    conv_prow_up2_pack 1; xla: upsample_phases 2, conv_i8_in1_split 1,
-   conv_i8_exact 2, conv_i8_exact_dual 1, conv_i8_generic 14.
-
-6. golden train step: one predef_filters step from weights/modelB_1009 on
+   conv_i8_exact 2, conv_i8_exact_dual 1, conv_i8_generic 14. Then the
+   comparison steps on the same granule: kernels='alt' (E 1, F 1, L 2 in
+   place of D, the generic conv and J), whose mosaic must be identical to
+   the prow one; up2_impl='vpu' parameters (same counts as prow, same gates,
+   differences from the mxu mosaic logged); the plain int8 step of
+   ``predict --int8`` (conv_i8_generic 18, one for every conv of the
+   folded model; same gates). Step times of all,
+   and of the float steps with both pad forms. The granule modes with the
+   int8, bf16 and float32 steps: each mode identical to the host pipeline on
+   the same wire; ``wire='int'`` within each step's own gate of the float32
+   mosaic, and, on the granule rounded to the wire's steps (LST 0.02 K, NDVI
+   1e-4, what MODIS products hold), within 0.0101 K of the float wire for
+   every step: half the 0.02 K output step and a float32 ulp;
+6. files: the granule written as a MOD21A1D-like and a MOD09GQ-like HDF4 pair
+   (the port's writer) and as a GeoTIFF pair; ``cli.predict.main`` once per
+   serving flag (default bf16, --f32, --int8, --pallas, --pallas --up2-impl
+   vpu) and, under --pallas, per --mode (host_pipeline, device_tiling,
+   device_tiling_wire, auto): each prediction.tiff read back, 4608², with
+   the NDVI's geotransform, equal to ``predict_granule`` on the decoded
+   arrays in the same mode (identical; ``--f32 --wire int`` within 0.012 K of
+   the float wire: half the 0.02 K output step plus the response to NDVI
+   rounded to 1e-4; ``--pallas --wire int`` within 0.0101 K of ``--pallas``
+   on a GeoTIFF pair rounded to the wire's steps); ``cli.serve.main --once --pallas`` on a
+   spool with two good jobs, a missing file and broken JSON: two rasters
+   identical to predict's, two failed/*.err, one calibration, exactly two
+   granules' worth of launches. Wall seconds per command;
+7. golden train step: one predef_filters step from weights/modelB_1009 on
    golden/train_step_predef.npz (batch 4, TF32 off), whose ds_loss runs
    fused_psf_downscale forward and backward: losses within 5e-5 of the torch
    reference, post-step parameters 0.999-quantile < 1e-4 and max < 1e-3 (and
    < 2e-5 wherever |gradient| >= 1e-6, where Adam's first update is well
    conditioned), BN running statistics < 5e-5;
-7. training: two epochs of each recipe through ``train.loop.train_loop`` at
+8. training: two epochs of each recipe through ``train.loop.train_loop`` at
    full width and paramsB.json's hyperparameters (batch 32, lr 1e-3, alpha
    0.99, gamma -0.5) on make_synthetic_dataset(64, seed=1) / (32, seed=2):
    finite losses, exact launch counts per recipe (predef_filters and
@@ -153,6 +182,11 @@ def main(profile: bool = False) -> None:
 
     from sifsr_tpu_torch.kernels import _build, conv_i8, conv_px, fused_ops, resize_phases
     from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+    from sifsr_tpu_torch.cli import predict as cli_predict, serve as cli_serve
+    from sifsr_tpu_torch.geo.hdf4 import write_hdf4_sds
+    from sifsr_tpu_torch.geo.tiff import read_geotiff, write_geotiff
+    from sifsr_tpu_torch.inference import (WIRE_LST_STEP, WIRE_NDVI_STEP, encode_wire,
+                                           probe_link)
     from sifsr_tpu_torch.models.unet import ModelB2
 
     torch.backends.cudnn.allow_tf32 = False
@@ -277,12 +311,20 @@ def main(profile: bool = False) -> None:
     # D: inbloc.conv1, LST and NDVI int8 planes -> 16 channels at 256²
     x2, w1, sc1, b1 = conv_args(2, 16, (N, 256, 256))
     lst_q, ndvi_q = x2[..., 0].contiguous(), x2[..., 1].contiguous()
-    del x2
     check("conv_i8_in1_split", [(
         lambda: K.conv_i8_in1_split(lst_q, ndvi_q, w1, sc1, b1),
         lambda: conv_i8.conv_i8_in1_split_plain(lst_q, ndvi_q, w1, sc1, b1),
         conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))])
-    del lst_q, ndvi_q
+    # E: the same conv on the channel-interleaved tensor; identical to D
+    check("conv_i8_in1", [(
+        lambda: K.conv_i8_in1(x2, w1, sc1, b1),
+        lambda: conv_i8.conv_i8_in1_plain(x2, w1, sc1, b1),
+        conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))])
+    if not torch.equal(K.conv_i8_in1(x2, w1, sc1, b1),
+                       K.conv_i8_in1_split(lst_q, ndvi_q, w1, sc1, b1)):
+        raise AssertionError("conv_i8_in1 differs from conv_i8_in1_split")
+    log("kernel conv_i8_in1: identical to conv_i8_in1_split on the de-interleaved planes")
+    del x2, lst_q, ndvi_q
 
     # B: inbloc.conv2 with the fused phase mean, ub3.conv2 without
     x, w, sc, b = conv_args(16, 16, (N, 256, 256))
@@ -319,7 +361,20 @@ def main(profile: bool = False) -> None:
              conv_i8.conv_i8_generic_plain(gx, gw, gs, gb, relu)),
             conv_bytes(N, hw, hw, cin, cout, 4), int8_ms(conv_ops(N, hw, hw, cin, cout))))
     check("conv_i8_generic", generic_calls, reps=5, plain_reps=1)
-    del generic_calls
+    # F: the outlay with the de-normalise folded into one scale and one bias;
+    # identical to the generic conv on the same operands (gx.. are the
+    # outlay's, the last of mid_shapes)
+    ol_args = (gx, gw, gs, gb)
+    check("conv_i8_outlay", [(
+        lambda: K.conv_i8_outlay(*ol_args),
+        lambda: conv_i8.conv_i8_outlay_plain(*ol_args),
+        conv_bytes(N, 256, 256, 16, 1, 4), int8_ms(conv_ops(N, 256, 256, 16, 1)))])
+    if not torch.equal(K.conv_i8_outlay(*ol_args),
+                       K.conv_i8_generic(*ol_args, relu=False)[..., 0]):
+        raise AssertionError("conv_i8_outlay differs from conv_i8_generic")
+    log(f"kernel conv_i8_outlay: identical to conv_i8_generic; the generic call at this shape "
+        f"{time_ms(torch, lambda: K.conv_i8_generic(*ol_args, relu=False), 10):.4f} ms")
+    del generic_calls, ol_args, gx, gw, gs, gb
     torch.cuda.empty_cache()
 
     # G: res.conv1 and res.conv2 (residual fused) of db1, db2, db3
@@ -373,19 +428,58 @@ def main(profile: bool = False) -> None:
     check("conv_prow_up2_pack", [up2_call(K.conv_prow_up2_pack, 128, 32, 16)],
           reps=5, plain_reps=1)
 
-    # J: ub1.conv1 over concat(up, s2), ub2.conv1 over concat(up, s1)
-    dual_calls = []
+    def up2_vpu_call(kernel, hw, cin, cout):
+        """The same with the float32 tables of up2_impl='vpu': the reference
+        is kernel A with in_scale on the conv's int8 output (s_up is exact
+        in float32, so both form the same 1/s_up), the plain chain is checked
+        beside it; the x2 as float32 multiply-adds (two row taps per source
+        value and phase, two column taps per output)."""
+        s_mid, s_up = 0.05, 0.0625
+        gx, gw, gs, gb = conv_args(cin, cout, (N, hw, hw))
+        rc, cc, inv = conv_px.up2_coeffs(hw, hw, s_mid, s_up)
+        tabs = (torch.from_numpy(rc).to(dev), torch.from_numpy(cc).to(dev), inv)
+        up_ops = 2.0 * N * cout * (2 * (2 * hw) * hw + 2 * (2 * hw) * (2 * hw))
+        plain = lambda: conv_px.conv_prow_up2_plain(gx, gw, gs, gb, *tabs)
+        second = lambda: resize_phases.upsample_phases(
+            conv_px.conv_prow_plain(gx, gw, gs, gb), 2, "linear_ac", scale=s_up, in_scale=s_mid)
+        if not torch.equal(plain(), second()):
+            raise AssertionError("the vpu plain chain differs from upsample_phases with in_scale")
+        mid_f = conv_px.conv_prow_plain(gx, gw, gs, gb).permute(0, 3, 1, 2).float()
+        return ((lambda: kernel(gx, gw, gs, gb, *tabs)), plain,
+                N * hw * hw * cin + N * 4 * hw * hw * cout + 9 * cin * cout + 8 * cout
+                + 2 * 6 * hw * 4,
+                int8_ms(conv_ops(N, hw, hw, cin, cout)) + up_ops / F32_OPS_PER_S * 1e3,
+                second), (lambda: F.interpolate(mid_f, scale_factor=2, mode="bilinear",
+                                                align_corners=True))
+
+    calls_lib = [up2_vpu_call(K.conv_prow_up2, 32, 64, 64), up2_vpu_call(K.conv_prow_up2, 64, 64, 32)]
+    check("conv_prow_up2[vpu]", [c for c, _ in calls_lib], reps=5, plain_reps=1,
+          library=[f for _, f in calls_lib])
+    calls_lib = [up2_vpu_call(K.conv_prow_up2_pack, 128, 32, 16)]
+    check("conv_prow_up2_pack[vpu]", [c for c, _ in calls_lib], reps=5, plain_reps=1,
+          library=[f for _, f in calls_lib])
+    del calls_lib
+    torch.cuda.empty_cache()
+
+    # J: ub1.conv1 over concat(up, s2), ub2.conv1 over concat(up, s1); L: the
+    # same function under its own wrapper (the skip is one tensor in NHWC)
+    dual_calls, l_calls = [], []
     for hw, c in ((64, 64), (128, 32)):
         gx, gwx, gsx, gb = conv_args(c, c, (N, hw, hw))
         gz, gwz, gsz, _ = conv_args(c, c, (N, hw, hw))
         args = (gx, gz, gwx, gwz, gsx, gsz, gb)
+        nbytes = N * hw * hw * 3 * c + 2 * 9 * c * c + 12 * c
         dual_calls.append((
             (lambda args=args: K.conv_prow_dual_planes(*args)),
             (lambda args=args: conv_px.conv_prow_dual_planes_plain(*args)),
-            N * hw * hw * 3 * c + 2 * 9 * c * c + 12 * c,
-            int8_ms(2 * conv_ops(N, hw, hw, c, c))))
+            nbytes, int8_ms(2 * conv_ops(N, hw, hw, c, c))))
+        l_calls.append((
+            (lambda args=args: K.conv_prow_dual(*args)),
+            (lambda args=args: conv_px.conv_prow_dual_plain(*args)),
+            nbytes, int8_ms(2 * conv_ops(N, hw, hw, c, c))))
     check("conv_prow_dual_planes", dual_calls, reps=5, plain_reps=1)
-    del dual_calls
+    check("conv_prow_dual", l_calls, reps=5, plain_reps=1)
+    del dual_calls, l_calls
     torch.cuda.empty_cache()
 
     # M: the ds-loss degradation, forward (32,256,256) -> (32,64,64) and its
@@ -479,10 +573,11 @@ def main(profile: bool = False) -> None:
     stats = Statistics.from_json(os.path.join(ROOT, "data", "statistics_testset.json"))
     lst, ndvi = synthetic_granule(np.random.default_rng(1))
 
-    def run(**kw):
+    def run(granule=None, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = predict_granule(variables, lst, ndvi, stats, batch_size=N, device=dev, **kw)
+        out = predict_granule(variables, *(granule or (lst, ndvi)), stats, batch_size=N,
+                              device=dev, **kw)
         return out, time.perf_counter() - t
 
     run(compute_dtype=torch.float32)
@@ -530,6 +625,56 @@ def main(profile: bool = False) -> None:
             raise AssertionError(f"int8 ({mid}) contract failed: rmse {rmse}, max {dmax}, "
                                  f"range {sr.min()}..{sr.max()}")
 
+    # the comparison steps on the same granule: kernels='alt' on the prow
+    # parameters (identical mosaic), up2_impl='vpu' parameters, and the plain
+    # int8 step of predict --int8
+    prow_mosaic = predict_granule(variables, lst, ndvi, stats, batch_size=N, device=dev,
+                                  sr_step=step, step_params=qparams)
+    alt_step = make_int8_sr_step(stats, kernels="alt", device=dev)
+    t = time.perf_counter()
+    vpu_step, vpu_params = make_quantized_step(variables, lst, ndvi, stats, use_pallas=True,
+                                               up2_impl="vpu", device=dev)
+    t_cal_vpu = time.perf_counter() - t
+    t = time.perf_counter()
+    q_step, q_params = make_quantized_step(variables, lst, ndvi, stats, use_pallas=False,
+                                           device=dev)
+    t_cal_q = time.perf_counter() - t
+    per_batch["alt"] = dict(per_batch["prow"], conv_i8_in1_split=0, conv_i8_in1=1,
+                            conv_i8_generic=0, conv_i8_outlay=1, conv_prow_dual_planes=0,
+                            conv_prow_dual=2)
+    per_batch["vpu"] = per_batch["prow"]
+    per_batch["int8"] = {"conv_i8_generic": 18}          # every conv of the folded model
+    mosaics = {}
+    for name, int8_step, params in (("alt", alt_step, qparams), ("vpu", vpu_step, vpu_params),
+                                    ("int8", q_step, q_params)):
+        run(sr_step=int8_step, step_params=params)
+        K.reset_launches()
+        sr, wall[name] = run(sr_step=int8_step, step_params=params)
+        launches[name] = {k.__name__: k.launches for k in K.KERNELS}
+        want = {k.__name__: per_batch[name].get(k.__name__, 0) * n_batches for k in K.KERNELS}
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launches {launches[name]}, expected {want}")
+        d = sr.astype(np.float64) - ref
+        rmse, dmax = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
+        log(f"granule: int8 ({name}) vs f32 RMSE {rmse:.4f} K, max {dmax:.4f} K, "
+            f"range {sr.min():.2f}..{sr.max():.2f} K; launches {launches[name]}")
+        if not (sr.shape == mosaic and np.isfinite(sr).all() and rmse < 0.3 and dmax < 1.0
+                and sr.min() > 250.0 and sr.max() < 350.0):
+            raise AssertionError(f"int8 ({name}) contract failed: rmse {rmse}, max {dmax}")
+        mosaics[name] = sr
+    if not np.array_equal(mosaics["alt"], prow_mosaic):
+        raise AssertionError("the kernels='alt' mosaic differs from the default prow mosaic: max|d| "
+                             f"{np.abs(mosaics['alt'] - prow_mosaic).max()}")
+    log("granule: the kernels='alt' mosaic (E, F, L) is identical to the default prow mosaic")
+    d = np.abs(mosaics["vpu"] - prow_mosaic)
+    log(f"granule: up2_impl='vpu' vs 'mxu' mosaic: {int((d > 0).sum())} of {d.size} pixels "
+        f"differ, max {d.max():.4f} K (one int8 quantum of the outlay's input is "
+        f"{float(qparams['s']['ol']):.4f} normalised units, "
+        f"{float(qparams['s']['ol']) * stats.std_lst:.4f} K)")
+    if not d.max() < 0.5:
+        raise AssertionError(f"the vpu mosaic is {d.max()} K off the mxu mosaic")
+    del mosaics, prow_mosaic
+
     # device time of one serving batch for each step
     lst_d = torch.from_numpy(lst[:64 * 18, :64 * 18].reshape(18, 64, 18, 64)
                              .transpose(0, 2, 1, 3).reshape(N, 64, 64).copy()).to(dev)
@@ -539,30 +684,266 @@ def main(profile: bool = False) -> None:
     from sifsr_tpu_torch.models.fused import InferenceModelB2
 
     fmodel = InferenceModelB2.from_variables(variables).to(dev)
-    f_step = make_sr_step(stats, torch.float32, dev)
-    ms_f32 = time_ms(torch, lambda: f_step(fmodel, lst_d, ndvi_d), 5)
     bmodel = InferenceModelB2.from_variables(variables).to(dev, torch.bfloat16)
-    b_step = make_sr_step(stats, torch.bfloat16, dev)
-    ms_bf16 = time_ms(torch, lambda: b_step(bmodel, lst_d, ndvi_d), 5)
-    ms_i8 = {mid: time_ms(torch, lambda f=f: f(qparams, lst_d, ndvi_d), 10)
-             for mid, f in (("prow", step), ("xla", xla_step))}
+    ms_float = {}
+    for pad in ("fused", "explicit", "explicit", "fused"):      # in turns, within one call
+        f_step = make_sr_step(stats, torch.float32, dev, pad)
+        b_step = make_sr_step(stats, torch.bfloat16, dev, pad)
+        ms_float.setdefault(("f32", pad), []).append(
+            time_ms(torch, lambda: f_step(fmodel, lst_d, ndvi_d), 5))
+        ms_float.setdefault(("bf16", pad), []).append(
+            time_ms(torch, lambda: b_step(bmodel, lst_d, ndvi_d), 5))
+    # the defaults of make_sr_step: explicit pads in float32, fused in bf16
+    ms_f32, ms_bf16 = min(ms_float[("f32", "explicit")]), min(ms_float[("bf16", "fused")])
+    ms_i8 = {name: time_ms(torch, lambda f=f, p=p: f(p, lst_d, ndvi_d), 10)
+             for name, f, p in (("prow", step, qparams), ("xla", xla_step, qparams),
+                                ("alt", alt_step, qparams), ("vpu", vpu_step, vpu_params),
+                                ("int8", q_step, q_params))}
     log(f"granule f32: {n_blocks / t_f32:.1f} patches/s wall ({t_f32:.3f} s), "
         f"step {ms_f32:.3f} ms/batch of {N} on device")
     log(f"granule bf16: {n_blocks / t_bf16:.1f} patches/s wall ({t_bf16:.3f} s), "
         f"step {ms_bf16:.3f} ms/batch of {N} on device")
-    for mid in ("prow", "xla"):
-        log(f"granule int8 ({mid}): {n_blocks / wall[mid]:.1f} patches/s wall "
-            f"({wall[mid]:.3f} s), step {ms_i8[mid]:.3f} ms/batch of {N} on device")
-    log(f"int8 calibration (make_quantized_step): {t_cal:.2f} s")
+    for (dtype, pad), v in ms_float.items():
+        log(f"float step {dtype} pad_impl={pad}: {v[0]:.3f} / {v[1]:.3f} ms/batch of {N} "
+            f"(two turns)")
+    for name in ("prow", "xla", "alt", "vpu", "int8"):
+        log(f"granule int8 ({name}): {n_blocks / wall[name]:.1f} patches/s wall "
+            f"({wall[name]:.3f} s), step {ms_i8[name]:.3f} ms/batch of {N} on device")
+    log(f"int8 calibration (make_quantized_step): prow/mxu {t_cal:.2f} s, prow/vpu "
+        f"{t_cal_vpu:.2f} s, --int8 {t_cal_q:.2f} s")
+    del fmodel, bmodel, lst_d, ndvi_d, vpu_params, q_params
+    torch.cuda.empty_cache()
 
+    # granule modes on the arrays (the default bf16 step and the int8 step)
+    link = probe_link(dev)
+    log(f"link probe: rtt {link['rtt_s'] * 1e6:.1f} us, h2d {link['h2d_bytes_per_s'] / 1e9:.2f} "
+        f"GB/s, d2h {link['d2h_bytes_per_s'] / 1e9:.2f} GB/s (pinned), host tile copy "
+        f"{link['host_bytes_per_s'] / 1e9:.2f} GB/s")
+    # The wire rounds LST to 0.02 K and NDVI to 1e-4. On a granule that holds
+    # multiples of those steps, as MODIS products do, the step sees the same
+    # inputs on either wire, and all that differs is the mosaic rounded to
+    # 0.02 K: within 0.01 K and a float32 ulp (3e-5 K at 300 K), for every
+    # step. The synthetic fields are no such multiples: there an int8 or bf16
+    # step answers the rounded inputs with flipped quanta, so its wire mosaic
+    # is held to the step's own gate against the float32 mosaic, and each
+    # mode identical to the host pipeline on the same wire.
+    lst_w, ndvi_w = encode_wire(lst, np.clip(ndvi, -1, 1))
+    exact = (lst_w.astype(np.float32) * np.float32(WIRE_LST_STEP),
+             ndvi_w.astype(np.float32) * np.float32(WIRE_NDVI_STEP))
+    del lst_w, ndvi_w
+    for label, kw, (g_rmse, g_max) in (
+            ("int8 prow", dict(sr_step=step, step_params=qparams), (0.3, 1.0)),
+            ("bf16", {}, (0.1, 0.5)),
+            # float32 answers the LST rounded by up to 0.01 K smoothly, with
+            # gain on fine detail, and rounds its output by up to 0.01 K more
+            ("f32", dict(compute_dtype=torch.float32), (0.01, 0.05))):
+        dx = np.abs(run(exact, mode="host_pipeline", wire="int", **kw)[0]
+                    - run(exact, mode="host_pipeline", **kw)[0])
+        log(f"granule wire='int' vs float wire ({label}), granule on the wire's steps: max "
+            f"{dx.max():.5f} K")
+        if not dx.max() <= 0.0101:
+            raise AssertionError(f"wire='int' ({label}) is {dx.max()} K off the float wire on a "
+                                 "granule that encodes losslessly")
+        del dx
+        base = {None: run(mode="host_pipeline", **kw)[0],
+                "int": run(mode="host_pipeline", wire="int", **kw)[0]}
+        dw = np.abs(base["int"] - base[None])
+        dr = base["int"].astype(np.float64) - ref
+        rmse, dmax = float(np.sqrt((dr ** 2).mean())), float(np.abs(dr).max())
+        log(f"granule wire='int' ({label}), synthetic granule: vs float wire max {dw.max():.4f} K, "
+            f"RMSE {float(np.sqrt((dw.astype(np.float64) ** 2).mean())):.4f} K; vs the float32 "
+            f"mosaic RMSE {rmse:.4f} K, max {dmax:.4f} K")
+        if not (rmse < g_rmse and dmax < g_max):
+            raise AssertionError(f"wire='int' ({label}) left the step's gate against the float32 "
+                                 f"mosaic: rmse {rmse}, max {dmax}")
+        del dw, dr
+        for mode in ("host_pipeline", "device_tiling", "device_tiling_wire", "auto"):
+            run(mode=mode, **kw)
+            walls = [run(mode=mode, **kw) for _ in range(3)]
+            dm = float(np.abs(walls[0][0] - base["int" if mode.endswith("wire") else None]).max())
+            log(f"granule mode {mode} ({label}): wall {min(w for _, w in walls):.3f} s best of 3 "
+                f"({' / '.join(f'{w:.3f}' for _, w in walls)}), max|d| vs the host pipeline on "
+                f"the same wire {dm:.4f} K")
+            if dm != 0.0:
+                raise AssertionError(f"mode {mode} ({label}) is {dm} K off the host pipeline")
+        del base, walls
 
-    # 6. one train step against the torch golden (its ds_loss runs kernel M)
+    # 6. files: HDF4 and GeoTIFF inputs through cli.predict.main and cli.serve.main
+    import json as _json
+    import tempfile
+
+    from sifsr_tpu_torch.data.ingest import compute_ndvi
+
+    def struct_meta(size, res):
+        return ("GROUP=GridStructure\n"
+                f"\tXDim={size}\n\tYDim={size}\n"
+                "\tUpperLeftPointMtrs=(0.000000,5559752.598333)\n"
+                f"\tLowerRightMtrs=({size * res:.6f},{5559752.598333 - size * res:.6f})\n"
+                "END_GROUP=GridStructure\n")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        lst_dn = np.round(lst / 0.02).astype(np.uint16)
+        red_dn = np.full(ndvi.shape, 900, np.int16)
+        nir_dn = np.round(900.0 * (1.0 + ndvi) / (1.0 - ndvi)).astype(np.int16)
+        files = {k: os.path.join(tmp, v) for k, v in dict(
+            lst_hdf="MOD21A1D.A2017100.h18v04.061.hdf", refl_hdf="MOD09GQ.A2017100.h18v04.061.hdf",
+            lst_tif="lst.tif", ndvi_tif="ndvi.tif").items()}
+        write_hdf4_sds(files["lst_hdf"], {"LST_Day_1KM": lst_dn,
+                                          "QC_Day": np.zeros(lst_dn.shape, np.uint8)},
+                       struct_metadata=struct_meta(1200, 926.625433), deflate=True)
+        write_hdf4_sds(files["refl_hdf"], {"sur_refl_b01_1": red_dn, "sur_refl_b02_1": nir_dn},
+                       struct_metadata=struct_meta(4800, 231.656358), deflate=True)
+        t_write = time.perf_counter() - t
+        t = time.perf_counter()
+        lst_f, _ = cli_predict._load_lst(files["lst_hdf"])
+        ndvi_f, gt_ndvi = cli_predict._load_ndvi(files["refl_hdf"], None, False)
+        t_decode = time.perf_counter() - t
+        assert lst_f.shape == (1200, 1200) and ndvi_f.shape == (4800, 4800) and gt_ndvi is not None
+        assert np.array_equal(ndvi_f, compute_ndvi(nir_dn.astype(np.float32) * np.float32(1e-4),
+                                                   red_dn.astype(np.float32) * np.float32(1e-4)))
+        write_geotiff(files["lst_tif"], lst_f, geotransform=(0.0, 926.625433, 0.0, 5559752.598333,
+                                                             0.0, -926.625433))
+        write_geotiff(files["ndvi_tif"], ndvi_f, geotransform=gt_ndvi)
+        log(f"files: HDF pair written in {t_write:.2f} s "
+            f"({os.path.getsize(files['lst_hdf']) / 1e6:.1f} + "
+            f"{os.path.getsize(files['refl_hdf']) / 1e6:.1f} MB), decoded in {t_decode:.2f} s "
+            f"({smi.splitlines()[0]})")
+        hdf = ["--MOD21A1D_file_path", files["lst_hdf"], "--MOD09GQ_file_path", files["refl_hdf"]]
+        tif = ["--MOD21A1D_file_path", files["lst_tif"], "--MOD09GQ_file_path", files["ndvi_tif"],
+               "--ndvi_is_precomputed"]
+        common = ["--model_dir", os.path.join(ROOT, "weights", "modelB_1009"), "--statistics",
+                  os.path.join(ROOT, "data", "statistics_testset.json")]
+
+        def command(name, inputs, *flags):
+            out_dir = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            cli_predict.main([*inputs, "--save_path", out_dir, *common, *flags])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            g = read_geotiff(os.path.join(out_dir, "prediction.tiff"))
+            if g.array.shape != mosaic or g.array.dtype != np.float32:
+                raise AssertionError(f"predict {flags}: raster {g.array.shape} {g.array.dtype}")
+            if not np.allclose(g.geotransform, gt_ndvi, rtol=0, atol=1e-6):
+                raise AssertionError(f"predict {flags}: geotransform {g.geotransform} vs {gt_ndvi}")
+            log(f"predict {' '.join(flags) or '(default bf16, fused pads)'} from "
+                f"{'HDF' if inputs is hdf else 'GeoTIFF'}: {wall_s:.2f} s wall, "
+                f"{g.array.min():.2f}..{g.array.max():.2f} K ({smi.splitlines()[0]})")
+            return g.array
+
+        def direct(**kw):
+            return predict_granule(variables, lst_f, ndvi_f, stats, batch_size=N, device=dev, **kw)
+
+        def same(name, got, want, tol=0.0):
+            dm = float(np.abs(got - want).max())
+            if not dm <= tol:
+                raise AssertionError(f"predict {name}: the raster is {dm} K off predict_granule")
+
+        ref_f = direct(compute_dtype=torch.float32)
+        same("--f32", command("f32", tif, "--f32"), ref_f)
+        same("default", command("bf16", hdf), direct())
+        for name, inputs, flags, kw in (
+                ("int8", hdf, ("--int8",), dict(use_pallas=False)),
+                ("pallas", hdf, ("--pallas",), dict(use_pallas=True)),
+                ("pallas_vpu", tif, ("--pallas", "--up2-impl", "vpu"),
+                 dict(use_pallas=True, up2_impl="vpu"))):
+            got = command(name, inputs, *flags)
+            qs, qp = make_quantized_step(variables, lst_f, ndvi_f, stats, device=dev, **kw)
+            want = direct(coverage=0.0, sr_step=qs, step_params=qp)
+            same(" ".join(flags), got, want)
+            d = got.astype(np.float64) - ref_f
+            rmse, dmax = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
+            log(f"predict {' '.join(flags)}: vs --f32 RMSE {rmse:.4f} K, max {dmax:.4f} K")
+            if not (rmse < 0.3 and dmax < 1.0):
+                raise AssertionError(f"predict {flags} left the int8 contract: {rmse}, {dmax}")
+            if name == "pallas":
+                pallas_raster = got
+            del qs, qp, want
+        for mode in ("host_pipeline", "device_tiling", "auto"):
+            same(f"--pallas --mode {mode}", command(f"mode_{mode}", hdf, "--pallas", "--mode", mode),
+                 pallas_raster)
+        # the wire: NDVI from reflectance ratios is not a multiple of 1e-4, so
+        # the int8 step sees rounded inputs and may flip quanta; both wire
+        # commands must agree with each other and with predict_granule under
+        # wire='int', and stay in the int8 contract. The float32 step answers
+        # the rounding smoothly: within half the 0.02 K output step (the LST
+        # DN encode losslessly) plus its response to NDVI rounded to 1e-4
+        wired = command("mode_wire", hdf, "--pallas", "--mode", "device_tiling_wire")
+        same("--pallas --wire int", command("wire", hdf, "--pallas", "--wire", "int"), wired)
+        qs, qp = make_quantized_step(variables, lst_f, ndvi_f, stats, use_pallas=True, device=dev)
+        same("--pallas --mode device_tiling_wire", wired,
+             direct(coverage=0.0, sr_step=qs, step_params=qp, wire="int"))
+        dw = np.abs(wired - pallas_raster)
+        d = wired.astype(np.float64) - ref_f
+        rmse, dmax = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
+        log(f"predict --pallas --wire int: vs the float wire max {dw.max():.4f} K; vs --f32 RMSE "
+            f"{rmse:.4f} K, max {dmax:.4f} K")
+        if not (rmse < 0.3 and dmax < 1.0):
+            raise AssertionError(f"predict --pallas --wire int left the int8 contract: {rmse}, {dmax}")
+        same("--f32 --wire int", command("f32_wire", tif, "--f32", "--wire", "int"), ref_f, 0.012)
+        del qs, qp, wired, dw, d
+        # on rasters that hold multiples of the wire's steps the int8 step
+        # sees the same inputs on either wire: only the output rounding
+        # (0.01 K and a float32 ulp) is left
+        lw, nw = encode_wire(lst_f, np.clip(ndvi_f, -1, 1))
+        files["lst_x"], files["ndvi_x"] = os.path.join(tmp, "lst_x.tif"), os.path.join(tmp, "ndvi_x.tif")
+        write_geotiff(files["lst_x"], lw.astype(np.float32) * np.float32(WIRE_LST_STEP),
+                      geotransform=(0.0, 926.625433, 0.0, 5559752.598333, 0.0, -926.625433))
+        write_geotiff(files["ndvi_x"], nw.astype(np.float32) * np.float32(WIRE_NDVI_STEP),
+                      geotransform=gt_ndvi)
+        del lw, nw
+        tif_x = ["--MOD21A1D_file_path", files["lst_x"], "--MOD09GQ_file_path", files["ndvi_x"],
+                 "--ndvi_is_precomputed"]
+        same("--pallas --wire int on the wire's steps",
+             command("wire_x", tif_x, "--pallas", "--wire", "int"),
+             command("pallas_x", tif_x, "--pallas"), 0.0101)
+
+        # the daemon: two good jobs, a missing file, broken JSON; one calibration
+        watch = os.path.join(tmp, "jobs")
+        os.makedirs(watch)
+        jobs = {"a_hdf.json": {"lst": files["lst_hdf"], "ndvi": files["refl_hdf"]},
+                "b_tif.json": {"lst": files["lst_tif"], "ndvi": files["ndvi_tif"],
+                               "ndvi_is_precomputed": True,
+                               "out": os.path.join(tmp, "served", "b.tiff")},
+                "c_missing.json": {"lst": os.path.join(tmp, "missing.hdf"),
+                                   "ndvi": files["refl_hdf"]}}
+        for i, (name, job) in enumerate(jobs.items()):
+            with open(os.path.join(watch, name), "w") as f:
+                _json.dump(job, f)
+            os.utime(os.path.join(watch, name), (1000.0 + i, 1000.0 + i))
+        with open(os.path.join(watch, "d_broken.json"), "w") as f:
+            f.write("{nope")
+        builds = []
+        real_build = cli_serve.make_quantized_step
+        cli_serve.make_quantized_step = lambda *a, **kw: (builds.append(1), real_build(*a, **kw))[1]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            cli_serve.main(["--watch", watch, "--once", "--pallas", *common])
+        finally:
+            cli_serve.make_quantized_step = real_build
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        served = {k.__name__: k.launches for k in K.KERNELS}
+        want = {k.__name__: per_batch["prow"].get(k.__name__, 0) * n_batches * 2 for k in K.KERNELS}
+        outs = [os.path.join(watch, "done", "a_hdf.tiff"), jobs["b_tif.json"]["out"]]
+        errs = sorted(f for f in os.listdir(os.path.join(watch, "failed")) if f.endswith(".err"))
+        if served != want or len(builds) != 1 or errs != ["c_missing.err", "d_broken.err"]:
+            raise AssertionError(f"serve: launches {served} (expected {want}), {len(builds)} "
+                                 f"calibration(s), failed {errs}")
+        for out in outs:
+            same(f"serve {os.path.basename(out)}", read_geotiff(out).array, pallas_raster)
+        log(f"serve --once --pallas: 2 rasters identical to predict --pallas, 2 failed jobs "
+            f"isolated ({errs}), 1 calibration, {t_serve:.2f} s wall for the spool "
+            f"({smi.splitlines()[0]})")
+        del ref_f, pallas_raster, lst_f, ndvi_f
+
+    # 7. one train step against the torch golden (its ds_loss runs kernel M)
     from sifsr_tpu_torch.config import load_params_json
     from sifsr_tpu_torch.data import make_synthetic_dataset, prepare_batch
     from sifsr_tpu_torch.train import create_train_state, make_train_step, train_loop
     from sifsr_tpu_torch.train.checkpoint import save_final
     import dataclasses
-    import tempfile
 
     fx = np.load(os.path.join(ROOT, "golden", "train_step_predef.npz"))
     tmodel = ModelB2()
@@ -599,7 +980,7 @@ def main(profile: bool = False) -> None:
         raise AssertionError("the golden train step is off the torch reference")
     del tmodel, tstate, gstep, gbatch, named
 
-    # 7. training through train_loop, three recipes, paramsB.json's hyperparameters
+    # 8. training through train_loop, three recipes, paramsB.json's hyperparameters
     config = load_params_json(os.path.join(ROOT, "paramsB.json"))
     config = dataclasses.replace(config, hyper=dataclasses.replace(config.hyper, n_epochs=2))
     assert config.hyper.batch_size == TRAIN_BATCH and tuple(config.model.downchannels) == (16, 32, 64, 128)
@@ -714,7 +1095,10 @@ def main(profile: bool = False) -> None:
         "conv_i8_exact_dual": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:395",
                                "the dual template of csrc/conv_tile.cuh at 16 channels, "
                                "shared with conv_prow_dual_planes"),
+        "conv_i8_in1": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:605",
+                        "the kernel of conv_i8_in1_split templated on the source"),
         "conv_i8_generic": (src + "conv_i8.cu", "sifsr_tpu/models/quantized_packed.py:66"),
+        "conv_i8_outlay": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:464"),
         "conv_prow": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:335"),
         "conv_prow_split_pool": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:488"),
         "conv_prow_up2": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:971",
@@ -724,6 +1108,15 @@ def main(profile: bool = False) -> None:
                                   "channels, shared with conv_i8_exact_dual"),
         "conv_prow_up2_pack": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:908",
                                "entry sifsr_conv_prow_up2, shared with conv_prow_up2"),
+        "conv_prow_up2[vpu]": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:582",
+                               "entry sifsr_conv_prow_up2_vpu: the kernel of conv_prow_up2 "
+                               "with the float32 x2 chain of up2_impl='vpu'"),
+        "conv_prow_up2_pack[vpu]": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:864",
+                                    "entry sifsr_conv_prow_up2_vpu, shared with "
+                                    "conv_prow_up2[vpu]"),
+        "conv_prow_dual": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:398",
+                           "entry sifsr_conv_prow_dual, shared with conv_prow_dual_planes: "
+                           "in NHWC the skip is one tensor"),
         "fused_psf_downscale": (src + "fused_ops.cu", "sifsr_tpu/pallas/fused_ops.py:47",
                                 "entry sifsr_sandwich, shared with its backward"),
         "fused_psf_downscale_backward": (src + "fused_ops.cu", "sifsr_tpu/pallas/fused_ops.py:76",
@@ -731,10 +1124,18 @@ def main(profile: bool = False) -> None:
         "fused_norm_l4": (src + "fused_ops.cu", "sifsr_tpu/pallas/fused_ops.py:129"),
     }
     # each kernel's main path: the int8 (prow) granule of phase 5 for the
-    # serving kernels, the predef_filters loop of phase 7 for the ds-loss
-    # kernel, the scale_invariance loop (its batch degradation) for the
-    # norm-L4 kernel
+    # serving kernels (the kernels='alt' granule for E, F and L, the
+    # up2_impl='vpu' granule for the float32 x2 chain), the predef_filters
+    # loop of phase 8 for the ds-loss kernel, the scale_invariance loop (its
+    # batch degradation) for the norm-L4 kernel
+    def counter(name):
+        return name.split("[")[0]
+
     main_launches = dict(launches["prow"])
+    for name in ("conv_i8_in1", "conv_i8_outlay", "conv_prow_dual"):
+        main_launches[name] = launches["alt"][name]
+    for name in ("conv_prow_up2[vpu]", "conv_prow_up2_pack[vpu]"):
+        main_launches[name] = launches["vpu"][counter(name)]
     for name in ("fused_psf_downscale", "fused_psf_downscale_backward"):
         main_launches[name] = train_launches["predef_filters"][name]
     main_launches["fused_norm_l4"] = train_launches["scale_invariance"]["fused_norm_l4"]
@@ -744,9 +1145,15 @@ def main(profile: bool = False) -> None:
          "launches": main_launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
          "library_ms": e["library_ms"], "calls_per_batch": e["calls"],
-         "launches_by_path": {path: c.get(name, 0) for path, c in by_path.items()},
+         # the [vpu] entries share their wrapper's counter with the integer
+         # chain: only the vpu granule's count is theirs
+         "launches_by_path": {path: c.get(counter(name), 0) for path, c in by_path.items()
+                              if "[vpu]" not in name or path == "vpu"},
          **({"shares": meta[name][2]} if len(meta[name]) > 2 else {})}
         for name, e in entries.items()]}
+    missing = [k["name"] for k in kernels_line["kernels"] if not k["launches"] > 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their main path: {missing}")
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """PyTorch/CUDA port of sifsr_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``sifsr_tpu`` is the reference; this package re-implements
-its whole-granule serving path and its training path (three recipes, one
-card) in PyTorch, with every TPU kernel on those paths
-written by hand in CUDA C++ for ``sm_90a`` (``csrc/``, bound through ctypes by
+its whole-granule serving path (``cli.predict``, ``cli.serve``, every granule
+mode) and its training path (three recipes, one card) in PyTorch, with every
+TPU kernel of the repository written by hand in CUDA C++ for ``sm_90a`` (``csrc/``, bound through ctypes by
 ``kernels/_build.py``). It imports neither JAX nor anything of ``sifsr_tpu``.
 
 Public functions keep the JAX package's NHWC layouts. Entry points take a

@@ -72,8 +72,9 @@ class TrainConfig:
     # per-step on-device PSNR/SSIM (the reference computes them per batch)
     step_metrics: bool = True
     # conv padding implementation: 'explicit' = the replicate-padded conv
-    # (reference parity). The JAX package's 'fused' variant exists to save
-    # TPU memory traffic and is not ported (ROADMAP.md).
+    # (reference parity). The 'fused' variant (a zero-padded conv plus border
+    # corrections) is ported for the serving model only (models/fused.py);
+    # training with it is queued in ROADMAP.md.
     pad_impl: str = "explicit"
     # rematerialise the model block by block in the backward pass
     # (torch.utils.checkpoint): only the blocks' inputs are held across it,

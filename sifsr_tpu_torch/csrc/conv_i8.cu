@@ -6,6 +6,11 @@
 //                       sifsr_conv_i8_exact, with the fused 2x2 phase mean)
 //   conv_i8_exact_dual (conv_i8.py:408; entry sifsr_conv_i8_exact_dual)
 //   conv_i8_in1_split  (conv_i8.py:755; entry sifsr_conv_i8_in1_split)
+//   conv_i8_in1        (conv_i8.py:623; entry sifsr_conv_i8_in1: the same
+//                       kernel reading one channel-interleaved (N,H,W,2) input)
+//   conv_i8_outlay     (conv_i8.py:484; entry sifsr_conv_i8_outlay: 16 -> 1
+//                       with the dequantise + Kelvin de-normalise epilogue
+//                       y = acc * scale + bias in float32, no requantise)
 // and runs the XLA int8 mid chain / outlay conv of
 // sifsr_tpu/models/quantized_packed.py:66-107 and pallas_serving.py:494
 // (entry sifsr_conv_i8_generic; F.conv2d has no integer path on CUDA).
@@ -29,7 +34,10 @@
 // and written once, outputs as 16-byte stores. The dp4a inner loop, not
 // memory, is the likely limit of this form (times against the bound:
 // PERF.md); int8 tensor-core MMA is the planned next step. Kernel C is the
-// shared dual template of conv_tile.cuh at 16 channels.
+// shared dual template of conv_tile.cuh at 16 channels. The outlay kernel
+// reads 16 bytes and writes 4 per pixel for 144 multiply-adds: one thread per
+// output pixel, float32 stores coalesced along the image row (the TPU form's
+// 8-useful-lane output and the transpose after it do not exist here).
 
 #include "conv_tile.cuh"
 
@@ -78,7 +86,10 @@ conv_i8_exact_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt
   }
 }
 
-// D: inbloc.conv1, 2 -> 16 int8 with LST and NDVI as separate (N,H,W) inputs.
+// D and E: inbloc.conv1, 2 -> 16 int8. D reads LST and NDVI as separate
+// (N,H,W) planes; E (INTERLEAVED) reads one (N,H,W,2) tensor through `lst`,
+// channel 0 = LST, 1 = NDVI, and ignores `ndvi`.
+template <bool INTERLEAVED>
 __global__ void __launch_bounds__(NT)
 conv_i8_in1_kernel(const int8_t* __restrict__ lst, const int8_t* __restrict__ ndvi,
                    const int8_t* __restrict__ wt, const float* __restrict__ scale,
@@ -87,7 +98,10 @@ conv_i8_in1_kernel(const int8_t* __restrict__ lst, const int8_t* __restrict__ nd
   __shared__ __align__(16) int32_t s_in[HALO];
   __shared__ __align__(16) int32_t s_w[9 * 16];
   const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  load_halo_pair(s_in, lst, ndvi, n, y0, x0, h, w);
+  if (INTERLEAVED)
+    load_halo_pair_interleaved(s_in, lst, n, y0, x0, h, w);
+  else
+    load_halo_pair(s_in, lst, ndvi, n, y0, x0, h, w);
   load_weights<2, 16>(s_w, wt);
   __syncthreads();
   int acc[16] = {};
@@ -97,6 +111,26 @@ conv_i8_in1_kernel(const int8_t* __restrict__ lst, const int8_t* __restrict__ nd
   for (int co = 0; co < 16; ++co) q[co] = requant(dequant(acc[co], __ldg(scale + co), __ldg(bias + co)), relu);
   const int gy = y0 + threadIdx.x / TW, gx = x0 + threadIdx.x % TW;
   if (gy < h && gx < w) store16(out + (((size_t)n * h + gy) * w + gx) * 16, q);
+}
+
+// F: the outlay, 16 -> 1 int8 conv with a float32 output (N,H,W):
+// y = acc * scale + bias, the caller folding the input scale and the Kelvin
+// de-normalise into the two scalars. No ReLU, no requantise.
+__global__ void __launch_bounds__(NT)
+conv_i8_outlay_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+                      const float* __restrict__ scale, const float* __restrict__ bias,
+                      float* __restrict__ out, int h, int w) {
+  __shared__ __align__(16) int32_t s_in[HALO * 4];
+  __shared__ __align__(16) int32_t s_w[9 * 4];
+  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  load_halo<16>(s_in, x, n, y0, x0, h, w);
+  load_weights<16, 1>(s_w, wt);
+  __syncthreads();
+  int acc[1] = {};
+  accumulate<4, 1>(acc, s_in, s_w);
+  const int gy = y0 + threadIdx.x / TW, gx = x0 + threadIdx.x % TW;
+  if (gy < h && gx < w)
+    out[((size_t)n * h + gy) * w + gx] = dequant(acc[0], __ldg(scale), __ldg(bias));
 }
 
 // Generic CIN -> COUT int8 conv with a float32 output (the mid chain and the
@@ -155,9 +189,11 @@ const char* sifsr_error_string(int code) {
 }
 
 // (cin, cout) pairs the generic entry point is built for: the ModelB2 mid
-// chain (db1..db3, ub1, ub2) and the outlay.
+// chain (db1..db3, ub1, ub2), ub3 and the outlay, and inbloc.conv1 with its two
+// input channels zero-padded to one 4-channel word.
 #define SIFSR_GENERIC_SHAPES(X) \
-  X(16, 16) X(16, 32) X(32, 32) X(32, 64) X(64, 64) X(128, 64) X(64, 32) X(32, 16) X(16, 1)
+  X(4, 16) X(16, 16) X(16, 32) X(32, 32) X(32, 64) X(64, 64) X(128, 64) X(64, 32) X(32, 16) \
+  X(16, 1)
 
 int sifsr_conv_i8_generic_supported(int cin, int cout) {
 #define SIFSR_CASE(CI, CO) if (cin == CI && cout == CO) return 1;
@@ -195,10 +231,30 @@ int sifsr_conv_i8_exact_dual(const void* x, const void* z, const void* wx, const
 int sifsr_conv_i8_in1_split(const void* lst, const void* ndvi, const void* wt,
                             const void* scale, const void* bias, void* out, int n, int h,
                             int w, int relu, void* stream) {
-  conv_i8_in1_kernel<<<tile_grid(n, h, w), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  conv_i8_in1_kernel<false><<<tile_grid(n, h, w), NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(lst), static_cast<const int8_t*>(ndvi),
       static_cast<const int8_t*>(wt), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<int8_t*>(out), h, w, relu);
+  return (int)cudaGetLastError();
+}
+
+// x (N,H,W,2) int8, channel-interleaved -> out (N,H,W,16) int8.
+int sifsr_conv_i8_in1(const void* x, const void* wt, const void* scale, const void* bias,
+                      void* out, int n, int h, int w, int relu, void* stream) {
+  conv_i8_in1_kernel<true><<<tile_grid(n, h, w), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), nullptr, static_cast<const int8_t*>(wt),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<int8_t*>(out), h, w, relu);
+  return (int)cudaGetLastError();
+}
+
+// x (N,H,W,16) int8, wt (3,3,16,1), scale/bias one float each -> out (N,H,W) f32.
+int sifsr_conv_i8_outlay(const void* x, const void* wt, const void* scale, const void* bias,
+                         void* out, int n, int h, int w, void* stream) {
+  conv_i8_outlay_kernel<<<tile_grid(n, h, w), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<float*>(out), h, w);
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,8 @@
 //   conv_prow_dual_planes (conv_px.py:563; entry sifsr_conv_prow_dual, kernel
 //                          C's template of conv_tile.cuh at 32 and 64
 //                          channels: the half-plane interleave is a layout)
+//   conv_prow_dual        (conv_px.py:409; the same entry: with the skip as
+//                          one NHWC tensor its function is the planes form's)
 //
 // The TPU kernels hold a tensor as p-pixel rows (p*C = 128 lanes), split
 // half-planes and e-major pixel groups, and pack the conv into banded
@@ -24,6 +26,13 @@
 //      in integer arithmetic (the integer-exact row mix of up2_impl='mxu'):
 //      y = sum_j cnum[l+dj] * sum_i rnum[k+di] * q, exact in int32 and below
 //      2^24, then one rounding rint(float(y) * inv) and the clip;
+//      or, with float32 tables (entry sifsr_conv_prow_up2_vpu), the roll/fma
+//      chain of up2_impl='vpu' (_conv_up2_kernel, conv_px.py:582-631): a row
+//      pass r = sum_t rc[d,t][k] * float(q[k+t-1]) and a column pass
+//      y = sum_u cc[e,u][l] * r[l+u-1] in float32, taps in ascending order,
+//      every product and sum rounded on its own, then rint(y * inv), clip:
+//      three roundings where the integer form has one. rc carries the mid
+//      scale, inv = 1 / s_up;
 //   J: requant(relu(acc_x*sc_x + acc_z*sc_z + b)).
 //
 // Bound on the H100: memory at the serving shapes (int8 tensors of 1-5 MB
@@ -131,11 +140,13 @@ conv_prow_pool_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w
 // source taps k-1, k, k+1 (l-1, l, l+1), zero where a tap leaves the image.
 constexpr int UH = TH - 2, UW = TW - 2;  // source tile inside the conv region
 
-template <int CIN, int COUT>
+// With VPU the tables are float32 (rc, cc of up2_coeffs) and the x2 runs the
+// float chain; else int32 numerators and the integer chain.
+template <int CIN, int COUT, bool VPU>
 __global__ void __launch_bounds__(NT)
 conv_prow_up2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
                      const float* __restrict__ scale, const float* __restrict__ bias,
-                     const int* __restrict__ rnum, const int* __restrict__ cnum, float inv,
+                     const void* __restrict__ rtab, const void* __restrict__ ctab, float inv,
                      int8_t* __restrict__ out, int h, int w, int relu) {
   constexpr int CW = CIN / 4, CH = COUT / 16;
   extern __shared__ __align__(16) int32_t smem[];
@@ -164,31 +175,61 @@ conv_prow_up2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt
     const int oy = 2 * sy0 + pix / (2 * UW), ox = 2 * sx0 + pix % (2 * UW);
     if (oy >= oh || ox >= ow) continue;
     const int k = oy >> 1, d = oy & 1, l = ox >> 1, e = ox & 1;
-    int rn[3], cn[3];
-#pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      rn[t] = __ldg(rnum + (d * 3 + t) * h + k);
-      cn[t] = __ldg(cnum + (e * 3 + t) * w + l);
-    }
     // tap (t, u) sits at conv-region row k-sy0+t, column l-sx0+u
     const int8_t* base = s_q + ((k - sy0) * TW + (l - sx0)) * COUT + c0;
-    int y[16] = {};
-#pragma unroll
-    for (int u = 0; u < 3; ++u) {
-      int r[16] = {};
+    int8_t q[16];
+    if constexpr (VPU) {
+      float rc[3], cc[3];
 #pragma unroll
       for (int t = 0; t < 3; ++t) {
-        int8_t v[16];
-        unpack16(v, *reinterpret_cast<const uint4*>(base + (t * TW + u) * COUT));
+        rc[t] = __ldg(static_cast<const float*>(rtab) + (d * 3 + t) * h + k);
+        cc[t] = __ldg(static_cast<const float*>(ctab) + (e * 3 + t) * w + l);
+      }
+      // zero coefficients (every tap that leaves the image among them) are
+      // skipped: the TPU chain adds their exact zeros
+      float y[16] = {};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) r[j] += rn[t] * (int)v[j];
+      for (int u = 0; u < 3; ++u) {
+        if (cc[u] == 0.f) continue;
+        float r[16] = {};
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          if (rc[t] == 0.f) continue;
+          int8_t v[16];
+          unpack16(v, *reinterpret_cast<const uint4*>(base + (t * TW + u) * COUT));
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            r[j] = __fadd_rn(r[j], __fmul_rn(rc[t], __int2float_rn((int)v[j])));
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) y[j] = __fadd_rn(y[j], __fmul_rn(cc[u], r[j]));
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) y[j] += cn[u] * r[j];
-    }
-    int8_t q[16];
+      for (int j = 0; j < 16; ++j) q[j] = requant(__fmul_rn(y[j], inv), false);
+    } else {
+      int rn[3], cn[3];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) q[j] = requant(__fmul_rn(__int2float_rn(y[j]), inv), false);
+      for (int t = 0; t < 3; ++t) {
+        rn[t] = __ldg(static_cast<const int*>(rtab) + (d * 3 + t) * h + k);
+        cn[t] = __ldg(static_cast<const int*>(ctab) + (e * 3 + t) * w + l);
+      }
+      int y[16] = {};
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        int r[16] = {};
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          int8_t v[16];
+          unpack16(v, *reinterpret_cast<const uint4*>(base + (t * TW + u) * COUT));
+#pragma unroll
+          for (int j = 0; j < 16; ++j) r[j] += rn[t] * (int)v[j];
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) y[j] += cn[u] * r[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) q[j] = requant(__fmul_rn(__int2float_rn(y[j]), inv), false);
+    }
     store16(out + (((size_t)n * oh + oy) * ow + ox) * COUT + c0, q);
   }
 }
@@ -217,18 +258,17 @@ int launch_pool(const void* x, const void* wt, const void* scale, const void* bi
                 static_cast<int8_t*>(out), static_cast<int8_t*>(pool), pool_sc, h, w, relu);
 }
 
-template <int CIN, int COUT>
+template <int CIN, int COUT, bool VPU>
 int launch_up2(const void* x, const void* wt, const void* scale, const void* bias,
-               const void* rnum, const void* cnum, float inv, void* out, int n, int h, int w,
+               const void* rtab, const void* ctab, float inv, void* out, int n, int h, int w,
                int relu, cudaStream_t s) {
   constexpr int CW = CIN / 4;
   const size_t smem = (size_t)(HALO * CW + 9 * CW * COUT) * sizeof(int32_t) + NT * COUT;
   const dim3 grid((w + UW - 1) / UW, (h + UH - 1) / UH, n);
-  return launch(conv_prow_up2_kernel<CIN, COUT>, grid, smem, s,
+  return launch(conv_prow_up2_kernel<CIN, COUT, VPU>, grid, smem, s,
                 static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-                static_cast<const float*>(scale), static_cast<const float*>(bias),
-                static_cast<const int*>(rnum), static_cast<const int*>(cnum), inv,
-                static_cast<int8_t*>(out), h, w, relu);
+                static_cast<const float*>(scale), static_cast<const float*>(bias), rtab, ctab,
+                inv, static_cast<int8_t*>(out), h, w, relu);
 }
 
 }  // namespace
@@ -270,14 +310,28 @@ int sifsr_conv_prow_split_pool(const void* x, const void* wt, const void* scale,
   return (int)cudaErrorInvalidValue;
 }
 
-// x (N,H,W,CIN) -> out (N,2H,2W,COUT).
+// x (N,H,W,CIN) -> out (N,2H,2W,COUT); rnum (2,3,H), cnum (2,3,W) int32.
 int sifsr_conv_prow_up2(const void* x, const void* wt, const void* scale, const void* bias,
                         const void* rnum, const void* cnum, float inv, void* out, int n, int h,
                         int w, int cin, int cout, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIFSR_CASE(CI, CO)                                                                  \
   if (cin == CI && cout == CO)                                                              \
-    return launch_up2<CI, CO>(x, wt, scale, bias, rnum, cnum, inv, out, n, h, w, relu, s);
+    return launch_up2<CI, CO, false>(x, wt, scale, bias, rnum, cnum, inv, out, n, h, w,    \
+                                     relu, s);
+  SIFSR_UP2_SHAPES(SIFSR_CASE)
+#undef SIFSR_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same with the float32 chain: rc (2,3,H), cc (2,3,W) float32.
+int sifsr_conv_prow_up2_vpu(const void* x, const void* wt, const void* scale, const void* bias,
+                            const void* rc, const void* cc, float inv, void* out, int n, int h,
+                            int w, int cin, int cout, int relu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SIFSR_CASE(CI, CO)                                                                  \
+  if (cin == CI && cout == CO)                                                              \
+    return launch_up2<CI, CO, true>(x, wt, scale, bias, rc, cc, inv, out, n, h, w, relu, s);
   SIFSR_UP2_SHAPES(SIFSR_CASE)
 #undef SIFSR_CASE
   return (int)cudaErrorInvalidValue;

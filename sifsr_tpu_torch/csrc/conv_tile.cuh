@@ -1,6 +1,6 @@
 // The 8x32-tile dp4a main loop of the replicate-pad 3x3 int8 convs, shared
-// by csrc/conv_i8.cu (kernels B, C, D, generic) and csrc/conv_px.cu
-// (kernels G-K): halo and weight loads into shared memory, the int32 inner
+// by csrc/conv_i8.cu (kernels B-F, generic) and csrc/conv_px.cu
+// (kernels G-L): halo and weight loads into shared memory, the int32 inner
 // product, the float32 epilogue helpers, 16-byte int8 stores, and the dual
 // conv(concat(x, z)) kernel that kernels C and J share.
 //
@@ -55,6 +55,20 @@ __device__ __forceinline__ void load_halo_pair(int32_t* s, const int8_t* __restr
     const size_t o = ((size_t)n * h + gy) * w + gx;
     s[i] = (int32_t)((uint32_t)(uint8_t)__ldg(a + o) |
                      ((uint32_t)(uint8_t)__ldg(b + o) << 8));
+  }
+}
+
+// The same word from one channel-interleaved (N,H,W,2) int8 image: the two
+// bytes of a pixel are one aligned 16-bit load (little-endian: byte 0 is
+// channel 0).
+__device__ __forceinline__ void load_halo_pair_interleaved(int32_t* s,
+                                                           const int8_t* __restrict__ x, int n,
+                                                           int y0, int x0, int h, int w) {
+  const uint16_t* xp = reinterpret_cast<const uint16_t*>(x);
+  for (int i = threadIdx.x; i < HALO; i += NT) {
+    const int gy = clampi(y0 - 1 + i / HW, 0, h - 1);
+    const int gx = clampi(x0 - 1 + i % HW, 0, w - 1);
+    s[i] = (int32_t)(uint32_t)__ldg(xp + ((size_t)n * h + gy) * w + gx);
   }
 }
 

@@ -11,18 +11,26 @@ granule block by block at batch 1 on the host (predict.py:84-103). Here:
 On a CUDA device the batch loop is pipelined over three streams: the upload
 of batch i+1 (pinned host memory, its own stream) and the download of batch
 i-1 overlap the compute of batch i, with ``pipeline_depth`` batches in
-flight.
+flight (``mode='host_pipeline'``).
+
+``device_tiling`` instead uploads the granule once, tiles it, masks by
+coverage, runs the batches and assembles the mosaic on the device, and
+downloads the mosaic once. ``wire='int'`` ships LST as uint16 (0.02 K a
+step), NDVI as int16 (1e-4 a step) and the mosaic back as uint16, decoding
+and encoding on the device: every transfer halves. ``mode='auto'`` measures
+the host-device link, the host's tiling rate and the step's time once per
+process and picks the mode its model of the two walls favours.
 
 ``coverage`` reproduces the reference's (vacuous) cloud/sea skip test by
 default (1.0); invalid blocks still run through the batch and are zeroed in
-the mosaic. Not ported yet (ROADMAP): the ``mesh`` data-parallel path, the
-``device_tiling`` all-on-device mode, the ``wire='int'`` transfer codec and
-``mode='auto'``'s link probe.
+the mosaic. Not ported yet (ROADMAP): the ``mesh`` data-parallel path.
 """
 
 from __future__ import annotations
 
 import functools
+import sys
+import time
 from collections import deque
 
 import numpy as np
@@ -33,7 +41,8 @@ from sifsr_tpu_torch.device import full_f32_convs, resolve_device
 from sifsr_tpu_torch.models.fused import InferenceModelB2
 from sifsr_tpu_torch.ops.resize import upsample_bicubic
 
-__all__ = ["tile_granule", "untile_mosaic", "make_sr_step", "predict_granule"]
+__all__ = ["tile_granule", "untile_mosaic", "make_sr_step", "predict_granule", "encode_wire",
+           "probe_link", "choose_granule_mode", "WIRE_LST_STEP", "WIRE_NDVI_STEP"]
 
 
 def tile_granule(lst: np.ndarray, ndvi: np.ndarray, window: int = 64, factor: int = 4):
@@ -63,16 +72,24 @@ def _as_f32(x, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=8)
 def make_sr_step(stats: Statistics, compute_dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", pad_impl: str | None = None):
     """The batched float SR step:
     (model, lst_blocks (N,64,64) K, ndvi_blocks (N,256,256)) -> (N,256,256) K,
     ``model`` an ``InferenceModelB2`` already on ``device`` in ``compute_dtype``.
 
     Normalisation and the bicubic x4 stay in float32; the U-Net runs in
     ``compute_dtype``. A float32 step runs its convs with TF32 disabled (the
-    JAX float32 step uses HIGHEST precision); its pads are the materialised
-    replicate pads (the JAX ``pad_impl='explicit'`` form)."""
+    JAX float32 step uses HIGHEST precision). pad_impl: 'fused' pads by a
+    zero-padded conv plus border-ring corrections
+    (``models.fused.replicate_conv_fused``); 'explicit' materialises the
+    replicate pads. Border pixels differ between the two by float summation
+    order. None picks by ``compute_dtype`` the faster of the two on an H100
+    (PERF.md): 'explicit' for float32, 'fused' otherwise."""
     dev = resolve_device(device)
+    if pad_impl is None:
+        pad_impl = "explicit" if compute_dtype == torch.float32 else "fused"
+    if pad_impl not in ("fused", "explicit"):
+        raise ValueError(f"pad_impl must be 'fused' or 'explicit', got {pad_impl!r}")
     exact = compute_dtype == torch.float32
 
     @torch.no_grad()
@@ -81,10 +98,223 @@ def make_sr_step(stats: Statistics, compute_dtype: torch.dtype = torch.bfloat16,
         ndvi_n = (_as_f32(ndvi_blocks, dev) - stats.mean_ndvi) / stats.std_ndvi
         x = torch.stack([upsample_bicubic(lst_n, 4), ndvi_n], dim=-1).to(compute_dtype)
         with full_f32_convs(exact):
-            sr = model(x)[..., 0]
+            sr = model(x, pad_impl=pad_impl)[..., 0]
         return sr.to(torch.float32) * stats.std_lst + stats.mean_lst
 
     return sr_step
+
+
+# integer wire formats for the host<->device link (predict_granule wire="int"):
+# MODIS-native quantisation steps, so encoding real granules is lossless
+# (MOD21/MOD11 LST is uint16 at 0.02 K; MODIS NDVI products are int16 at 1e-4)
+WIRE_LST_STEP = 0.02   # K per LSB, uint16
+WIRE_NDVI_STEP = 1e-4  # per LSB, int16
+
+
+def encode_wire(lst: np.ndarray, ndvi: np.ndarray):
+    """float32 Kelvin / NDVI -> (uint16, int16) wire arrays (2 bytes/px)."""
+    lst_w = np.clip(np.round(lst / WIRE_LST_STEP), 0, 65535).astype(np.uint16)
+    ndvi_w = np.clip(np.round(ndvi / WIRE_NDVI_STEP), -32768, 32767).astype(np.int16)
+    return lst_w, ndvi_w
+
+
+def _u16_bits(a: np.ndarray) -> np.ndarray:
+    """uint16 arrays cross the link as their int16 bit pattern: torch does
+    arithmetic on int16, while uint16 is a storage-only dtype there."""
+    return a.view(np.int16) if a.dtype == np.uint16 else a
+
+
+def _decode_wire_out(a: np.ndarray) -> np.ndarray:
+    return a.view(np.uint16).astype(np.float32) * WIRE_LST_STEP
+
+
+def _wire_step(sr_step, dev: torch.device):
+    """Wrap a serving step with the wire decode/encode on the device: LST
+    arrives as the int16 bit pattern of uint16 Kelvin/0.02, NDVI as int16
+    NDVI/1e-4, and the SR leaves as the bit pattern of uint16 Kelvin/0.02.
+    The output divides by a 0-d device tensor (a scalar divisor would become a
+    multiplication by its reciprocal on CUDA)."""
+    lst_step = torch.tensor(WIRE_LST_STEP, dtype=torch.float32, device=dev)
+
+    @torch.no_grad()
+    def step(params, lst_w, ndvi_w):
+        lst_w = torch.as_tensor(lst_w, device=dev)
+        ndvi_w = torch.as_tensor(ndvi_w, device=dev)
+        lst = (lst_w.to(torch.int32) & 0xFFFF).to(torch.float32) * WIRE_LST_STEP
+        ndvi = ndvi_w.to(torch.float32) * WIRE_NDVI_STEP
+        sr = sr_step(params, lst, ndvi)
+        code = torch.clamp(torch.round(sr / lst_step), 0, 65535).to(torch.int32)
+        return torch.where(code >= 32768, code - 65536, code).to(torch.int16)
+
+    return step
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(_u16_bits(a)))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
+
+
+@torch.no_grad()
+def _run_device_tiling(step, params, lst_g: np.ndarray, ndvi_g: np.ndarray, window: int,
+                       factor: int, bs: int, coverage: float, dev: torch.device) -> np.ndarray:
+    """The all-on-device granule program of ``device_tiling`` (port of
+    ``inference.py:156-193``): one upload of each granule, tiling, the
+    coverage mask, the batches (the tile count padded to a multiple of the
+    batch) and the mosaic assembly on the device, one download."""
+    fwin = window * factor
+    gh, gw = lst_g.shape[0] // window, lst_g.shape[1] // window
+    nt = gh * gw
+    k = -(-nt // bs)
+    pad = k * bs - nt
+    lst_d, ndvi_d = _to_device(lst_g, dev), _to_device(ndvi_g, dev)
+    lst_t = (lst_d[: gh * window, : gw * window].reshape(gh, window, gw, window)
+             .permute(0, 2, 1, 3).reshape(nt, window, window))
+    ndvi_t = (ndvi_d[: gh * fwin, : gw * fwin].reshape(gh, fwin, gw, fwin)
+              .permute(0, 2, 1, 3).reshape(nt, fwin, fwin))
+    keep = (lst_t == 0).to(torch.float32).mean(dim=(1, 2)) <= coverage
+    if pad:
+        lst_t = torch.cat([lst_t, lst_t.new_zeros((pad, window, window))])
+        ndvi_t = torch.cat([ndvi_t, ndvi_t.new_zeros((pad, fwin, fwin))])
+    sr = None
+    for i in range(k):
+        out = step(params, lst_t[i * bs:(i + 1) * bs], ndvi_t[i * bs:(i + 1) * bs])
+        if sr is None:
+            sr = out.new_empty((k * bs, fwin, fwin))
+        sr[i * bs:(i + 1) * bs] = out
+    sr = sr[:nt]
+    sr = torch.where(keep[:, None, None], sr, sr.new_zeros(()))
+    mosaic = sr.reshape(gh, gw, fwin, fwin).permute(0, 2, 1, 3).reshape(gh * fwin, gw * fwin)
+    return _to_host(mosaic.contiguous())
+
+
+_LINK_PROBE_CACHE: dict = {}
+
+
+def _timed(fn, dev: torch.device) -> float:
+    """Seconds of fn() with the device drained before and after: without the
+    synchronise a CUDA transfer's time would be the time to enqueue it."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def probe_link(device: str | torch.device = "cuda", refresh: bool = False, bulk_mb: int = 32):
+    """Measure the host<->device link and the host once per process and
+    device: the round trip of a tiny transfer and kernel, the bulk upload and
+    download rates from and to pinned memory, and the rate of the host's
+    tile/scatter copy (a reshape + transpose of a bulk array).
+
+    Returns {"rtt_s", "h2d_bytes_per_s", "d2h_bytes_per_s", "host_bytes_per_s"}."""
+    dev = resolve_device(device)
+    key = str(dev)
+    if key in _LINK_PROBE_CACHE and not refresh:
+        return _LINK_PROBE_CACHE[key]
+    cuda = dev.type == "cuda"
+
+    def pinned(n):
+        t = torch.zeros((n,), dtype=torch.float32)
+        return t.pin_memory() if cuda else t
+
+    tiny, buf = pinned(8), pinned(bulk_mb * 1024 * 1024 // 4)
+
+    def round_trip():
+        return float(tiny.to(dev, non_blocking=True).sum())
+
+    round_trip()                                       # warm the dispatch path
+    rtt = min(_timed(round_trip, dev) for _ in range(3))
+    nbytes = buf.numel() * 4
+    buf.to(dev, non_blocking=True)                     # warm the transfer path
+    up = min(_timed(lambda: buf.to(dev, non_blocking=True), dev) for _ in range(2))
+    dev_buf = buf.to(dev) + 0.0
+    down = min(_timed(lambda: buf.copy_(dev_buf, non_blocking=True), dev) for _ in range(2))
+    side = int(np.sqrt(buf.numel() // 4096)) * 64
+    host = np.zeros((side, side), np.float32)
+
+    def tile_copy():
+        g = side // 64
+        return np.ascontiguousarray(host.reshape(g, 64, g, 64).transpose(0, 2, 1, 3))
+
+    tile_copy()
+    t_host = min(_timed(tile_copy, torch.device("cpu")) for _ in range(2))
+    _LINK_PROBE_CACHE[key] = {
+        "rtt_s": rtt,
+        "h2d_bytes_per_s": nbytes / max(up, 1e-9),
+        "d2h_bytes_per_s": nbytes / max(down, 1e-9),
+        "host_bytes_per_s": 2 * host.nbytes / max(t_host, 1e-9),   # read + write
+    }
+    return _LINK_PROBE_CACHE[key]
+
+
+def _measure_patches_per_s(sr_step, step_params, batch_size: int, window: int, factor: int,
+                           dev: torch.device) -> float:
+    """Patches a second of ``sr_step`` on ``dev`` at this batch size, from one
+    timed call on a constant batch after a warm-up call. The rate is kept
+    on the step function itself, per shape and device, so it lives exactly
+    as long as the step does."""
+    rates = sr_step.__dict__.setdefault("_patches_per_s", {})
+    key = (batch_size, window, factor, str(dev))
+    if key not in rates:
+        lst = torch.full((batch_size, window, window), 300.0, device=dev)
+        ndvi = torch.full((batch_size, window * factor, window * factor), 0.5, device=dev)
+        sr_step(step_params, lst, ndvi)
+        t = _timed(lambda: sr_step(step_params, lst, ndvi), dev)
+        rates[key] = batch_size / max(t, 1e-9)
+    return rates[key]
+
+
+def choose_granule_mode(lst_shape, window: int, factor: int, batch_size: int,
+                        patches_per_s: float, link=None,
+                        device: str | torch.device = "cuda") -> dict:
+    """Pick host_pipeline vs device_tiling from measurements (the model of
+    ``sifsr_tpu/inference.py::choose_granule_mode``; its two constants, a
+    device rate and a host copy rate, are measured here: ``patches_per_s`` by
+    the caller on its step, the host rate by ``probe_link``).
+
+    device_tiling's wall is upload + compute + download, strictly one after
+    the other, plus two dispatches. The host pipeline overlaps the per-batch
+    upload/compute/download triples, so its steady state is the slowest of
+    the three, plus one batch of each transfer to fill and drain, the host's
+    tile/scatter copy and one dispatch round trip a batch. A tie goes to the
+    pipeline: device_tiling is chosen only when predicted under 0.75 of it."""
+    link = link or probe_link(device)
+    gh, gw = lst_shape[0] // window, lst_shape[1] // window
+    n = gh * gw
+    n_batches = -(-n // batch_size)
+    fwin = window * factor
+    up = 4 * (gh * gw * window * window) * (1 + factor * factor)
+    down = 4 * (gh * gw * fwin * fwin)
+    t_up = up / link["h2d_bytes_per_s"]
+    t_down = down / link["d2h_bytes_per_s"]
+    t_compute = n / patches_per_s
+    t_host = (up + down) / link["host_bytes_per_s"]
+    t_dt = t_up + t_down + t_compute + 2 * link["rtt_s"]
+    t_hp = (max(t_up, t_down, t_compute) + (t_up + t_down) / max(n_batches, 1)
+            + t_host + n_batches * link["rtt_s"])
+    return {
+        "mode": "device_tiling" if t_dt < 0.75 * t_hp else "host_pipeline",
+        "t_device_tiling_s": round(t_dt, 4),
+        "t_host_pipeline_s": round(t_hp, 4),
+        "rtt_s": round(link["rtt_s"], 6),
+        "h2d_mb_s": round(link["h2d_bytes_per_s"] / 1e6, 1),
+        "d2h_mb_s": round(link["d2h_bytes_per_s"] / 1e6, 1),
+        "host_mb_s": round(link["host_bytes_per_s"] / 1e6, 1),
+        "patches_per_s": round(patches_per_s, 1),
+    }
 
 
 class _Pipeline:
@@ -102,12 +332,13 @@ class _Pipeline:
 
     def submit(self, start, stop, step, params, lst_b, ndvi_b):
         if not self.cuda:
-            self.pending.append((start, stop, step(params, lst_b, ndvi_b), None))
+            self.pending.append((start, stop, step(params, _to_device(lst_b, self.device),
+                                                   _to_device(ndvi_b, self.device)), None))
         else:
             compute = torch.cuda.current_stream(self.device)
             with torch.cuda.stream(self.h2d):
-                lst_d = torch.from_numpy(lst_b).pin_memory().to(self.device, non_blocking=True)
-                ndvi_d = torch.from_numpy(ndvi_b).pin_memory().to(self.device, non_blocking=True)
+                lst_d = _to_device(lst_b, self.device)
+                ndvi_d = _to_device(ndvi_b, self.device)
             compute.wait_stream(self.h2d)
             lst_d.record_stream(compute)
             ndvi_d.record_stream(compute)
@@ -149,6 +380,10 @@ def predict_granule(
     sr_step=None,
     step_params=None,
     pipeline_depth: int = 3,
+    device_tiling: bool = False,
+    wire: str | None = None,
+    pad_impl: str | None = None,
+    mode: str | None = None,
     device: str | torch.device = "cuda",
 ) -> np.ndarray:
     """SR a whole granule; returns the (factor·H, factor·W) Kelvin mosaic.
@@ -166,27 +401,81 @@ def predict_granule(
     ``models.int8_serving``; called as sr_step(step_params, lst_batch,
     ndvi_batch) on the device. The tail batch is zero-padded to
     ``batch_size`` so every step sees one shape.
+
+    device_tiling (overlap == 0 only): tile extraction, batching and mosaic
+    assembly all run on the device: the granule is uploaded once and the
+    mosaic downloaded once (two bulk transfers instead of 2·n_batches).
+
+    wire='int' ships LST as uint16 (0.02 K/LSB, the MODIS-native encoding, so
+    real granules encode losslessly), NDVI as int16 (1e-4/LSB) and the SR
+    mosaic back as uint16 Kelvin/0.02: every host<->device transfer halves.
+    Output error vs wire=None is bounded by the 0.01 K output rounding plus
+    the model's response to <= 5e-5 NDVI rounding.
+
+    pad_impl: conv padding of the default (bf16/float32) step, 'fused',
+    'explicit' or None for ``make_sr_step``'s choice by dtype. Ignored when
+    sr_step is supplied.
+
+    mode: overrides device_tiling/wire: 'host_pipeline', 'device_tiling',
+    'device_tiling_wire' or 'auto'. 'auto' measures the link, the host and
+    the step once per process (``probe_link``, one timed step) and picks the
+    mode ``choose_granule_mode`` favours; the decision goes to stderr. wire
+    stays an explicit knob under 'auto'.
     """
     dev = resolve_device(device)
-    if ndvi_clip:
-        ndvi_granule = np.clip(ndvi_granule, -1.0, 1.0)  # predict.py:88-89
     fwin = window * factor
     if sr_step is None:
-        sr_step = make_sr_step(stats, compute_dtype, dev)
+        sr_step = make_sr_step(stats, compute_dtype, dev, pad_impl)
         step_params = InferenceModelB2.from_variables(variables).to(dev, compute_dtype)
+    if mode is not None:
+        if mode == "auto":
+            rate = _measure_patches_per_s(sr_step, step_params, batch_size, window, factor, dev)
+            decision = choose_granule_mode(lst_granule.shape, window, factor, batch_size, rate,
+                                           device=dev)
+            device_tiling = decision["mode"] == "device_tiling"
+            print(f"predict_granule auto mode: {decision}", file=sys.stderr)
+        elif mode == "host_pipeline":
+            device_tiling = False
+        elif mode == "device_tiling":
+            device_tiling = True
+        elif mode == "device_tiling_wire":
+            device_tiling, wire = True, "int"
+        else:
+            raise ValueError(f"mode must be host_pipeline/device_tiling/device_tiling_wire/auto, "
+                             f"got {mode!r}")
+    if ndvi_clip:
+        ndvi_granule = np.clip(ndvi_granule, -1.0, 1.0)  # predict.py:88-89
+    if wire not in (None, "int"):
+        raise ValueError(f"wire must be None or 'int', got {wire!r}")
+    if wire == "int":
+        lst_granule, ndvi_granule = encode_wire(lst_granule, ndvi_granule)
+        batch_step, decode_out = _wire_step(sr_step, dev), _decode_wire_out
+    else:
+        lst_granule = np.asarray(lst_granule, np.float32)
+        ndvi_granule = np.asarray(ndvi_granule, np.float32)
+        batch_step, decode_out = sr_step, np.asarray
 
     def run_batches(lst_blocks, ndvi_blocks, n, consume):
-        pipe = _Pipeline(dev, pipeline_depth, consume)
+        pipe = _Pipeline(dev, pipeline_depth,
+                         lambda start, stop, out: consume(start, stop, decode_out(out)))
         for start in range(0, n, batch_size):
             stop = min(start + batch_size, n)
             pad = batch_size - (stop - start)
-            lst_b = np.ascontiguousarray(lst_blocks[start:stop], np.float32)
-            ndvi_b = np.ascontiguousarray(ndvi_blocks[start:stop], np.float32)
+            lst_b = np.ascontiguousarray(lst_blocks[start:stop])
+            ndvi_b = np.ascontiguousarray(ndvi_blocks[start:stop])
             if pad:
-                lst_b = np.concatenate([lst_b, np.zeros((pad, window, window), np.float32)])
-                ndvi_b = np.concatenate([ndvi_b, np.zeros((pad, fwin, fwin), np.float32)])
-            pipe.submit(start, stop, sr_step, step_params, lst_b, ndvi_b)
+                lst_b = np.concatenate([lst_b, np.zeros((pad, window, window), lst_b.dtype)])
+                ndvi_b = np.concatenate([ndvi_b, np.zeros((pad, fwin, fwin), ndvi_b.dtype)])
+            pipe.submit(start, stop, batch_step, step_params, lst_b, ndvi_b)
         pipe.finish()
+
+    if device_tiling:
+        if overlap != 0:
+            raise ValueError("device_tiling does not implement overlap blending; "
+                             "use the host pipeline (device_tiling=False) with overlap")
+        nt = (lst_granule.shape[0] // window) * (lst_granule.shape[1] // window)
+        return decode_out(_run_device_tiling(batch_step, step_params, lst_granule, ndvi_granule,
+                                             window, factor, min(batch_size, nt), coverage, dev))
 
     if overlap == 0:
         lst_blocks, ndvi_blocks, grid = tile_granule(lst_granule, ndvi_granule, window, factor)

@@ -11,10 +11,13 @@ from sifsr_tpu_torch.kernels.conv_i8 import (
     conv_i8_exact,
     conv_i8_exact_dual,
     conv_i8_generic,
+    conv_i8_in1,
     conv_i8_in1_split,
+    conv_i8_outlay,
 )
 from sifsr_tpu_torch.kernels.conv_px import (
     conv_prow,
+    conv_prow_dual,
     conv_prow_dual_planes,
     conv_prow_split_pool,
     conv_prow_up2,
@@ -26,11 +29,13 @@ from sifsr_tpu_torch.kernels.resize_phases import upsample_phases
 __all__ = ["KERNELS", "reset_launches", "upsample_phases", "conv_i8_exact",
            "conv_i8_exact_dual", "conv_i8_in1_split", "conv_i8_generic", "conv_prow",
            "conv_prow_split_pool", "conv_prow_up2", "conv_prow_dual_planes",
-           "conv_prow_up2_pack", "fused_psf_downscale", "fused_norm_l4"]
+           "conv_prow_up2_pack", "conv_i8_in1", "conv_i8_outlay", "conv_prow_dual",
+           "fused_psf_downscale", "fused_norm_l4"]
 
 KERNELS = (upsample_phases, conv_i8_in1_split, conv_i8_exact, conv_i8_exact_dual,
            conv_i8_generic, conv_prow, conv_prow_split_pool, conv_prow_up2,
-           conv_prow_dual_planes, conv_prow_up2_pack, fused_psf_downscale, fused_norm_l4)
+           conv_prow_dual_planes, conv_prow_up2_pack, conv_i8_in1, conv_i8_outlay,
+           conv_prow_dual, fused_psf_downscale, fused_norm_l4)
 
 
 def reset_launches() -> None:

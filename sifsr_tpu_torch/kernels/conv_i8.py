@@ -1,4 +1,4 @@
-"""Kernels B, C, D and the generic int8 conv: replicate-pad 3x3 int8 convs.
+"""Kernels B-F and the generic int8 conv: replicate-pad 3x3 int8 convs.
 
 Counterparts, CUDA source ``csrc/conv_i8.cu``:
 
@@ -8,9 +8,15 @@ Counterparts, CUDA source ``csrc/conv_i8.cu``:
   conv(concat(x, z)) as two convs with their own scales (ub3.conv1);
 - ``conv_i8_in1_split`` (D): ``conv_i8.py::conv_i8_in1_split``, 2 -> 16 with
   LST and NDVI as separate inputs (inbloc.conv1);
+- ``conv_i8_in1`` (E): ``conv_i8.py::conv_i8_in1``, D's function on one
+  channel-interleaved (N,H,W,2) input (the step's earlier form);
+- ``conv_i8_outlay`` (F): ``conv_i8.py::conv_i8_outlay``, 16 -> 1 with the
+  replicate border inside the kernel and the dequantise + Kelvin
+  de-normalise fused, float32 (N,H,W) output;
 - ``conv_i8_generic``: the XLA int8 conv of
-  ``sifsr_tpu/models/quantized_packed.py::_conv_i8_generic`` (mid chain) and
-  the outlay conv of ``pallas_serving.py:494-524``, float32 output.
+  ``sifsr_tpu/models/quantized_packed.py::_conv_i8_generic`` (mid chain), of
+  ``models/quantized.py::_conv_i8`` and the outlay conv of
+  ``pallas_serving.py:494-524``, float32 output.
 
 The TPU kernels run in the 2x2 space-to-depth packed domain as pixel-pair
 rows; these take the unpacked NHWC int8 tensors the packed ones stand for
@@ -31,9 +37,10 @@ import torch.nn.functional as F
 from sifsr_tpu_torch.kernels import _build
 
 __all__ = [
-    "conv_i8_exact", "conv_i8_exact_dual", "conv_i8_in1_split", "conv_i8_generic",
+    "conv_i8_exact", "conv_i8_exact_dual", "conv_i8_in1_split", "conv_i8_in1",
+    "conv_i8_outlay", "conv_i8_generic",
     "conv_i8_exact_plain", "conv_i8_exact_dual_plain", "conv_i8_in1_split_plain",
-    "conv_i8_generic_plain",
+    "conv_i8_in1_plain", "conv_i8_outlay_plain", "conv_i8_generic_plain",
 ]
 
 
@@ -86,6 +93,15 @@ def conv_i8_in1_split_plain(lst, ndvi, w, scale, bias, relu=True):
     return requant(_dequant(conv3x3_i32(x, w), scale, bias), relu)
 
 
+def conv_i8_in1_plain(x, w, scale, bias, relu=True):
+    """E's plain version: D's on the de-interleaved input."""
+    return conv_i8_in1_split_plain(x[..., 0], x[..., 1], w, scale, bias, relu)
+
+
+def conv_i8_outlay_plain(x, w, scale, bias):
+    return _dequant(conv3x3_i32(x, w), scale, bias)[..., 0]
+
+
 def conv_i8_generic_plain(x, w, scale, bias, relu=True):
     y = _dequant(conv3x3_i32(x, w), scale, bias)
     return torch.clamp_min(y, 0.0) if relu else y
@@ -123,6 +139,8 @@ def _lib():
         "sifsr_conv_i8_exact": [vp, vp, vp, vp, vp, vp, f, i, i, i, i, vp],
         "sifsr_conv_i8_exact_dual": [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp],
         "sifsr_conv_i8_in1_split": [vp, vp, vp, vp, vp, vp, i, i, i, i, vp],
+        "sifsr_conv_i8_in1": [vp, vp, vp, vp, vp, i, i, i, i, vp],
+        "sifsr_conv_i8_outlay": [vp, vp, vp, vp, vp, i, i, i, vp],
         "sifsr_conv_i8_generic": [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp],
         "sifsr_conv_i8_generic_supported": [i, i],
     }
@@ -206,10 +224,54 @@ def conv_i8_in1_split(lst, ndvi, w, scale, bias, relu: bool = True):
     return out
 
 
+def conv_i8_in1(x, w, scale, bias, relu: bool = True):
+    """Kernel E. x (N,H,W,2) int8 (channel 0 = LST, 1 = NDVI, interleaved),
+    w HWIO (3,3,2,16) int8 -> (N,H,W,16) int8; kernel D's function on one
+    tensor."""
+    if not _device(x):
+        return conv_i8_in1_plain(x, w, scale, bias, relu)
+    n, h, wd, _ = x.shape
+    dev = x.device
+    _check(x, "x", (n, h, wd, 2), torch.int8, dev)
+    _check(w, "w", (3, 3, 2, 16), torch.int8, dev)
+    _check(scale, "scale", (16,), torch.float32, dev)
+    _check(bias, "bias", (16,), torch.float32, dev)
+    out = torch.empty((n, h, wd, 16), dtype=torch.int8, device=dev)
+    lib = _lib()
+    code = lib.sifsr_conv_i8_in1(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                 out.data_ptr(), n, h, wd, int(relu), _stream(x))
+    _build.check(lib, code, "conv_i8_in1")
+    conv_i8_in1.launches += 1
+    return out
+
+
+def conv_i8_outlay(x, w, scale, bias):
+    """Kernel F. x (N,H,W,16) int8, w HWIO (3,3,16,1) int8, scale/bias (1,)
+    float32 -> (N,H,W) float32 acc*scale + bias: the outlay with the input
+    scale and the Kelvin de-normalise folded into the two scalars by the
+    caller. No ReLU, no requantise."""
+    if not _device(x):
+        return conv_i8_outlay_plain(x, w, scale, bias)
+    n, h, wd, _ = x.shape
+    dev = x.device
+    _check(x, "x", (n, h, wd, 16), torch.int8, dev)
+    _check(w, "w", (3, 3, 16, 1), torch.int8, dev)
+    _check(scale, "scale", (1,), torch.float32, dev)
+    _check(bias, "bias", (1,), torch.float32, dev)
+    out = torch.empty((n, h, wd), dtype=torch.float32, device=dev)
+    lib = _lib()
+    code = lib.sifsr_conv_i8_outlay(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                                    bias.data_ptr(), out.data_ptr(), n, h, wd, _stream(x))
+    _build.check(lib, code, "conv_i8_outlay")
+    conv_i8_outlay.launches += 1
+    return out
+
+
 def conv_i8_generic(x, w, scale, bias, relu: bool = True):
     """x (N,H,W,Cin) int8, w HWIO (3,3,Cin,Cout) int8, scale/bias (Cout,)
     float32 -> (N,H,W,Cout) float32 acc*scale + bias [ReLU]. The kernel is
-    built for the (Cin, Cout) pairs of ModelB2's mid chain and outlay."""
+    built for the (Cin, Cout) pairs of ModelB2's layers (Cin a multiple of 4:
+    a caller pads inbloc.conv1's two channels to four with zeros)."""
     if not _device(x):
         return conv_i8_generic_plain(x, w, scale, bias, relu)
     n, h, wd, cin = x.shape
@@ -231,5 +293,6 @@ def conv_i8_generic(x, w, scale, bias, relu: bool = True):
     return out
 
 
-for _k in (conv_i8_exact, conv_i8_exact_dual, conv_i8_in1_split, conv_i8_generic):
+for _k in (conv_i8_exact, conv_i8_exact_dual, conv_i8_in1_split, conv_i8_in1, conv_i8_outlay,
+           conv_i8_generic):
     _k.launches = 0

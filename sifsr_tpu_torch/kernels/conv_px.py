@@ -1,4 +1,4 @@
-"""Kernels G-K: the int8 mid chain's convs with fused epilogues.
+"""Kernels G-L: the int8 mid chain's convs with fused epilogues.
 
 Counterparts, by function, of ``sifsr_tpu/pallas/conv_px.py``; CUDA source
 ``csrc/conv_px.cu`` (the dual conv is kernel C's template in
@@ -13,7 +13,10 @@ Counterparts, by function, of ``sifsr_tpu/pallas/conv_px.py``; CUDA source
   x2 + requantise (db3 lastconv, ub1.conv2);
 - ``conv_prow_dual_planes`` (J): conv(concat(up, skip)) with per-half scales
   (ub1.conv1, ub2.conv1);
-- ``conv_prow_up2_pack`` (K): I's function for ub2.conv2, the serving tail.
+- ``conv_prow_up2_pack`` (K): I's function for ub2.conv2, the serving tail;
+- ``conv_prow_dual`` (L): J with the skip as one tensor. In the port's NHWC
+  layout the skip already is one tensor, so L's function is J's and it
+  launches J's entry point; it keeps its own wrapper and launch count.
 
 The TPU kernels hold tensors as p-pixel rows, split half-planes, e-major
 pixel groups and space-to-depth pair rows, all to fill 128 TPU lanes; these
@@ -21,7 +24,12 @@ take and return the unpacked NHWC int8 tensors those stand for. The x2
 upsamples are the integer-exact row mix of ``up2_impl='mxu'``
 (``conv_px.py:752-808``): integer numerators over the rational
 align-corners coefficients m / (2*size - 1), summed exactly, then one
-float32 multiply by ``inv``, round half to even, clip.
+float32 multiply by ``inv``, round half to even, clip. Given float32 tables
+(``up2_coeffs``) instead, I and K run the roll/fma chain of
+``up2_impl='vpu'`` (``conv_px.py:582-631``, ``:864-903``): a float32 row
+pass with the mid scale folded into its coefficients, a float32 column pass,
+then ``y * float32(1/s_up)``, round, clip: three roundings, bit-identical to
+``upsample_phases(q, 2, 'linear_ac', scale=s_up, in_scale=s_mid)``.
 
 Every wrapper checks device, dtype, shape and contiguity, launches on the
 current stream and raises on a launch error; it runs its plain version only
@@ -47,14 +55,13 @@ from sifsr_tpu_torch.kernels.conv_i8 import (
     conv_i8_exact_plain,
     requant,
 )
-from sifsr_tpu_torch.kernels.resize_phases import _coeff_arrays
-from sifsr_tpu_torch.models.quantized import _quantize_kernel
+from sifsr_tpu_torch.kernels.resize_phases import _coeff_arrays, _tables, phase_passes
 
 __all__ = [
     "conv_prow", "conv_prow_split_pool", "conv_prow_up2", "conv_prow_dual_planes",
     "conv_prow_up2_pack", "conv_prow_plain", "conv_prow_split_pool_plain",
     "conv_prow_up2_plain", "conv_prow_dual_planes_plain", "conv_prow_up2_pack_plain",
-    "prow_leaf", "up2_coeffs_mxu",
+    "conv_prow_dual", "conv_prow_dual_plain", "prow_leaf", "up2_coeffs_mxu", "up2_coeffs",
 ]
 
 # (cin, cout) pairs each CUDA entry point is built for (csrc/conv_px.cu)
@@ -76,6 +83,8 @@ def prow_leaf(kernel, bias, s_in, s_out=None, post_scale=1.0) -> dict:
     pixel slots; the expressions are the same NumPy ones in the same order
     (``float * float32 array`` stays float32, the bias is float64 until the
     final cast), so the scales are bit-equal."""
+    from sifsr_tpu_torch.models.quantized import _quantize_kernel
+
     q, sw = _quantize_kernel(kernel)
     comb = float(s_in) * sw * float(post_scale)
     b = np.asarray(bias, np.float64) * float(post_scale)
@@ -121,6 +130,20 @@ def up2_coeffs_mxu(h: int, w: int, s_mid, s_up):
     return _numerator_table(h), _numerator_table(w), inv
 
 
+def up2_coeffs(h: int, w: int, s_mid, s_up):
+    """(rc (2,3,h) float32, cc (2,3,w) float32, inv float32) of the fused x2
+    in its ``up2_impl='vpu'`` form (``conv_px.up2_coeffs``): the stencil
+    coefficients over the merged ascending deltas (-1, 0, 1), zero where a
+    pass does not use a delta or the tap leaves the axis, the int8 dequantise
+    scale ``s_mid`` folded into the row pass in float32, and
+    ``inv = float32(1 / s_up)`` applied after the column pass. Per pixel
+    rather than per lane (JAX repeats cc over the channels)."""
+    deltas, rc, cc = _tables(h, w, 2, "linear_ac")
+    assert deltas == (-1, 0, 1), deltas
+    rc = rc * float(s_mid)
+    return rc.astype(np.float32), cc.astype(np.float32), np.float32(1.0 / float(s_up))
+
+
 # ---------------------------------------------------------- plain versions
 
 def conv_prow_plain(x, w, scale, bias, relu=True, residual=None, res_sc=None):
@@ -158,12 +181,26 @@ def _up2_plain(q, rnum, cnum, inv):
     return requant(y.to(torch.float32) * float(inv), False)
 
 
+def _up2_vpu_plain(q, rc, cc, inv):
+    """The float32 chain of ``up2_impl='vpu'`` on int8 q (N,h,w,C): row
+    pass, column pass (``resize_phases.phase_passes``: same taps, order and
+    roundings), one multiply by inv, round, clip."""
+    y = phase_passes(q.to(torch.float32), (-1, 0, 1), rc, cc)
+    return requant(y * float(inv), False)
+
+
 def conv_prow_up2_plain(x, w, scale, bias, rnum, cnum, inv, relu=True):
-    return _up2_plain(conv_prow_plain(x, w, scale, bias, relu), rnum, cnum, inv)
+    """Integer tables (``up2_coeffs_mxu``) take the integer-exact chain,
+    float32 tables (``up2_coeffs``) the float32 one."""
+    q = conv_prow_plain(x, w, scale, bias, relu)
+    if rnum.dtype == torch.float32:
+        return _up2_vpu_plain(q, rnum, cnum, inv)
+    return _up2_plain(q, rnum, cnum, inv)
 
 
 conv_prow_up2_pack_plain = conv_prow_up2_plain
 conv_prow_dual_planes_plain = conv_i8_exact_dual_plain
+conv_prow_dual_plain = conv_i8_exact_dual_plain
 
 
 # ----------------------------------------------------------------- launches
@@ -176,6 +213,7 @@ def _lib():
         "sifsr_conv_prow": [vp, vp, vp, vp, vp, f, vp, i, i, i, i, i, i, vp],
         "sifsr_conv_prow_split_pool": [vp, vp, vp, vp, vp, vp, f, i, i, i, i, i, i, vp],
         "sifsr_conv_prow_up2": [vp, vp, vp, vp, vp, vp, f, vp, i, i, i, i, i, i, vp],
+        "sifsr_conv_prow_up2_vpu": [vp, vp, vp, vp, vp, vp, f, vp, i, i, i, i, i, i, vp],
         "sifsr_conv_prow_dual": [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp],
     }
     for name, args in sigs.items():
@@ -243,11 +281,15 @@ def conv_prow_split_pool(x, w, scale, bias, pool_sc: float, relu: bool = True):
 
 def _up2_launch(x, w, scale, bias, rnum, cnum, inv, relu, shapes, what):
     n, h, wd, cin, cout = _conv_checks(x, w, scale, bias, shapes, what)
-    _check(rnum, "rnum", (2, 3, h), torch.int32, x.device)
-    _check(cnum, "cnum", (2, 3, wd), torch.int32, x.device)
+    if rnum.dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"{what}: the x2 tables must be int32 (up2_coeffs_mxu) or float32 "
+                         f"(up2_coeffs), got {rnum.dtype}")
+    _check(rnum, "rnum", (2, 3, h), rnum.dtype, x.device)
+    _check(cnum, "cnum", (2, 3, wd), rnum.dtype, x.device)
     out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=torch.int8, device=x.device)
     lib = _lib()
-    code = lib.sifsr_conv_prow_up2(
+    entry = lib.sifsr_conv_prow_up2 if rnum.dtype == torch.int32 else lib.sifsr_conv_prow_up2_vpu
+    code = entry(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), rnum.data_ptr(),
         cnum.data_ptr(), float(inv), out.data_ptr(), n, h, wd, cin, cout, int(relu),
         _stream(x))
@@ -259,7 +301,8 @@ def conv_prow_up2(x, w, scale, bias, rnum, cnum, inv, relu: bool = True):
     """Kernel I. x (N,H,W,Cin) int8 -> (N,2H,2W,Cout) int8: the conv
     requantised at the mid scale, then the align-corners x2 with the
     numerators rnum (2,3,H) / cnum (2,3,W) int32 and float32 ``inv`` of
-    ``up2_coeffs_mxu``."""
+    ``up2_coeffs_mxu``, or with the float32 tables rc / cc and ``inv`` of
+    ``up2_coeffs`` in their place (the ``up2_impl='vpu'`` chain)."""
     if not _device(x):
         return conv_prow_up2_plain(x, w, scale, bias, rnum, cnum, inv, relu)
     out = _up2_launch(x, w, scale, bias, rnum, cnum, inv, relu, UP2_SHAPES, "conv_prow_up2")
@@ -279,15 +322,10 @@ def conv_prow_up2_pack(x, w, scale, bias, rnum, cnum, inv, relu: bool = True):
     return out
 
 
-def conv_prow_dual_planes(x, z, wx, wz, scale_x, scale_z, bias, relu: bool = True):
-    """Kernel J. x, z (N,H,W,C) int8, C 32 or 64 -> (N,H,W,C) int8
-    requant(relu(conv(x, wx)*scale_x + conv(z, wz)*scale_z + bias)); z is
-    the skip, H's full-resolution output."""
-    if not _device(x):
-        return conv_prow_dual_planes_plain(x, z, wx, wz, scale_x, scale_z, bias, relu)
+def _dual_launch(x, z, wx, wz, scale_x, scale_z, bias, relu, what):
     n, h, wd, c = x.shape
     if c not in DUAL_CHANNELS:
-        raise ValueError(f"conv_prow_dual_planes is not built for {c} channels")
+        raise ValueError(f"{what} is not built for {c} channels")
     dev = x.device
     for name, t in (("x", x), ("z", z)):
         _check(t, name, (n, h, wd, c), torch.int8, dev)
@@ -301,11 +339,31 @@ def conv_prow_dual_planes(x, z, wx, wz, scale_x, scale_z, bias, relu: bool = Tru
         x.data_ptr(), z.data_ptr(), wx.data_ptr(), wz.data_ptr(), scale_x.data_ptr(),
         scale_z.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h, wd, c, int(relu),
         _stream(x))
-    _build.check(lib, code, "conv_prow_dual_planes")
+    _build.check(lib, code, what)
+    return out
+
+
+def conv_prow_dual_planes(x, z, wx, wz, scale_x, scale_z, bias, relu: bool = True):
+    """Kernel J. x, z (N,H,W,C) int8, C 32 or 64 -> (N,H,W,C) int8
+    requant(relu(conv(x, wx)*scale_x + conv(z, wz)*scale_z + bias)); z is
+    the skip, H's full-resolution output."""
+    if not _device(x):
+        return conv_prow_dual_planes_plain(x, z, wx, wz, scale_x, scale_z, bias, relu)
+    out = _dual_launch(x, z, wx, wz, scale_x, scale_z, bias, relu, "conv_prow_dual_planes")
     conv_prow_dual_planes.launches += 1
     return out
 
 
+def conv_prow_dual(x, z, wx, wz, scale_x, scale_z, bias, relu: bool = True):
+    """Kernel L: J's function with the skip as one tensor (which it is in
+    NHWC), through J's entry point; same arguments and result as J."""
+    if not _device(x):
+        return conv_prow_dual_plain(x, z, wx, wz, scale_x, scale_z, bias, relu)
+    out = _dual_launch(x, z, wx, wz, scale_x, scale_z, bias, relu, "conv_prow_dual")
+    conv_prow_dual.launches += 1
+    return out
+
+
 for _k in (conv_prow, conv_prow_split_pool, conv_prow_up2, conv_prow_dual_planes,
-           conv_prow_up2_pack):
+           conv_prow_up2_pack, conv_prow_dual):
     _k.launches = 0

@@ -60,8 +60,14 @@ def _tables(h: int, w: int, factor: int, kind: str):
 
 
 @functools.lru_cache(maxsize=16)
-def _device_tables(h: int, w: int, factor: int, kind: str, device: torch.device):
+def _device_tables(h: int, w: int, factor: int, kind: str, device: torch.device,
+                   in_scale: float | None = None):
+    """The tables on ``device``; ``in_scale`` (the dequantise scale of an
+    int8-valued input) multiplies the row coefficients in float32, as the
+    TPU wrapper folds it (linearity of the resize)."""
     deltas, rc, cc = _tables(h, w, factor, kind)
+    if in_scale is not None:
+        rc = rc * np.float32(in_scale)
     return deltas, torch.as_tensor(rc, device=device), torch.as_tensor(cc, device=device)
 
 
@@ -70,10 +76,13 @@ def _inv_scale(scale) -> float:
     return float(np.float32(1.0) / np.float32(scale))
 
 
-def upsample_phases_plain(x: torch.Tensor, factor: int, kind: str, scale=None) -> torch.Tensor:
-    """The plain PyTorch version: the same taps, order and roundings."""
+def phase_passes(x: torch.Tensor, deltas, rc: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """Row pass then column pass over float32 x (N,H,W,C) with the tables rc
+    (f, n_deltas, H), cc (f, n_deltas, W): the taps in ascending delta order,
+    every product and sum rounded on its own, the first term not added to
+    zero. Returns (N, fH, fW, C) float32."""
     n, h, w, c = x.shape
-    deltas, rc, cc = _device_tables(h, w, factor, kind, x.device)
+    factor = rc.shape[0]
     out = x.new_empty((n, h, factor, w, factor, c))
     for d in range(factor):
         r = None
@@ -86,28 +95,46 @@ def upsample_phases_plain(x: torch.Tensor, factor: int, kind: str, scale=None) -
                 term = cc[e, j][None, None, :, None] * torch.roll(r, -dl, dims=2)
                 y = term if y is None else y + term
             out[:, :, d, :, e] = y
-    y = out.reshape(n, factor * h, factor * w, c)
+    return out.reshape(n, factor * h, factor * w, c)
+
+
+def upsample_phases_plain(x: torch.Tensor, factor: int, kind: str, scale=None,
+                          in_scale=None) -> torch.Tensor:
+    """The plain PyTorch version: the same taps, order and roundings."""
+    n, h, w, c = x.shape
+    deltas, rc, cc = _device_tables(h, w, factor, kind, x.device, _key(in_scale))
+    y = phase_passes(x.to(torch.float32), deltas, rc, cc)
     if scale is None:
         return y
     return torch.clamp(torch.round(y * _inv_scale(scale)), -127, 127).to(torch.int8)
 
 
-def upsample_phases(x: torch.Tensor, factor: int, kind: str, scale=None) -> torch.Tensor:
+def _key(in_scale):
+    return None if in_scale is None else float(np.float32(in_scale))
+
+
+def upsample_phases(x: torch.Tensor, factor: int, kind: str, scale=None,
+                    in_scale=None) -> torch.Tensor:
     """(N, H, W, C) float32 -> (N, factor*H, factor*W, C) upsample (``kind``
     'cubic' or 'linear_ac', as ``ops.resize.resize_matrix``).
 
     scale=None returns float32; a scale returns int8
-    clip(round(y * float32(1/scale)), -127, 127) (half-to-even)."""
-    if x.dim() != 4 or x.dtype != torch.float32:
-        raise ValueError(f"expected (N, H, W, C) float32, got {tuple(x.shape)} {x.dtype}")
+    clip(round(y * float32(1/scale)), -127, 127) (half-to-even). With
+    ``in_scale`` x may be int8: it is cast to float32 and ``in_scale``
+    multiplies the row coefficients (the input is not dequantised first)."""
+    typed = x.dtype == torch.float32 or (x.dtype == torch.int8 and in_scale is not None)
+    if x.dim() != 4 or not typed:
+        raise ValueError(f"expected (N, H, W, C) float32, or int8 with in_scale, "
+                         f"got {tuple(x.shape)} {x.dtype}")
     if x.device.type == "cpu":
-        return upsample_phases_plain(x, factor, kind, scale)
+        return upsample_phases_plain(x, factor, kind, scale, in_scale)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    x = x.to(torch.float32)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     n, h, w, c = x.shape
-    deltas, rc, cc = _device_tables(h, w, factor, kind, x.device)
+    deltas, rc, cc = _device_tables(h, w, factor, kind, x.device, _key(in_scale))
     out_int8 = scale is not None
     out = torch.empty((n, factor * h, factor * w, c),
                       dtype=torch.int8 if out_int8 else torch.float32, device=x.device)

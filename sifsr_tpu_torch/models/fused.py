@@ -10,17 +10,25 @@ frozen statistics, so it folds exactly into the preceding conv:
 tree (``{name: {'conv1': {'conv': {'kernel': HWIO, 'bias'}}, ...}}``, the
 layout the int8 builders and the tests read), and ``InferenceModelB2`` is the
 U-Net with one biased conv per layer (conv -> bias -> ReLU) built from it.
+
+``pad_impl`` picks how a layer pads: 'explicit' materialises the replicate
+pad (``nn.Conv2d(padding_mode='replicate')``); 'fused' is the port of
+``models/unet.py::_replicate_conv_fused``, a zero-padded conv plus O(H+W)
+corrections of the border ring, which differs from 'explicit' only by the
+float summation order at border pixels.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sifsr_tpu_torch.models.unet import DOWNCHANNELS, Conv3x3
 from sifsr_tpu_torch.ops.resize import _matrix, upsample_bilinear_x2
 
-__all__ = ["InferenceModelB2", "fold_batchnorm", "upsample_bilinear_x2_nhwc"]
+__all__ = ["InferenceModelB2", "fold_batchnorm", "upsample_bilinear_x2_nhwc",
+           "replicate_conv_fused"]
 
 _BN_EPS = 1e-5
 
@@ -66,6 +74,31 @@ def fold_batchnorm(state_dict: dict) -> dict:
     return out
 
 
+def replicate_conv_fused(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor | None = None) -> torch.Tensor:
+    """3x3 replicate-pad conv of NCHW x with OIHW weight without the padded
+    copy of the input: the interior comes from a zero-padded conv, and the
+    border ring, where zero and replicate padding differ, gets the taps the
+    zero pad dropped back from the clamped edge rows and columns (each a 1-D
+    conv of one line), less the four corner taps that a row and a column
+    correction both added. Interior pixels are the explicit conv's; border
+    pixels take the missing taps in a second addition (~1 ulp)."""
+    out = F.conv2d(x, weight, None, padding=1)
+
+    def line(edge, w1d, along_w):
+        pad = (1, 1, 0, 0) if along_w else (0, 0, 1, 1)
+        return F.conv2d(F.pad(edge, pad, mode="replicate"), w1d)
+
+    out[:, :, :1] += line(x[:, :, :1], weight[:, :, 0:1, :], True)      # row -1
+    out[:, :, -1:] += line(x[:, :, -1:], weight[:, :, 2:3, :], True)    # row H
+    out[:, :, :, :1] += line(x[:, :, :, :1], weight[:, :, :, 0:1], False)   # column -1
+    out[:, :, :, -1:] += line(x[:, :, :, -1:], weight[:, :, :, 2:3], False)  # column W
+    for (y, xx), (ky, kx) in (((0, 0), (0, 0)), ((0, -1), (0, 2)), ((-1, 0), (2, 0)),
+                              ((-1, -1), (2, 2))):
+        out[:, :, y, xx] -= x[:, :, y, xx] @ weight[:, :, ky, kx].t()
+    return out if bias is None else out + bias[None, :, None, None]
+
+
 class _FusedConv(nn.Module):
     """3x3 replicate-pad conv -> bias [-> ReLU]."""
 
@@ -74,8 +107,11 @@ class _FusedConv(nn.Module):
         self.conv = Conv3x3(c_in, c_out, bias=True)
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor, pad_impl: str = "explicit") -> torch.Tensor:
+        if pad_impl == "fused":
+            x = replicate_conv_fused(x, self.conv.weight, self.conv.bias)
+        else:
+            x = self.conv(x)
         return torch.relu(x) if self.relu else x
 
 
@@ -86,8 +122,8 @@ class _FusedDouble(nn.Module):
         self.conv1 = _FusedConv(c_in, c_mid)
         self.conv2 = _FusedConv(c_mid, c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.conv1(x))
+    def forward(self, x: torch.Tensor, pad_impl: str = "explicit") -> torch.Tensor:
+        return self.conv2(self.conv1(x, pad_impl), pad_impl)
 
 
 class _FusedDown(nn.Module):
@@ -96,9 +132,9 @@ class _FusedDown(nn.Module):
         self.res = _FusedDouble(c_in, c_in)
         self.lastconv = _FusedConv(c_in, c_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_impl: str = "explicit") -> torch.Tensor:
         x = torch.nn.functional.avg_pool2d(x, 2)
-        return self.lastconv(x + self.res(x))
+        return self.lastconv(x + self.res(x, pad_impl), pad_impl)
 
 
 class _FusedUp(nn.Module):
@@ -106,13 +142,18 @@ class _FusedUp(nn.Module):
         super().__init__()
         self.convbloc = _FusedDouble(c_in, c_out, c_in // 2)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.convbloc(torch.cat([upsample_bilinear_x2(x), skip], dim=1))
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                pad_impl: str = "explicit") -> torch.Tensor:
+        return self.convbloc(torch.cat([upsample_bilinear_x2(x), skip], dim=1), pad_impl)
 
 
 class InferenceModelB2(nn.Module):
     """BN-folded ModelB2 for serving: NHWC (N, H, W, 2) -> (N, H, W, 1).
-    Submodule names follow the folded tree (``db1.res.conv1.conv`` ...)."""
+    Submodule names follow the folded tree (``db1.res.conv1.conv`` ...).
+    ``forward``'s pad_impl is 'explicit' or 'fused' (see the module
+    docstring; ``inference.make_sr_step`` validates and chooses it). The
+    fused form updates its conv outputs in place: it is for inference (no
+    autograd)."""
 
     def __init__(self):
         super().__init__()
@@ -149,13 +190,13 @@ class InferenceModelB2(nn.Module):
         """ModelB2 state dict -> folded serving model (float32, on the CPU)."""
         return cls.from_folded(fold_batchnorm(state_dict))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_impl: str = "explicit") -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
-        s0 = self.inbloc(x)
-        s1 = self.db1(s0)
-        s2 = self.db2(s1)
-        x = self.db3(s2)
-        x = self.ub1(x, s2)
-        x = self.ub2(x, s1)
-        x = self.ub3(x, s0)
-        return self.outlay(x).permute(0, 2, 3, 1)
+        s0 = self.inbloc(x, pad_impl)
+        s1 = self.db1(s0, pad_impl)
+        s2 = self.db2(s1, pad_impl)
+        x = self.db3(s2, pad_impl)
+        x = self.ub1(x, s2, pad_impl)
+        x = self.ub2(x, s1, pad_impl)
+        x = self.ub3(x, s0, pad_impl)
+        return self.outlay(x, pad_impl).permute(0, 2, 3, 1)

@@ -35,7 +35,16 @@ parameters are quantised from the unpacked folded kernels.
 Everything is calibrated statically: ``_f32_packed_mirror`` runs the float32
 packed graph on a few patches and records max|x| of each tensor that gets
 an int8 scale (scale = max/127 * headroom). The ``prow`` parameters bind
-the x2 tables to the LST block size they were built for.
+the x2 tables to the LST block size they were built for; ``up2_impl`` picks
+their form, 'mxu' (integer numerators, one rounding) or 'vpu' (float32
+coefficients, the three roundings of ``upsample_phases``).
+
+``make_int8_sr_step(kernels='alt')`` is a comparison configuration on the
+same parameters, as ``mid='xla'`` is: the step's earlier forms of three
+layers, inbloc.conv1 on one channel-interleaved input (kernel E), the skip
+concats through kernel L and the outlay through kernel F. Each computes the
+function of the kernel it stands in for (D, J, the generic conv), so the
+``alt`` step's output equals the default step's bit for bit.
 """
 
 from __future__ import annotations
@@ -49,15 +58,18 @@ from sifsr_tpu_torch.kernels import (
     conv_i8_exact,
     conv_i8_exact_dual,
     conv_i8_generic,
+    conv_i8_in1,
     conv_i8_in1_split,
+    conv_i8_outlay,
     conv_prow,
+    conv_prow_dual,
     conv_prow_dual_planes,
     conv_prow_split_pool,
     conv_prow_up2,
     conv_prow_up2_pack,
     upsample_phases,
 )
-from sifsr_tpu_torch.kernels.conv_px import prow_leaf, up2_coeffs_mxu
+from sifsr_tpu_torch.kernels.conv_px import prow_leaf, up2_coeffs, up2_coeffs_mxu
 from sifsr_tpu_torch.models.fused import fold_batchnorm, upsample_bilinear_x2_nhwc
 from sifsr_tpu_torch.models.packed import (
     _packed_concat,
@@ -199,12 +211,10 @@ def prow_mid_params(folded: dict, mid_rec: dict, s: dict, headroom: float, hp: i
     ``mid='xla'`` chain. The epilogues fold the next tensor's scale in:
     res.conv2 is prescaled by 1/s(lastconv input) with the residual at
     ``res_sc``; db1/db2's lastconv pools at ``pool_sc``; db3's lastconv and
-    ub1/ub2's conv2 upsample from their output scale to the consumer's."""
-    if up2_impl == "vpu":
-        raise NotImplementedError(
-            "up2_impl='vpu' (the roll/fma rounding chain of conv_px.up2_coeffs) is not "
-            "ported yet (ROADMAP.md, TPU kernel queue); use up2_impl='mxu'")
-    if up2_impl != "mxu":
+    ub1/ub2's conv2 upsample from their output scale to the consumer's.
+    up2_impl: 'mxu' attaches the integer tables of ``up2_coeffs_mxu``, 'vpu'
+    the float32 tables of ``up2_coeffs``."""
+    if up2_impl not in ("mxu", "vpu"):
         raise ValueError(f"up2_impl must be 'mxu' or 'vpu', got {up2_impl!r}")
 
     def cal(*path):
@@ -214,7 +224,10 @@ def prow_mid_params(folded: dict, mid_rec: dict, s: dict, headroom: float, hp: i
         return node["conv"]["kernel"], node["conv"]["bias"]
 
     def attach_up2(leaf, size, s_mid, s_up):
-        leaf["rnum"], leaf["cnum"], inv = up2_coeffs_mxu(size, size, s_mid, s_up)
+        """The x2 tables under the keys the step passes to kernels I and K:
+        integer numerators ('mxu') or float32 coefficients ('vpu')."""
+        coeffs = up2_coeffs_mxu if up2_impl == "mxu" else up2_coeffs
+        leaf["rtab"], leaf["ctab"], inv = coeffs(size, size, s_mid, s_up)
         leaf["inv"] = float(inv)
 
     def down_leaves(name):
@@ -354,10 +367,11 @@ def _xla_mid(mid: dict, pm: torch.Tensor) -> torch.Tensor:
                        mid["ub2"]["convbloc"])
 
 
-def _prow_mid(pmid: dict, pm: torch.Tensor) -> torch.Tensor:
+def _prow_mid(pmid: dict, pm: torch.Tensor, dual_kernel=conv_prow_dual_planes) -> torch.Tensor:
     """db1..db3, ub1, ub2 as kernels G-K (``pallas_serving.py:395-440``):
     the int8 phase mean (N, hp, hp, 16) at db1's input scale -> ub2's x2
-    output (N, 2hp, 2hp, 16) int8 at the ``up`` scale."""
+    output (N, 2hp, 2hp, 16) int8 at the ``up`` scale. dual_kernel: J, or L
+    for the ``alt`` step."""
 
     def down(tree, x):
         c1, c2 = tree["conv1"], tree["conv2"]
@@ -369,13 +383,12 @@ def _prow_mid(pmid: dict, pm: torch.Tensor) -> torch.Tensor:
         return conv_prow_split_pool(x, last["w"], last["scale"], last["bias"], last["pool_sc"])
 
     def up2(kernel, leaf, x):
-        return kernel(x, leaf["w"], leaf["scale"], leaf["bias"], leaf["rnum"], leaf["cnum"],
+        return kernel(x, leaf["w"], leaf["scale"], leaf["bias"], leaf["rtab"], leaf["ctab"],
                       leaf["inv"])
 
     def dual(tree, up, skip):
         cx, cz = tree["conv1x"], tree["conv1z"]
-        return conv_prow_dual_planes(up, skip, cx["w"], cz["w"], cx["scale"], cz["scale"],
-                                     cx["bias"])
+        return dual_kernel(up, skip, cx["w"], cz["w"], cx["scale"], cz["scale"], cx["bias"])
 
     s1, x2 = pool(pmid["db1"], down(pmid["db1"], pm))
     s2, x3 = pool(pmid["db2"], down(pmid["db2"], x2))
@@ -384,13 +397,20 @@ def _prow_mid(pmid: dict, pm: torch.Tensor) -> torch.Tensor:
     return up2(conv_prow_up2_pack, pmid["ub2"]["conv2"], dual(pmid["ub2"], upu1, s1))
 
 
-def make_int8_sr_step(stats, mid: str = "prow", device: str | torch.device = "cuda"):
+def make_int8_sr_step(stats, mid: str = "prow", kernels: str = "default",
+                      device: str | torch.device = "cuda"):
     """The int8 twin of ``inference.make_sr_step``:
     (params, lst (N,h,h) K, ndvi (N,4h,4h)) -> (N,4h,4h) K, params from
     ``build_int8_serving_params`` on the same device. mid: 'prow' (the
-    default, kernels G-K) or 'xla' (the JAX comparison chain)."""
+    default, kernels G-K) or 'xla' (the JAX comparison chain). kernels:
+    'default', or 'alt' for the comparison step that runs inbloc.conv1
+    through kernel E, the prow skip concats through L and the outlay through
+    F; its output equals the default step's bit for bit."""
     if mid not in ("prow", "xla"):
         raise ValueError(f"mid must be 'prow' or 'xla', got {mid!r}")
+    if kernels not in ("default", "alt"):
+        raise ValueError(f"kernels must be 'default' or 'alt', got {kernels!r}")
+    alt = kernels == "alt"
     dev = resolve_device(device)
 
     def f32(v):
@@ -412,11 +432,15 @@ def make_int8_sr_step(stats, mid: str = "prow", device: str | torch.device = "cu
         ndvi_n = (ndvi - mean_ndvi) / std_ndvi
         lst_q = upsample_phases(lst_n[..., None], 4, "cubic", scale=s["in1"])[..., 0]
         ndvi_q = _quant(ndvi_n, in1["in_scale"])
-        s1 = conv_i8_in1_split(lst_q, ndvi_q, in1["w"], in1["scale"], in1["bias"])
+        if alt:
+            s1 = conv_i8_in1(torch.stack([lst_q, ndvi_q], dim=-1), in1["w"], in1["scale"],
+                             in1["bias"])
+        else:
+            s1 = conv_i8_in1_split(lst_q, ndvi_q, in1["w"], in1["scale"], in1["bias"])
         s0, pm = conv_i8_exact(s1, in2["w"], in2["scale"], in2["bias"],
                                pm_scale=params["pm_scale"])
         if mid == "prow":
-            up = _prow_mid(params["pmid"], pm)
+            up = _prow_mid(params["pmid"], pm, conv_prow_dual if alt else conv_prow_dual_planes)
         else:
             up = upsample_phases(_xla_mid(params["mid"], pm), 2, "linear_ac", scale=s["up"])
         u = conv_i8_exact_dual(up, s0, u31["wx"], u31["wz"], u31["scale_x"],
@@ -425,6 +449,8 @@ def make_int8_sr_step(stats, mid: str = "prow", device: str | torch.device = "cu
         # the Kelvin de-normalise folds into the dequantise step
         ol_sc = ol["in_scale"] * ol["scale"] * std_lst
         ol_b = ol["bias"] * std_lst + mean_lst
+        if alt:
+            return conv_i8_outlay(olp, ol["q"], ol_sc, ol_b)
         return conv_i8_generic(olp, ol["q"], ol_sc, ol_b, relu=False)[..., 0]
 
     return sr_step

@@ -11,41 +11,16 @@ cuDNN conv is not exact (Winograd/FFT algorithms, and ub1.conv1's
 kernel (``kernels.conv_i8.conv_i8_generic``).
 
 A leaf is ``{'q': int8 HWIO, 'scale': (K,), 'bias': (K,), 'in_scale': ()}``,
-tensors on the serving device.
+tensors on the serving device. The chain's functions are those of
+``models.quantized`` (``predict --int8`` runs the same convs over the whole
+model): with a static ``in_scale`` its ``_conv_i8`` is this module's
+``_conv_i8_mid``.
 """
 
 from __future__ import annotations
 
-import torch
-
-from sifsr_tpu_torch.kernels.conv_i8 import conv_i8_generic
+from sifsr_tpu_torch.models.quantized import _conv_i8 as _conv_i8_mid
+from sifsr_tpu_torch.models.quantized import _double as _double_mid
+from sifsr_tpu_torch.models.quantized import _down, _quant
 
 __all__ = ["_quant", "_conv_i8_mid", "_double_mid", "_down"]
-
-
-def _quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """clip(round(x / scale), -127, 127) -> int8; ``scale`` a 0-d float32
-    tensor on x's device (a true division, as in the JAX package)."""
-    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-
-
-def _conv_i8_mid(x: torch.Tensor, leaf: dict, relu: bool = True) -> torch.Tensor:
-    s_x = leaf["in_scale"]
-    return conv_i8_generic(_quant(x.to(torch.float32), s_x), leaf["q"],
-                           s_x * leaf["scale"], leaf["bias"], relu)
-
-
-def _double_mid(x: torch.Tensor, tree: dict) -> torch.Tensor:
-    x = _conv_i8_mid(x, tree["conv1"]["conv"])
-    return _conv_i8_mid(x, tree["conv2"]["conv"])
-
-
-def _down_body(x: torch.Tensor, tree: dict) -> torch.Tensor:
-    x = x + _double_mid(x, tree["res"])
-    return _conv_i8_mid(x, tree["lastconv"]["conv"])
-
-
-def _down(x: torch.Tensor, tree: dict) -> torch.Tensor:
-    n, h, w, c = x.shape
-    x = x.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
-    return _down_body(x, tree)

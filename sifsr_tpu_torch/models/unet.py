@@ -25,9 +25,10 @@ Training options: ``dtype=torch.bfloat16`` runs the forward under
 statistics and the output stay float32); ``forward(x, remat=True)``
 rematerialises block by block; ``precision`` ('highest' or
 'default') says whether the train and eval steps keep TF32 off around the
-model. Not ported: ``pad_impl='fused'`` (a TPU memory-traffic variant of the
-same function) and the ``bilinear=False`` ConvTranspose decoder, which no
-published model uses; both raise ``NotImplementedError`` (ROADMAP.md).
+model. Not ported for training: ``pad_impl='fused'`` (the serving model
+``models.fused.InferenceModelB2`` has it) and the ``bilinear=False``
+ConvTranspose decoder, which no published model uses; both raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -114,8 +115,8 @@ class ModelB2(nn.Module):
         super().__init__()
         if pad_impl != "explicit":
             raise NotImplementedError(
-                f"pad_impl={pad_impl!r} is not ported (a TPU memory-traffic variant of "
-                "the same conv; ROADMAP.md): use pad_impl='explicit'")
+                f"pad_impl={pad_impl!r} is not ported for the training model (the serving "
+                "model has it; ROADMAP.md): use pad_impl='explicit'")
         if not bilinear:
             raise NotImplementedError(
                 "the bilinear=False ConvTranspose decoder is not ported (ROADMAP.md)")

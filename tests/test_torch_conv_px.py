@@ -1,4 +1,4 @@
-"""Kernels G-K of the port (plain versions, on the CPU) against the Pallas
+"""Kernels G-L of the port (plain versions, on the CPU) against the Pallas
 kernels of sifsr_tpu/pallas/conv_px.py in interpret mode, at the shapes of
 tests/test_conv_px_pallas.py.
 
@@ -208,3 +208,86 @@ def test_up2_coeffs_mxu_equal_jax(h, w, c_out):
                     want_rm[d * h + kk, kk + t - 1] = rnum[d, t, kk]
     np.testing.assert_array_equal(want_rm, rm)
     np.testing.assert_array_equal(np.repeat(cnum, c_out, axis=2).astype(np.float32), cc)
+
+
+@pytest.mark.parametrize("p,c,h,w", [(2, 64, 8, 16), (4, 32, 8, 16)])
+def test_conv_prow_dual_matches_pallas(rng, p, c, h, w):
+    """Kernel L against the Pallas conv_prow_dual (the skip as one rows
+    tensor, not half-planes): identical int8, and identical to kernel J."""
+    x, kx, bias = _rand_case(rng, 2, h, w, c, c)
+    z, kz, _ = _rand_case(rng, 2, h, w, c, c)
+    want = rows_to_nhwc(jax_px.conv_prow_dual(
+        nhwc_to_rows(jnp.asarray(x), p), nhwc_to_rows(jnp.asarray(z), p),
+        jax_px.prow_leaf(kx, bias, p, s_in=0.1, s_out=0.05),
+        jax_px.prow_leaf(kz, np.zeros_like(bias), p, s_in=0.21, s_out=0.05),
+        p, c, c, h, w, interpret=True), h, w, c)
+    wx, sx, bx = _leaf(kx, bias, 0.1, 0.05)
+    wz, sz, _ = _leaf(kz, np.zeros_like(bias), 0.21, 0.05)
+    args = (torch.from_numpy(x), torch.from_numpy(z), wx, wz, sx, sz, bx)
+    got = conv_px.conv_prow_dual(*args)
+    _assert_identical(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), conv_px.conv_prow_dual_planes(*args).numpy())
+
+
+def _up2_vpu_tables(h, w, s_mid, s_up):
+    rc, cc, inv = conv_px.up2_coeffs(h, w, s_mid, s_up)
+    return torch.from_numpy(rc), torch.from_numpy(cc), inv
+
+
+@pytest.mark.parametrize("p,c,c_out,p_out,h,w,fold", [
+    (2, 64, 64, 2, 8, 16, 1),      # db3.last-like
+    (4, 64, 32, 4, 8, 16, 2),      # ub1.conv2-like (folded input rows)
+])
+def test_conv_prow_up2_vpu_matches_pallas(rng, p, c, c_out, p_out, h, w, fold):
+    """Kernel I with the float32 tables (up2_impl='vpu'): identical int8 to
+    the Pallas roll/fma kernel, and to the port's upsample_phases with
+    in_scale on the conv's int8 output (the second oracle)."""
+    from sifsr_tpu_torch.kernels import upsample_phases
+
+    s_mid, s_up = 0.12, 0.2
+    x, k, bias = _rand_case(rng, 2, h, w, c, c_out)
+    leaf = jax_px.prow_leaf(k, bias, p, s_in=0.17, s_out=s_mid)
+    _, rc, cc, inv = jax_px.up2_coeffs(h, w, c_out, s_mid, s_up)
+    leaf.update(rc=jnp.asarray(rc), cc=jnp.asarray(cc), inv=jnp.asarray(inv))
+    want = jax_px.conv_prow_up2(nhwc_to_rows(jnp.asarray(x), p // fold), leaf, p, c, c_out,
+                                p_out, h, w, fold=fold, interpret=True)
+    inv_perm = np.argsort(np.asarray(up2_perm(p_out)))
+    want = np.asarray(want).reshape(2, 2 * h, (2 * w) // p_out, p_out, c_out)
+    want = want[:, :, :, inv_perm, :].reshape(2, 2 * h, 2 * w, c_out)
+    tleaf = _leaf(k, bias, 0.17, s_mid)
+    got = conv_px.conv_prow_up2(torch.from_numpy(x), *tleaf, *_up2_vpu_tables(h, w, s_mid, s_up))
+    _assert_identical(got.numpy(), want)
+    mid = conv_px.conv_prow(torch.from_numpy(x), *tleaf)
+    second = upsample_phases(mid, 2, "linear_ac", scale=s_up, in_scale=s_mid)
+    np.testing.assert_array_equal(got.numpy(), second.numpy())
+
+
+@pytest.mark.parametrize("h,n", [(16, 2), (32, 3)])
+def test_conv_prow_up2_pack_vpu_matches_pallas(rng, h, n):
+    """Kernel K with the float32 tables, the pair-row output unpacked."""
+    p, c = 8, 32
+    s_mid, s_up = 0.15, 0.25
+    x, k, bias = _rand_case(rng, n, h, h, c, 16)
+    leaf = jax_px.prow_leaf(k, bias, p, s_in=0.19, s_out=s_mid)
+    _, rc, cc, inv = jax_px.up2_coeffs(h, h, 16, s_mid, s_up)
+    leaf.update(rc=jnp.asarray(rc), cc=jnp.asarray(cc), inv=jnp.asarray(inv))
+    want = jax_px.conv_prow_up2_pack(nhwc_to_rows(jnp.asarray(x), p // 2), leaf, p, c, h,
+                                     fold=2, interpret=True)
+    want = np.asarray(want).reshape(n, h, h, 2, 2, 16).transpose(0, 1, 3, 2, 4, 5)
+    got = conv_px.conv_prow_up2_pack(torch.from_numpy(x), *_leaf(k, bias, 0.19, s_mid),
+                                     *_up2_vpu_tables(h, h, s_mid, s_up))
+    _assert_identical(got.numpy(), want.reshape(n, 2 * h, 2 * h, 16))
+
+
+@pytest.mark.parametrize("h,w,c_out", [(8, 16, 64), (32, 32, 64), (64, 64, 32), (128, 128, 16)])
+def test_up2_coeffs_equal_jax(h, w, c_out):
+    """The float32 tables of up2_impl='vpu', bit for bit: JAX keeps rc as a
+    (2, nd, h, 1) column and repeats cc over the c_out lanes of a pixel."""
+    s_mid, s_up = 0.0731, 0.0913
+    deltas, rc, cc, inv = jax_px.up2_coeffs(h, w, c_out, s_mid, s_up)
+    got_rc, got_cc, got_inv = conv_px.up2_coeffs(h, w, s_mid, s_up)
+    assert deltas == (-1, 0, 1)
+    assert got_rc.dtype == got_cc.dtype == np.float32 and got_inv.dtype == np.float32
+    assert got_inv == inv
+    np.testing.assert_array_equal(got_rc, rc[..., 0])
+    np.testing.assert_array_equal(np.repeat(got_cc, c_out, axis=2), cc)

@@ -70,7 +70,7 @@ def test_conv_i8_dual_and_in1_cuda(rng, cuda):
     assert torch.equal(conv_i8.conv_i8_in1_split(*args), conv_i8.conv_i8_in1_split_plain(*args))
 
 
-@pytest.mark.parametrize("cin,cout", [(16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
+@pytest.mark.parametrize("cin,cout", [(4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
                                       (128, 64), (64, 32), (32, 16), (16, 1)])
 def test_conv_i8_generic_cuda(rng, cuda, cin, cout):
     args = [_i8(rng, (2, 24, 40, cin)), _i8(rng, (3, 3, cin, cout)),
@@ -133,6 +133,60 @@ def test_conv_prow_dual_planes_cuda(rng, cuda, c):
     got = conv_px.conv_prow_dual_planes(x, z, wx, wz, sx, sz, b)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (40, 36)])
+def test_conv_i8_in1_and_outlay_cuda(rng, cuda, h, w):
+    """Kernels E (identical to its plain version and to kernel D on the
+    de-interleaved planes) and F (identical to its plain version and to the
+    generic conv on the same operands)."""
+    x2 = _i8(rng, (2, h, w, 2)).to(cuda)
+    args = [a.to(cuda) for a in (_i8(rng, (3, 3, 2, 16)), _f32(0.0005 + 0.001 * rng.random(16)),
+                                 _f32(rng.normal(size=16)))]
+    got = conv_i8.conv_i8_in1(x2, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv_i8.conv_i8_in1_plain(x2, *args))
+    assert torch.equal(got, conv_i8.conv_i8_in1_split(x2[..., 0].contiguous(),
+                                                      x2[..., 1].contiguous(), *args))
+    args = [a.to(cuda) for a in (_i8(rng, (2, h, w, 16)), _i8(rng, (3, 3, 16, 1)),
+                                 _f32([0.0011]), _f32([301.5]))]
+    got = conv_i8.conv_i8_outlay(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (2, h, w) and got.dtype == torch.float32
+    assert torch.equal(got, conv_i8.conv_i8_outlay_plain(*args))
+    assert torch.equal(got, conv_i8.conv_i8_generic(*args, relu=False)[..., 0])
+
+
+@pytest.mark.parametrize("c", [32, 64])
+def test_conv_prow_dual_cuda(rng, cuda, c):
+    """Kernel L (J's entry point under its own wrapper and launch count)."""
+    x, wx, sx, b = _conv_args(rng, cuda, 2, 40, 36, c, c)
+    z, wz, sz, _ = _conv_args(rng, cuda, 2, 40, 36, c, c)
+    conv_px.conv_prow_dual.launches = conv_px.conv_prow_dual_planes.launches = 0
+    got = conv_px.conv_prow_dual(x, z, wx, wz, sx, sz, b)
+    torch.cuda.synchronize()
+    assert (conv_px.conv_prow_dual.launches, conv_px.conv_prow_dual_planes.launches) == (1, 0)
+    assert torch.equal(got, conv_px.conv_prow_dual_plain(x, z, wx, wz, sx, sz, b))
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 32), (32, 16)])
+def test_conv_prow_up2_vpu_cuda(rng, cuda, cin, cout):
+    """Kernels I and K with the float32 tables (up2_impl='vpu') on 40x36
+    sources: identical to the plain chain and to kernel A with in_scale on
+    the conv's int8 output (s_up exact in float32, so both form the same
+    1/s_up)."""
+    s_mid, s_up = 0.05, 0.0625
+    args = _conv_args(rng, cuda, 2, 40, 36, cin, cout)
+    rc, cc, inv = conv_px.up2_coeffs(40, 36, s_mid, s_up)
+    tables = [torch.from_numpy(rc).to(cuda), torch.from_numpy(cc).to(cuda), inv]
+    kernel = conv_px.conv_prow_up2_pack if cout == 16 else conv_px.conv_prow_up2
+    got = kernel(*args, *tables)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 80, 72, cout)
+    assert torch.equal(got, conv_px.conv_prow_up2_plain(*args, *tables))
+    mid = conv_px.conv_prow_plain(*args)
+    assert torch.equal(got, resize_phases.upsample_phases(mid, 2, "linear_ac", scale=s_up,
+                                                          in_scale=s_mid))
 
 
 MEAN, STD = 295.0, 10.0

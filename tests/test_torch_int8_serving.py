@@ -1,7 +1,8 @@
 """The port's int8 serving slice against the JAX package (CPU, Pallas kernels
 in interpret mode): weight quantisation, calibration, the whole int8 step
-(mid='prow', the default, and mid='xla') and whole-granule prediction with
-the float32 and int8 steps."""
+(mid='prow', the default, with both x2 chains, mid='xla', and the
+kernels='alt' comparison step), the plain int8 step of predict --int8 with its
+parameter tree, and whole-granule prediction with the float32 and int8 steps."""
 
 import os
 
@@ -126,12 +127,13 @@ def test_calibration_record_matches_jax(rng, weights, stats):
         np.testing.assert_allclose(mid[k], jmid[k], rtol=1e-5, err_msg=str(k))
 
 
-def _jax_record(rng, weights, stats, size=32):
+def _jax_record(rng, weights, stats, size=32, up2_impl="mxu"):
     """JAX's calibration record on seeded patches, and JAX's parameters."""
     cal_lst, cal_ndvi = _patches(rng, 2, size)
     pp = jax.device_get(jax_serving.pack_serving_params(weights[1]))
     rec, mid_rec = jax_serving._f32_packed_mirror(pp, cal_lst, cal_ndvi, stats[1])
-    jparams = jax_serving.build_pallas_serving_params(weights[1], cal_lst, cal_ndvi, stats[1])
+    jparams = jax_serving.build_pallas_serving_params(weights[1], cal_lst, cal_ndvi, stats[1],
+                                                      up2_impl=up2_impl)
     return rec, mid_rec, jparams
 
 
@@ -199,16 +201,219 @@ def test_int8_step_matches_jax_prow_mid(rng, weights, stats):
     assert 250.0 < got.min() and got.max() < 350.0
 
 
+def _contracted_x2(q, rc, cc, inv):
+    """The vpu x2 chain on int8 q (N,h,w,C) with every multiply-add after a
+    pass's first term contracted into one FMA (emulated in float64: the
+    product of two float32 is exact there), numpy. What XLA:CPU makes of the
+    interpreted kernel; the TPU's VPU and the port round each product and
+    each sum on their own."""
+    f32, f64 = np.float32, np.float64
+
+    def fma(a, b, c):
+        return (a.astype(f64) * b.astype(f64) + c.astype(f64)).astype(f32)
+
+    n, h, w, c = q.shape
+    x = q.astype(f32)
+    out = np.empty((n, h, 2, w, 2, c), f32)
+    for d in range(2):
+        r = None
+        for j, dl in enumerate((-1, 0, 1)):
+            co, xs = rc[d, j][None, :, None, None], np.roll(x, -dl, axis=1)
+            r = (co * xs).astype(f32) if r is None else fma(co, xs, r)
+        for e in range(2):
+            y = None
+            for j, dl in enumerate((-1, 0, 1)):
+                co, rs = cc[e, j][None, None, :, None], np.roll(r, -dl, axis=2)
+                y = (co * rs).astype(f32) if y is None else fma(co, rs, y)
+            out[:, :, d, :, e] = y
+    y = out.reshape(n, 2 * h, 2 * w, c) * f32(inv)
+    return np.clip(np.rint(y), -127, 127).astype(np.int8)
+
+
+def test_int8_step_vpu_matches_jax(rng, weights, stats, monkeypatch):
+    """up2_impl='vpu': the x2 tables are bit-equal to JAX's up2_coeffs, and
+    each of the mid chain's three fused x2 stages (kernels I, I, K with the
+    float32 chain; sources 16², 32² and the 64² serving tail) is identical to
+    the chain's specification: kernel A, upsample_phases(q, 2, 'linear_ac',
+    scale=s_up, in_scale=s_mid), on the stage's own conv output q.
+
+    Against JAX's _prow_mid on vpu parameters the mid chain's int8 output is
+    identical except where XLA:CPU's contraction shows: at the 64² tail it
+    fuses the interpreted kernel's multiply-adds into FMAs even at the
+    suite's opt level 0. The test demonstrates that instead of allowing for
+    it: every element that differs has a pre-round value, in the port's
+    separately rounded chain, within one ulp of a rounding tie (here exactly
+    87.5, rounded half-to-even to 88, where the FMA chain lands one ulp
+    below), and the same chain with its multiply-adds contracted
+    (_contracted_x2, on the port's q) reproduces JAX's output in every
+    element. The Kelvin output equals JAX's to 1e-4 K (the outlay fold, as in
+    the prow test) outside the 7x7 receptive field of such an element under
+    the three tail convs, and stays within one flipped quantum's 0.5 K
+    inside."""
+    from sifsr_tpu_torch.kernels import conv_px, upsample_phases
+    from sifsr_tpu_torch.kernels.resize_phases import phase_passes
+
+    rec, mid_rec, jparams = _jax_record(rng, weights, stats, up2_impl="vpu")
+    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu",
+                                              lst_size=32, up2_impl="vpu")
+    for block, leaf, c_out in (("db3", "last", 64), ("ub1", "conv2", 32), ("ub2", "conv2", 16)):
+        got, want = params["pmid"][block][leaf], jparams["pmid"][block][leaf]
+        assert got["rtab"].dtype == got["ctab"].dtype == torch.float32 and "rm" not in want
+        np.testing.assert_array_equal(got["rtab"].numpy(), np.asarray(want["rc"])[..., 0])
+        np.testing.assert_array_equal(np.repeat(got["ctab"].numpy(), c_out, axis=2),
+                                      np.asarray(want["cc"]))
+        assert np.float32(got["inv"]) == np.asarray(want["inv"])
+    lst, ndvi = _patches(rng, 2, 32)
+    pm = _port_phase_mean(params, stats[0], lst, ndvi)
+
+    stages = []
+
+    def recording(fn):
+        def wrapped(x, w, scale, bias, rtab, ctab, inv, relu=True):
+            out = fn(x, w, scale, bias, rtab, ctab, inv, relu)
+            stages.append((conv_px.conv_prow_plain(x, w, scale, bias, relu), rtab, ctab, inv, out))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(int8_serving, "conv_prow_up2", recording(conv_px.conv_prow_up2))
+    monkeypatch.setattr(int8_serving, "conv_prow_up2_pack",
+                        recording(conv_px.conv_prow_up2_pack))
+    got_mid = int8_serving._prow_mid(params["pmid"], pm).numpy()
+    monkeypatch.undo()
+    s = params["s"]
+    assert [tuple(st[0].shape) for st in stages] == [(2, 16, 16, 64), (2, 32, 32, 32),
+                                                     (2, 64, 64, 16)]
+    for (q, _, _, _, out), (s_mid, s_up) in zip(stages, (("m_t3", "m_upt3"), ("m_u1", "m_upu1"),
+                                                         ("m_u2", "up"))):
+        oracle = upsample_phases(q, 2, "linear_ac", scale=s[s_up], in_scale=s[s_mid])
+        np.testing.assert_array_equal(out.numpy(), oracle.numpy(), err_msg=s_mid)
+    assert np.abs(got_mid.astype(int)).mean() > 2
+
+    want_mid = np.asarray(jax_serving._prow_mid(jparams["pmid"], nhwc_to_rows(
+        jnp.asarray(pm.numpy()), 8), 64, True))
+    want_mid = want_mid.reshape(2, 64, 64, 2, 2, 16).transpose(0, 1, 3, 2, 4, 5)
+    want_mid = want_mid.reshape(2, 128, 128, 16)
+    differs = got_mid != want_mid
+    q, rtab, ctab, inv, _ = stages[-1]
+    if differs.any():
+        pre = (phase_passes(q.to(torch.float32), (-1, 0, 1), rtab, ctab) * float(inv)).numpy()
+        v = pre[differs]
+        assert np.all(np.abs(np.abs(v - np.floor(v)) - 0.5) <= np.spacing(np.abs(v))), v
+        assert np.abs(got_mid.astype(int) - want_mid)[differs].max() == 1
+        np.testing.assert_array_equal(
+            _contracted_x2(q.numpy(), rtab.numpy(), ctab.numpy(), inv), want_mid)
+
+    want = np.asarray(jax_serving.make_pallas_sr_step(stats[1], interpret=True)(
+        jparams, jnp.asarray(lst), jnp.asarray(ndvi)))
+    got = int8_serving.make_int8_sr_step(stats[0], device="cpu")(params, lst, ndvi).numpy()
+    near = torch.nn.functional.max_pool2d(
+        torch.from_numpy(differs.any(-1).astype(np.float32))[:, None], 7, 1, 3)[:, 0].numpy() > 0
+    d = np.abs(got - want)
+    assert d[~near].max() <= 1e-4, d[~near].max()
+    assert d.max() <= MAX_K and near.sum() <= 49 * differs.sum()
+
+
+@pytest.mark.parametrize("mid", ["prow", "xla"])
+def test_alt_step_identical_to_default(rng, weights, stats, mid):
+    """kernels='alt' (E for inbloc.conv1, L for the skip concats, F for the
+    outlay) on the same parameters: the Kelvin output equals the default
+    step's bit for bit."""
+    rec, mid_rec, _ = _jax_record(rng, weights, stats, size=16)
+    params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu",
+                                              lst_size=16)
+    lst, ndvi = _patches(rng, 3, 16)
+    want = int8_serving.make_int8_sr_step(stats[0], mid=mid, device="cpu")(params, lst, ndvi)
+    got = int8_serving.make_int8_sr_step(stats[0], mid=mid, kernels="alt", device="cpu")(
+        params, lst, ndvi)
+    assert got.dtype == torch.float32 and got.shape == (3, 64, 64)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert 250.0 < float(got.min()) and float(got.max()) < 350.0
+
+
+def _quantized_trees(rng, weights, stats, size=16):
+    """The --int8 parameter trees of both packages, calibrated on the same
+    seeded patches."""
+    from sifsr_tpu.models import quantized as jq
+    from sifsr_tpu_torch.models import quantized as tq
+
+    cal_lst, cal_ndvi = _patches(rng, 2, size)
+    jtree = jq.calibrate_activation_scales(weights[1], jq.quantize_serving_params(weights[1]),
+                                           cal_lst, cal_ndvi, stats[1])
+    ttree = tq.calibrate_activation_scales(weights[0],
+                                           tq.quantize_serving_params(weights[0], "cpu"),
+                                           cal_lst, cal_ndvi, stats[0], device="cpu")
+    return ttree, jtree
+
+
+def jax_quantized_tree_to_torch(jtree) -> dict:
+    """JAX's calibrated --int8 tree -> the port's (CPU tensors): the state
+    carried across for the quantised step."""
+    if "q" in jtree:
+        return {k: torch.from_numpy(np.array(v)) for k, v in jtree.items()}
+    return {k: jax_quantized_tree_to_torch(v) for k, v in jtree.items()}
+
+
+def test_quantized_tree_matches_jax_leaf_by_leaf(rng, weights, stats):
+    """Both --int8 trees are built from the same variables and samples: q
+    identical, scale/bias/in_scale to 1e-7 relative (in_scale to 1e-5: it
+    is max|x| of a float32 conv output, whose summation order differs)."""
+    ttree, jtree = _quantized_trees(rng, weights, stats)
+    n = 0
+
+    def walk(t, j, path):
+        nonlocal n
+        if "q" in j:
+            n += 1
+            assert t.keys() == j.keys() == {"q", "scale", "bias", "in_scale"}, path
+            assert t["q"].dtype == torch.int8 and t["in_scale"].shape == ()
+            np.testing.assert_array_equal(t["q"].numpy(), np.asarray(j["q"]), err_msg=str(path))
+            for k, rtol in (("scale", 1e-7), ("bias", 1e-7), ("in_scale", 1e-5)):
+                np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=rtol, atol=1e-9,
+                                           err_msg=f"{path} {k}")
+            return
+        assert t.keys() == j.keys(), path
+        for k in j:
+            walk(t[k], j[k], path + (k,))
+
+    walk(ttree, jtree, ())
+    assert n == 18
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_quantized_int8_step_matches_jax(rng, weights, stats, static):
+    """predict --int8's step vs JAX's make_int8_sr_step on the same tree
+    (JAX's, converted), within 1e-3 K: the int8 convs are exact, and what
+    differs is float32 summation order in the bicubic / bilinear matmuls and
+    the 2x2 means. static=False drops in_scale and takes the dynamic
+    per-sample activation scales, held to the same 1e-3 K."""
+    from sifsr_tpu.models import quantized as jq
+    from sifsr_tpu_torch.models import quantized as tq
+
+    _, jtree = _quantized_trees(rng, weights, stats)
+    if not static:
+        jtree = jq.quantize_serving_params(weights[1])
+    lst, ndvi = _patches(rng, 2, 16)
+    want = np.asarray(jq.make_int8_sr_step(stats[1])(jtree, jnp.asarray(lst), jnp.asarray(ndvi)))
+    got = tq.make_int8_sr_step(stats[0], "cpu")(jax_quantized_tree_to_torch(jtree), lst,
+                                                ndvi).numpy()
+    assert got.shape == want.shape == (2, 64, 64) and got.dtype == np.float32
+    d = np.abs(got - want)
+    assert d.max() <= 1e-3, d.max()
+    assert 250.0 < got.min() and got.max() < 350.0
+
+
 def test_mid_and_up2_impl_are_checked(rng, weights, stats):
-    """mid takes 'prow' or 'xla'; the 'vpu' x2 rounding chain is not ported
-    and says where it is queued; a prow step refuses blocks of another size
-    than its parameters' x2 tables were built for."""
+    """mid takes 'prow' or 'xla', kernels 'default' or 'alt', up2_impl 'mxu'
+    or 'vpu'; a prow step refuses blocks of another size than its
+    parameters' x2 tables were built for."""
     with pytest.raises(ValueError, match="mid"):
         int8_serving.make_int8_sr_step(stats[0], mid="bogus", device="cpu")
+    with pytest.raises(ValueError, match="kernels"):
+        int8_serving.make_int8_sr_step(stats[0], kernels="bogus", device="cpu")
     rec, mid_rec, _ = _jax_record(rng, weights, stats, size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="up2_impl"):
         int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu", lst_size=16,
-                                         up2_impl="vpu")
+                                         up2_impl="bogus")
     params = int8_serving.int8_serving_params(weights[0], rec, mid_rec, device="cpu",
                                               lst_size=16)
     with pytest.raises(ValueError, match="16"):

@@ -110,8 +110,9 @@ def _blocks(rng, n, size):
 
 
 def test_f32_step_matches_jax(rng):
-    """The float32 step vs JAX's (f32, pad_impl pinned to 'explicit', the
-    port's only pad form): same function, float32 summation-order noise."""
+    """The float32 step vs JAX's (f32, pad_impl pinned to 'explicit' on both
+    sides; 'fused' is held to JAX's in tests/test_torch_granule_modes.py):
+    same function, float32 summation-order noise."""
     sd = load_variables(_weights("modelB_1009"))
     jv = jax_load_variables(_weights("modelB_1009"), "modelB", JaxModelB2())
     lst, ndvi = _blocks(rng, 2, 32)
@@ -119,8 +120,8 @@ def test_f32_step_matches_jax(rng):
                                        jnp.float32, pad_impl="explicit")(
         jv, jnp.asarray(lst), jnp.asarray(ndvi)))
     stats = Statistics.from_json(STATS_JSON)
-    got = make_sr_step(stats, torch.float32, "cpu")(InferenceModelB2.from_variables(sd),
-                                                    lst, ndvi).numpy()
+    got = make_sr_step(stats, torch.float32, "cpu", "explicit")(
+        InferenceModelB2.from_variables(sd), lst, ndvi).numpy()
     assert got.shape == (2, 128, 128)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-4)
 
@@ -140,7 +141,7 @@ def test_bf16_step_close_to_f32(rng):
 
 def test_bf16_step_matches_jax(rng):
     """The bf16 step, ``predict_granule``'s default, vs JAX's bf16 step
-    (pad_impl pinned to 'explicit').
+    (pad_impl pinned to 'explicit' on both sides).
 
     Both run the U-Net in bf16 (8-bit mantissa) but do not round at the same
     points: PyTorch rounds every op's output to bf16, XLA may keep a fused
@@ -157,9 +158,9 @@ def test_bf16_step_matches_jax(rng):
     want = np.asarray(jax_make_sr_step(JaxModelB2(), JaxStatistics.from_json(STATS_JSON),
                                        jnp.bfloat16, pad_impl="explicit")(
         jv, jnp.asarray(lst), jnp.asarray(ndvi)))
-    got = make_sr_step(stats, torch.bfloat16, "cpu")(
+    got = make_sr_step(stats, torch.bfloat16, "cpu", "explicit")(
         InferenceModelB2.from_variables(sd).to(torch.bfloat16), lst, ndvi).numpy()
-    f32 = make_sr_step(stats, torch.float32, "cpu")(
+    f32 = make_sr_step(stats, torch.float32, "cpu", "explicit")(
         InferenceModelB2.from_variables(sd), lst, ndvi).numpy()
     assert got.shape == want.shape == (2, 128, 128)
 
