@@ -7,7 +7,8 @@ Phases, each of which raises on failure (no result line is printed then):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every ``sifsr_tpu_torch/csrc/*.cu`` by nvcc for sm_90a, in
-   parallel;
+   parallel; ptxas's registers, spills and stack of the tensor-core kernels
+   (I, J, K, L);
 3. kernels: each hand-written kernel of the int8 serving paths at the
    shapes the paths give it (batch 324), held against its plain PyTorch
    version on the same seeded inputs: the outputs must be identical (int8 and
@@ -18,7 +19,12 @@ Phases, each of which raises on failure (no result line is printed then):
    in_scale on the conv's int8 output; CUDA-event times of kernel and plain
    version, the least time the card could take (bytes or operations), and,
    for kernel A, of the PyTorch interpolate calls that compute its float
-   function. The float kernels of the training losses at training batch 32:
+   function; for J, L, I and K the time of ``torch._int_mm`` over the
+   im2col'd product at the same shapes (the product alone: M = N*H*W,
+   K = 9*C, N = C_out, once per input for J and L; the im2col is built
+   beforehand and the yardstick checked against the exact conv on one
+   image), and each one's persistent grid and shared memory a block. The
+   float kernels of the training losses at training batch 32:
    fused_psf_downscale forward at (32,256,256) and backward (32,64,64) ->
    (32,256,256) within max|d| 1e-5 of the plain version evaluated in
    float64, fused_norm_l4 at (32,256,256) and (32,64,64) within 1e-6
@@ -203,6 +209,13 @@ def main(profile: bool = False) -> None:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    ptxas = {r["kernel"]: r for r in _build.ptxas_report("conv_px") if "_mma_kernel" in r["kernel"]}
+    for mangled, r in ptxas.items():
+        log(f"ptxas {demangle(mangled)}: {r['registers']} registers, {r['spill_stores']} B spill "
+            f"stores, {r['spill_loads']} B spill loads, {r['stack']} B stack, "
+            f"{r['smem_static']} B static shared memory")
+    if len(ptxas) != 8:
+        raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 8")
 
     # 3. kernels vs plain versions at serving shapes
     rng = np.random.default_rng(0)
@@ -234,7 +247,7 @@ def main(profile: bool = False) -> None:
         return ops / INT8_OPS_PER_S * 1e3
 
     def check(name, calls, reps=10, plain_reps=2, library=None, tol=None, relative=False,
-              burst=1):
+              burst=1, library_is=None, launch=None):
         """calls: [(kernel_fn, plain_fn, nbytes, ops_ms[, reference_fn])] -- the
         kernel's work in one batch, ops_ms its operations over the card's peak
         rate for their type. The kernel's output must be identical to
@@ -274,11 +287,50 @@ def main(profile: bool = False) -> None:
         entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=max(b_ms, ops_ms),
                              bound_by="bytes" if b_ms >= ops_ms else "operations",
-                             library_ms=lib_ms, calls=len(calls))
+                             library_ms=lib_ms, calls=len(calls),
+                             **({} if library_is is None else {"library_is": library_is}),
+                             **({} if launch is None else {"launch": launch}))
         log(f"kernel {name}: {len(calls)} call(s)/batch, "
             + ("identical to plain; " if tol is None else f"error {err:.3g} (allowed {tol:g}); ")
             + f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {max(b_ms, ops_ms):.4f} ms"
-            + ("" if lib_ms is None else f", library {lib_ms:.4f} ms") + ")")
+            + ("" if lib_ms is None else f", library {lib_ms:.4f} ms ({library_is})") + ")")
+
+    def im2col(x):
+        """(N,H,W,C) int8 -> (N*H*W, 9*C) int8 rows of the replicate-padded
+        3x3 neighbourhood, tap-major as the HWIO weights."""
+        n, h, w, c = x.shape
+        ry = torch.arange(-1, h + 1, device=x.device).clamp(0, h - 1)
+        rx = torch.arange(-1, w + 1, device=x.device).clamp(0, w - 1)
+        xp = x[:, ry][:, :, rx]
+        cols = torch.stack([xp[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)], 3)
+        return cols.reshape(n * h * w, 9 * c)
+
+    def int_mm_product(x, w):
+        """torch._int_mm over the im2col'd conv (the product alone), checked
+        against the exact conv of the first image; returns the timed call."""
+        a = im2col(x)
+        b = w.reshape(-1, w.shape[-1]).t().contiguous().t()      # (9*C, C_out), column-major
+        h, wd = x.shape[1], x.shape[2]
+        first = torch._int_mm(a[:h * wd], b)
+        if not torch.equal(first, conv_i8.conv3x3_i32(x[:1], w).reshape(h * wd, -1)):
+            raise AssertionError("the _int_mm yardstick differs from the exact conv")
+        return lambda: torch._int_mm(a, b)
+
+    def mma_launch(kind, n, h, w, cin, cout):
+        """The persistent launch of a tensor-core entry, with ptxas's account
+        of its kernel, logged."""
+        got = conv_px.tensor_core_launch(kind, n, h, w, cin, cout)
+        # template arguments as the mangled names spell them
+        key = (f"conv_dual_mma_kernelILi{cin}E" if kind == "dual" else
+               f"conv_up2_mma_kernelILi{cin}ELi{cout}ELb{int(kind == 'up2_vpu')}E")
+        (mangled, rep), = [(k, v) for k, v in ptxas.items() if key in k]
+        kname = demangle(mangled)
+        got.update(kernel=kname, registers=rep["registers"], spill_stores=rep["spill_stores"],
+                   spill_loads=rep["spill_loads"])
+        log(f"  launch {kname} at ({n},{h},{w},{cin}): {got['blocks']} blocks of "
+            f"{got['smem_bytes']} B shared memory over {got['tiles']} tiles; "
+            f"{rep['registers']} registers, {rep['spill_stores']} B spilled")
+        return got
 
     # A: cubic x4 of the normalised LST, align-corners x2 of ub2's output
     lst_n = f32(rng.normal(0.0, 1.5, (N, 64, 64, 1)))
@@ -406,12 +458,17 @@ def main(profile: bool = False) -> None:
     check("conv_prow_split_pool", pool_calls, reps=5, plain_reps=1)
     del pool_calls
 
+    mm_words = "torch._int_mm over the im2col'd conv, the product alone"
+    up2_lib, up2_launch = {}, {}
+
     def up2_call(kernel, hw, cin, cout):
         """conv + requantise + align-corners x2: the conv's int8 operations
         and, at the float32 rate of the CUDA cores, the x2's integer
         multiply-adds (two row taps per source column, two column taps per
         output)."""
         gx, gw, gs, gb = conv_args(cin, cout, (N, hw, hw))
+        up2_lib.setdefault(kernel.__name__, []).append(int_mm_product(gx, gw))
+        up2_launch.setdefault(kernel.__name__, []).append(mma_launch("up2", N, hw, hw, cin, cout))
         rnum, cnum, inv = conv_px.up2_coeffs_mxu(hw, hw, 0.05, 0.06)
         tabs = (torch.from_numpy(rnum).to(dev), torch.from_numpy(cnum).to(dev), inv)
         up_ops = 2.0 * N * cout * (2 * (2 * hw) * hw + 2 * (2 * hw) * (2 * hw))
@@ -423,10 +480,14 @@ def main(profile: bool = False) -> None:
 
     # I: db3 lastconv (32² -> 64²) and ub1.conv2 (64² -> 128²)
     check("conv_prow_up2", [up2_call(K.conv_prow_up2, 32, 64, 64),
-                            up2_call(K.conv_prow_up2, 64, 64, 32)], reps=5, plain_reps=1)
+                            up2_call(K.conv_prow_up2, 64, 64, 32)], reps=5, plain_reps=1,
+          library=up2_lib["conv_prow_up2"], library_is=mm_words,
+          launch=up2_launch["conv_prow_up2"])
     # K: ub2.conv2 (128² -> 256²), the serving tail
     check("conv_prow_up2_pack", [up2_call(K.conv_prow_up2_pack, 128, 32, 16)],
-          reps=5, plain_reps=1)
+          reps=5, plain_reps=1, library=up2_lib["conv_prow_up2_pack"], library_is=mm_words,
+          launch=up2_launch["conv_prow_up2_pack"])
+    del up2_lib
 
     def up2_vpu_call(kernel, hw, cin, cout):
         """The same with the float32 tables of up2_impl='vpu': the reference
@@ -445,6 +506,8 @@ def main(profile: bool = False) -> None:
         if not torch.equal(plain(), second()):
             raise AssertionError("the vpu plain chain differs from upsample_phases with in_scale")
         mid_f = conv_px.conv_prow_plain(gx, gw, gs, gb).permute(0, 3, 1, 2).float()
+        vpu_launch.setdefault(kernel.__name__, []).append(
+            mma_launch("up2_vpu", N, hw, hw, cin, cout))
         return ((lambda: kernel(gx, gw, gs, gb, *tabs)), plain,
                 N * hw * hw * cin + N * 4 * hw * hw * cout + 9 * cin * cout + 8 * cout
                 + 2 * 6 * hw * 4,
@@ -452,22 +515,28 @@ def main(profile: bool = False) -> None:
                 second), (lambda: F.interpolate(mid_f, scale_factor=2, mode="bilinear",
                                                 align_corners=True))
 
+    x2_words = "F.interpolate bilinear align-corners x2 of the conv's output: the x2 alone"
+    vpu_launch = {}
     calls_lib = [up2_vpu_call(K.conv_prow_up2, 32, 64, 64), up2_vpu_call(K.conv_prow_up2, 64, 64, 32)]
     check("conv_prow_up2[vpu]", [c for c, _ in calls_lib], reps=5, plain_reps=1,
-          library=[f for _, f in calls_lib])
+          library=[f for _, f in calls_lib], library_is=x2_words,
+          launch=vpu_launch["conv_prow_up2"])
     calls_lib = [up2_vpu_call(K.conv_prow_up2_pack, 128, 32, 16)]
     check("conv_prow_up2_pack[vpu]", [c for c, _ in calls_lib], reps=5, plain_reps=1,
-          library=[f for _, f in calls_lib])
+          library=[f for _, f in calls_lib], library_is=x2_words,
+          launch=vpu_launch["conv_prow_up2_pack"])
     del calls_lib
     torch.cuda.empty_cache()
 
     # J: ub1.conv1 over concat(up, s2), ub2.conv1 over concat(up, s1); L: the
     # same function under its own wrapper (the skip is one tensor in NHWC)
-    dual_calls, l_calls = [], []
+    dual_calls, l_calls, dual_lib, dual_launch = [], [], [], []
     for hw, c in ((64, 64), (128, 32)):
         gx, gwx, gsx, gb = conv_args(c, c, (N, hw, hw))
         gz, gwz, gsz, _ = conv_args(c, c, (N, hw, hw))
         args = (gx, gz, gwx, gwz, gsx, gsz, gb)
+        dual_lib += [int_mm_product(gx, gwx), int_mm_product(gz, gwz)]
+        dual_launch.append(mma_launch("dual", N, hw, hw, c, c))
         nbytes = N * hw * hw * 3 * c + 2 * 9 * c * c + 12 * c
         dual_calls.append((
             (lambda args=args: K.conv_prow_dual_planes(*args)),
@@ -477,9 +546,11 @@ def main(profile: bool = False) -> None:
             (lambda args=args: K.conv_prow_dual(*args)),
             (lambda args=args: conv_px.conv_prow_dual_plain(*args)),
             nbytes, int8_ms(2 * conv_ops(N, hw, hw, c, c))))
-    check("conv_prow_dual_planes", dual_calls, reps=5, plain_reps=1)
-    check("conv_prow_dual", l_calls, reps=5, plain_reps=1)
-    del dual_calls, l_calls
+    check("conv_prow_dual_planes", dual_calls, reps=5, plain_reps=1, library=dual_lib,
+          library_is=mm_words + ", once per input", launch=dual_launch)
+    check("conv_prow_dual", l_calls, reps=5, plain_reps=1, library=dual_lib,
+          library_is=mm_words + ", once per input", launch=dual_launch)
+    del dual_calls, l_calls, dual_lib
     torch.cuda.empty_cache()
 
     # M: the ds-loss degradation, forward (32,256,256) -> (32,64,64) and its
@@ -1093,8 +1164,7 @@ def main(profile: bool = False) -> None:
         "conv_i8_in1_split": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:732"),
         "conv_i8_exact": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:333"),
         "conv_i8_exact_dual": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:395",
-                               "the dual template of csrc/conv_tile.cuh at 16 channels, "
-                               "shared with conv_prow_dual_planes"),
+                               "the dp4a dual template of csrc/conv_tile.cuh at 16 channels"),
         "conv_i8_in1": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:605",
                         "the kernel of conv_i8_in1_split templated on the source"),
         "conv_i8_generic": (src + "conv_i8.cu", "sifsr_tpu/models/quantized_packed.py:66"),
@@ -1102,10 +1172,11 @@ def main(profile: bool = False) -> None:
         "conv_prow": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:335"),
         "conv_prow_split_pool": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:488"),
         "conv_prow_up2": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:971",
-                          "entry sifsr_conv_prow_up2, shared with conv_prow_up2_pack"),
+                          "entry sifsr_conv_prow_up2 (int8 tensor cores, main loop "
+                          "csrc/conv_mma.cuh), shared with conv_prow_up2_pack"),
         "conv_prow_dual_planes": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:549",
-                                  "the dual template of csrc/conv_tile.cuh at 64 and 32 "
-                                  "channels, shared with conv_i8_exact_dual"),
+                                  "entry sifsr_conv_prow_dual (int8 tensor cores, main loop "
+                                  "csrc/conv_mma.cuh), shared with conv_prow_dual"),
         "conv_prow_up2_pack": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:908",
                                "entry sifsr_conv_prow_up2, shared with conv_prow_up2"),
         "conv_prow_up2[vpu]": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:582",
@@ -1158,6 +1229,18 @@ def main(profile: bool = False) -> None:
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def demangle(name: str) -> str:
+    """A C++ symbol as c++filt prints it, where the toolkit's host has
+    c++filt; else as it is."""
+    import shutil
+
+    if shutil.which("c++filt") is None:
+        return name
+    out = subprocess.run(["c++filt", name], capture_output=True, text=True, timeout=30).stdout
+    # drop the anonymous namespace and the parameter list
+    return out.strip().split("::")[-1].split("(")[0] or name
 
 
 def synthetic_granule(rng):

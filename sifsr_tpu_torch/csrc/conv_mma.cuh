@@ -1,0 +1,190 @@
+// The int8 tensor-core main loop of the replicate-pad 3x3 convs, used by
+// kernels I, J, K and L in csrc/conv_px.cu; the other int8 convs keep the
+// dp4a loop of csrc/conv_tile.cuh.
+//
+// Implicit GEMM on mma.sync.m16n8k32 s8 x s8 -> s32: rows are output pixels,
+// K runs over the 9 taps and the input channels in chunks of 32, N over the
+// output channels. The A fragments come from the input halo in shared
+// memory by ldmatrix: each lane names one pixel row, and the tap (dy, dx)
+// only shifts that row address, so the im2col is never formed. Weights sit
+// in shared memory as [tap][cout][cin] rows, the column-major B fragment of
+// `.col`, also read by ldmatrix. int8 products summed in int32 are exact, so
+// the accumulators equal those of the dp4a loop and every rounding after
+// them (the epilogues) is unchanged.
+//
+// Rows of C int8 (a pixel of the halo, a cout row of the weights) are 16-byte
+// chunks XOR-swizzled by row: the 8 rows one ldmatrix matrix reads are 8
+// consecutive rows at the same logical chunk, and the swizzle puts them on 8
+// distinct 16-byte bank groups (without it, 64-byte rows give a 4-way
+// conflict). Halos are copied by 16-byte cp.async with the replicate clamp in
+// the source address, into a ring of stages, so that a persistent block
+// loads tile t+1 while it computes tile t.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "conv_tile.cuh"
+
+namespace {
+namespace tc {
+
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+
+// Chunk index of logical 16-byte chunk c of row r in rows of CH chunks.
+template <int CH>
+__device__ __forceinline__ int swz(int r, int c) {
+  static_assert(CH >= 1 && 8 % CH == 0, "rows of 16, 32, 64 or 128 bytes");
+  return r * CH + (c ^ ((r / (8 / CH)) % CH));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Start the copy of the HH x HWD halo of a C-channel int8 NHWC image whose
+// top-left pixel is image (y0, x0), replicate-clamped at the border, into s
+// (swizzled rows of C bytes). The caller commits the group.
+template <int C, int HH, int HWD>
+__device__ __forceinline__ void load_halo_async(int8_t* s, const int8_t* __restrict__ x, int n,
+                                                int y0, int x0, int h, int w) {
+  constexpr int CH = C / 16;
+  const uint32_t base = smem_u32(s);
+  for (int i = threadIdx.x; i < HH * HWD * CH; i += THREADS) {
+    const int c = i % CH, p = i / CH;
+    const int gy = clampi(y0 + p / HWD, 0, h - 1);
+    const int gx = clampi(x0 + p % HWD, 0, w - 1);
+    cp_async16(base + swz<CH>(p, c) * 16, x + (((size_t)n * h + gy) * w + gx) * C + c * 16);
+  }
+}
+
+// HWIO int8 weights (3,3,CIN,COUT) -> swizzled rows (tap * COUT + cout) of
+// CIN bytes; consecutive threads read consecutive output channels.
+template <int CIN, int COUT>
+__device__ __forceinline__ void load_weights_rows(int8_t* s, const int8_t* __restrict__ wt) {
+  constexpr int CH = CIN / 16, WPR = CIN / 4;  // chunks, 4-byte words per row
+  for (int i = threadIdx.x; i < 9 * COUT * WPR; i += THREADS) {
+    const int co = i % COUT, t = i / COUT, wd = t % WPR, tap = t / WPR;
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= (uint32_t)(uint8_t)__ldg(wt + (tap * CIN + wd * 4 + j) * COUT + co) << (8 * j);
+    *reinterpret_cast<uint32_t*>(s + swz<CH>(tap * COUT + co, wd / 4) * 16 + (wd % 4) * 4) = word;
+  }
+}
+
+// ldmatrix row of this lane inside an m16 tile: lanes 0-7 and 16-23 name
+// rows 0-7, lanes 8-15 and 24-31 rows 8-15 (matrices 0 and 2 hold k 0-15
+// and 16-31 of rows 0-7, matrices 1 and 3 the same of rows 8-15).
+__device__ __forceinline__ int a_row() {
+  const int lane = threadIdx.x & 31;
+  return (lane & 7) + ((lane >> 3) & 1) * 8;
+}
+
+// acc[m][j] += conv over the 9 taps and CIN channels for MT m16 pixel tiles
+// and NT n8 output-channel tiles from channel n0. s_in: the halo (rows of
+// CIN bytes, HWD pixels a halo row); p0[m]: the halo pixel of this lane's
+// ldmatrix row of tile m at tap (0, 0). s_w: load_weights_rows' layout.
+// C fragment: acc[m][j][0..1] are pixel (lane >> 2) of tile m, channels
+// n0 + 8j + 2(lane & 3) + {0, 1}; acc[m][j][2..3] the same of pixel
+// (lane >> 2) + 8.
+template <int CIN, int COUT, int HWD, int MT, int NT>
+__device__ __forceinline__ void conv_mma(int (&acc)[MT][NT][4], const int8_t* s_in,
+                                         const int8_t* s_w, const int (&p0)[MT], int n0) {
+  static_assert(CIN % 32 == 0 && NT % 2 == 0, "k chunks of 32, n tiles in pairs");
+  constexpr int CH = CIN / 16, KC = CIN / 32;
+  const int lane = threadIdx.x & 31;
+  const uint32_t a_base = smem_u32(s_in), b_base = smem_u32(s_w);
+  const int a_half = lane >> 4;                                   // k 0-15 or 16-31
+  const int b_row = n0 + ((lane >> 4) << 3) + (lane & 7), b_half = (lane >> 3) & 1;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int shift = (tap / 3) * HWD + tap % 3;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int q = 0; q < NT / 2; ++q) {
+        uint32_t r[4];
+        ldsm_x4(r, b_base + swz<CH>(tap * COUT + b_row + 16 * q, 2 * kc + b_half) * 16);
+        b[2 * q][0] = r[0];
+        b[2 * q][1] = r[1];
+        b[2 * q + 1][0] = r[2];
+        b[2 * q + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint32_t a[4];
+        ldsm_x4(a, a_base + swz<CH>(p0[m] + shift, 2 * kc + a_half) * 16);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[m][j], a, b[j][0], b[j][1]);
+      }
+    }
+  }
+}
+
+// Two int8 values as one 16-bit word (byte 0 first).
+__device__ __forceinline__ uint16_t pack2(int8_t a, int8_t b) {
+  return (uint16_t)((uint32_t)(uint8_t)a | ((uint32_t)(uint8_t)b << 8));
+}
+
+// Grid of a persistent kernel: as many blocks as fit on the card at once,
+// at most one a tile. Sets the kernel's dynamic shared-memory limit first.
+template <typename... KArgs>
+int persistent_grid(void (*kern)(KArgs...), size_t smem, int n_tiles, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1 || n_tiles < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
+  return 0;
+}
+
+template <typename... KArgs, typename... Args>
+int launch_persistent(void (*kern)(KArgs...), size_t smem, int n_tiles, cudaStream_t s,
+                      Args... args) {
+  int grid = 0;
+  const int e = persistent_grid(kern, smem, n_tiles, &grid);
+  if (e != 0) return e;
+  kern<<<grid, THREADS, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
+
+}  // namespace tc
+}  // namespace

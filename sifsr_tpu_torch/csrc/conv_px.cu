@@ -8,8 +8,8 @@
 //   conv_prow_up2         (conv_px.py:1002/:1025; entry sifsr_conv_prow_up2)
 //   conv_prow_up2_pack    (conv_px.py:927/:949; the same entry: the
 //                          space-to-depth pair-row pack is a TPU layout)
-//   conv_prow_dual_planes (conv_px.py:563; entry sifsr_conv_prow_dual, kernel
-//                          C's template of conv_tile.cuh at 32 and 64
+//   conv_prow_dual_planes (conv_px.py:563, _conv_dual_planes_kernel at
+//                          :532-544; entry sifsr_conv_prow_dual at 32 and 64
 //                          channels: the half-plane interleave is a layout)
 //   conv_prow_dual        (conv_px.py:409; the same entry: with the skip as
 //                          one NHWC tensor its function is the planes form's)
@@ -36,15 +36,31 @@
 //   J: requant(relu(acc_x*sc_x + acc_z*sc_z + b)).
 //
 // Bound on the H100: memory at the serving shapes (int8 tensors of 1-5 MB
-// per image against a few tens of M int8 multiply-adds). Design, simple
-// first: the 8x32-tile dp4a main loop of conv_tile.cuh. The x2 kernel
-// computes the conv over an 8x32 region that holds a 6x30 source tile and
-// its one-pixel ring, requantises it into shared memory and writes the
-// 12x60 upsampled tile from there; the ring's values past the image border
-// meet zero coefficients. The dp4a inner loop on the CUDA cores is the
-// likely limit (times against the bound: PERF.md).
+// per image against a few tens of M int8 multiply-adds). G and H keep the
+// 8x32-tile dp4a main loop of conv_tile.cuh. I, J, K and L run on the int8
+// tensor cores (the main loop of conv_mma.cuh), in persistent blocks that
+// load their weights into shared memory once and stream input halos through
+// a two-stage cp.async ring:
+//   J, L (batch 324: ub1.conv1 64 ch at 64², ub2.conv1 32 ch at 128²): 97.8 G
+//     int8 multiply-adds a call, 0.198 ms of operations at 1,979 TOP/s for
+//     both calls against 0.228 ms of bytes (255 + 510 MB at 3.35 TB/s): near
+//     the ridge, so the MMA loop matters as much as the bytes. 8x32 output
+//     tiles, warp w takes row w (two m16 pixel tiles) and every output
+//     channel, with an int32 accumulator set per input (the two scales round
+//     apart); the requantised bytes are staged in shared memory per warp
+//     and leave as coalesced 16-byte stores.
+//   I, K (db3 last 64->64 at 32², ub1.conv2 64->32 at 64²; ub2.conv2 32->16
+//     at 128²): bytes-bound (0.108 and 0.152 ms against about 0.06 ms of
+//     operations: the x2 quadruples the output). The conv runs over the
+//     source tile and its one-pixel ring, linearised into m16 tiles, and is
+//     requantised into shared memory, from which the x2 writes the output
+//     tile; the ring's values past the image border meet zero coefficients.
+//     I takes 8x32 source tiles (a 10x34 region, 22 m16 tiles, three a warp:
+//     1.5x the tile's multiply-adds), K 16x32 ones (18x34, 39 m16 tiles and
+//     one of padding, five a warp: 1.25x; the dp4a version's 6x30 tiles took
+//     1.42x), so that two blocks share an SM.
 
-#include "conv_tile.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -138,45 +154,43 @@ conv_prow_pool_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w
 // align-corners x2 into out (N,2H,2W,COUT). rnum (2,3,H) and cnum (2,3,W)
 // int32: the integer numerators of output row 2k+d (column 2l+e) for the
 // source taps k-1, k, k+1 (l-1, l, l+1), zero where a tap leaves the image.
-constexpr int UH = TH - 2, UW = TW - 2;  // source tile inside the conv region
+// Source tile UH x UW; conv region (UH+2) x RW (the tile and its one-pixel
+// ring), starting one pixel above and left of the tile; its halo is two
+// rows and columns larger.
+constexpr int UW = 32, RW = UW + 2, UHW = RW + 2;
 
-// With VPU the tables are float32 (rc, cc of up2_coeffs) and the x2 runs the
-// float chain; else int32 numerators and the integer chain.
-template <int CIN, int COUT, bool VPU>
-__global__ void __launch_bounds__(NT)
-conv_prow_up2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
-                     const float* __restrict__ scale, const float* __restrict__ bias,
-                     const void* __restrict__ rtab, const void* __restrict__ ctab, float inv,
-                     int8_t* __restrict__ out, int h, int w, int relu) {
-  constexpr int CW = CIN / 4, CH = COUT / 16;
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* s_in = smem;
-  int32_t* s_w = smem + HALO * CW;
-  int8_t* s_q = reinterpret_cast<int8_t*>(s_w + 9 * CW * COUT);  // (TH*TW, COUT)
-  const int n = blockIdx.z, sy0 = blockIdx.y * UH, sx0 = blockIdx.x * UW;
-  // conv region: source rows sy0-1 .. sy0+UH, columns sx0-1 .. sx0+UW
-  load_halo<CIN>(s_in, x, n, sy0 - 1, sx0 - 1, h, w);
-  load_weights<CIN, COUT>(s_w, wt);
-  __syncthreads();
-  int acc[COUT] = {};
-  accumulate<CW, COUT>(acc, s_in, s_w);
-#pragma unroll
-  for (int c0 = 0; c0 < COUT; c0 += 16) {
-    int8_t q[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      q[j] = requant(dequant(acc[c0 + j], __ldg(scale + c0 + j), __ldg(bias + c0 + j)), relu);
-    store16(s_q + threadIdx.x * COUT + c0, q);
-  }
-  __syncthreads();
+// Geometry and shared-memory layout of the x2 kernel for UH-row tiles:
+// weights, scale and bias, the requantised region, the halo ring.
+template <int CIN, int COUT, int UH, int STAGES>
+struct Up2Layout {
+  static constexpr int REG = (UH + 2) * RW, UHH = UH + 4;          // region pixels, halo rows
+  static constexpr int MT = (REG + 15) / 16;                       // m16 tiles
+  static constexpr int MW = (MT + tc::WARPS - 1) / tc::WARPS;      // a warp's
+  static constexpr size_t HALO = (size_t)UHH * UHW * CIN;
+  static constexpr size_t OFF_SC = (size_t)9 * COUT * CIN;
+  static constexpr size_t OFF_Q = tc::align128(OFF_SC + 2 * COUT * sizeof(float));
+  static constexpr size_t OFF_HALO = tc::align128(OFF_Q + (size_t)REG * COUT);
+  static constexpr size_t BYTES = OFF_HALO + STAGES * HALO;
+};
+
+// The x2 of the requantised region s_q ((UH+2) x RW pixels of COUT int8)
+// into the 2UH x 2UW output tile of source tile (sy0, sx0). With VPU the
+// tables are float32 (rc, cc of up2_coeffs) and the x2 runs the float chain;
+// else int32 numerators and the integer chain.
+template <int COUT, bool VPU, int UH>
+__device__ __forceinline__ void up2_epilogue(const int8_t* s_q, const void* __restrict__ rtab,
+                                             const void* __restrict__ ctab, float inv,
+                                             int8_t* __restrict__ out, int n, int sy0, int sx0,
+                                             int h, int w) {
+  constexpr int CH = COUT / 16;
   const int oh = 2 * h, ow = 2 * w;
-  for (int i = threadIdx.x; i < 2 * UH * 2 * UW * CH; i += NT) {
+  for (int i = threadIdx.x; i < 2 * UH * 2 * UW * CH; i += tc::THREADS) {
     const int c0 = (i % CH) * 16, pix = i / CH;
     const int oy = 2 * sy0 + pix / (2 * UW), ox = 2 * sx0 + pix % (2 * UW);
     if (oy >= oh || ox >= ow) continue;
     const int k = oy >> 1, d = oy & 1, l = ox >> 1, e = ox & 1;
-    // tap (t, u) sits at conv-region row k-sy0+t, column l-sx0+u
-    const int8_t* base = s_q + ((k - sy0) * TW + (l - sx0)) * COUT + c0;
+    // tap (t, u) sits at region row k-sy0+t, column l-sx0+u
+    const int8_t* base = s_q + ((k - sy0) * RW + (l - sx0)) * COUT + c0;
     int8_t q[16];
     if constexpr (VPU) {
       float rc[3], cc[3];
@@ -196,7 +210,7 @@ conv_prow_up2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt
         for (int t = 0; t < 3; ++t) {
           if (rc[t] == 0.f) continue;
           int8_t v[16];
-          unpack16(v, *reinterpret_cast<const uint4*>(base + (t * TW + u) * COUT));
+          unpack16(v, *reinterpret_cast<const uint4*>(base + (t * RW + u) * COUT));
 #pragma unroll
           for (int j = 0; j < 16; ++j)
             r[j] = __fadd_rn(r[j], __fmul_rn(rc[t], __int2float_rn((int)v[j])));
@@ -220,7 +234,7 @@ conv_prow_up2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt
 #pragma unroll
         for (int t = 0; t < 3; ++t) {
           int8_t v[16];
-          unpack16(v, *reinterpret_cast<const uint4*>(base + (t * TW + u) * COUT));
+          unpack16(v, *reinterpret_cast<const uint4*>(base + (t * RW + u) * COUT));
 #pragma unroll
           for (int j = 0; j < 16; ++j) r[j] += rn[t] * (int)v[j];
         }
@@ -232,6 +246,180 @@ conv_prow_up2_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt
     }
     store16(out + (((size_t)n * oh + oy) * ow + ox) * COUT + c0, q);
   }
+}
+
+// Persistent blocks over the source tiles. The conv's output channels go in
+// passes of at most 32 (NW n8 tiles) to bound the accumulators (MW m16 tiles
+// x NW x 4 int32 a thread).
+template <int CIN, int COUT, bool VPU, int UH, int STAGES, int MINB>
+__global__ void __launch_bounds__(tc::THREADS, MINB)
+conv_up2_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    const void* __restrict__ rtab, const void* __restrict__ ctab, float inv,
+                    int8_t* __restrict__ out, int n, int h, int w, int relu) {
+  using L = Up2Layout<CIN, COUT, UH, STAGES>;
+  constexpr int REG = L::REG, UMW = L::MW;
+  constexpr int NTOT = COUT / 8, NW = NTOT < 4 ? NTOT : 4, NPASS = NTOT / NW;
+  extern __shared__ __align__(128) int8_t tc_smem[];
+  int8_t* smem = tc_smem;
+  int8_t* s_w = smem;
+  float* s_sc = reinterpret_cast<float*>(smem + L::OFF_SC);
+  float* s_bi = s_sc + COUT;
+  int8_t* s_q = smem + L::OFF_Q;
+  const int tiles_x = (w + UW - 1) / UW, per_img = tiles_x * ((h + UH - 1) / UH);
+  const int n_tiles = n * per_img;
+  auto issue = [&](int t, int stage) {
+    if (t < n_tiles) {
+      const int img = t / per_img, r = t % per_img;
+      tc::load_halo_async<CIN, L::UHH, UHW>(smem + L::OFF_HALO + stage * L::HALO, x, img,
+                                            (r / tiles_x) * UH - 2, (r % tiles_x) * UW - 2, h,
+                                            w);
+    }
+    tc::cp_async_commit();
+  };
+  for (int s = 0; s < STAGES - 1; ++s) issue(blockIdx.x + s * gridDim.x, s);
+  tc::load_weights_rows<CIN, COUT>(s_w, wt);
+  for (int i = threadIdx.x; i < COUT; i += tc::THREADS) {
+    s_sc[i] = scale[i];
+    s_bi[i] = bias[i];
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  int p0[UMW];  // halo pixel of this lane's ldmatrix rows (padding rows read the last pixel)
+#pragma unroll
+  for (int m = 0; m < UMW; ++m) {
+    const int q = min((warp * UMW + m) * 16 + tc::a_row(), REG - 1);
+    p0[m] = (q / RW) * UHW + q % RW;
+  }
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // this tile's halo is in; the last tile's s_q and halo are free
+    issue(t + (STAGES - 1) * gridDim.x, (it + STAGES - 1) % STAGES);
+    const int8_t* sh = smem + L::OFF_HALO + (it % STAGES) * L::HALO;
+#pragma unroll 1
+    for (int pass = 0; pass < NPASS; ++pass) {
+      int acc[UMW][NW][4] = {};
+      tc::conv_mma<CIN, COUT, UHW, UMW, NW>(acc, sh, s_w, p0, pass * NW * 8);
+#pragma unroll
+      for (int m = 0; m < UMW; ++m)
+#pragma unroll
+        for (int j = 0; j < NW; ++j) {
+          const int co = pass * NW * 8 + 8 * j + 2 * tq;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int q = (warp * UMW + m) * 16 + g + 8 * hf;
+            if (q < REG)
+              *reinterpret_cast<uint16_t*>(s_q + q * COUT + co) = tc::pack2(
+                  requant(dequant(acc[m][j][2 * hf], s_sc[co], s_bi[co]), relu),
+                  requant(dequant(acc[m][j][2 * hf + 1], s_sc[co + 1], s_bi[co + 1]), relu));
+          }
+        }
+    }
+    __syncthreads();
+    const int img = t / per_img, r = t % per_img;
+    up2_epilogue<COUT, VPU, UH>(s_q, rtab, ctab, inv, out, img, (r / tiles_x) * UH,
+                                (r % tiles_x) * UW, h, w);
+  }
+  tc::cp_async_wait<0>();
+}
+
+// J and L: conv(concat(x, z)) = conv(x, wx)*sx + conv(z, wz)*sz + bias,
+// C + C -> C, requant(relu(...)) with the dp4a version's roundings: each
+// product rounded, their sum rounded, then + bias rounded. DTH x DTW output
+// tiles; warp w takes tile row w.
+constexpr int DTH = 8, DTW = 32;
+
+template <int C, int STAGES>
+struct DualLayout {
+  static constexpr int HH = DTH + 2, HWD = DTW + 2;
+  static constexpr size_t HALO = (size_t)HH * HWD * C;  // one input's
+  static constexpr size_t OFF_WZ = (size_t)9 * C * C;
+  static constexpr size_t OFF_SC = 2 * OFF_WZ;
+  static constexpr size_t OFF_OUT = tc::align128(OFF_SC + 3 * C * sizeof(float));
+  static constexpr size_t OFF_HALO = OFF_OUT + (size_t)tc::WARPS * DTW * C;
+  static constexpr size_t BYTES = OFF_HALO + STAGES * 2 * HALO;
+};
+
+template <int C, int STAGES, int MINB>
+__global__ void __launch_bounds__(tc::THREADS, MINB)
+conv_dual_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ z,
+                     const int8_t* __restrict__ wx, const int8_t* __restrict__ wz,
+                     const float* __restrict__ sx, const float* __restrict__ sz,
+                     const float* __restrict__ bias, int8_t* __restrict__ out, int n, int h,
+                     int w, int relu) {
+  using L = DualLayout<C, STAGES>;
+  constexpr int CH = C / 16, NT8 = C / 8;
+  extern __shared__ __align__(128) int8_t tc_smem[];
+  int8_t* smem = tc_smem;
+  int8_t* s_wx = smem;
+  int8_t* s_wz = smem + L::OFF_WZ;
+  float* s_sx = reinterpret_cast<float*>(smem + L::OFF_SC);
+  float* s_sz = s_sx + C;
+  float* s_b = s_sz + C;
+  const int tiles_x = (w + DTW - 1) / DTW, per_img = tiles_x * ((h + DTH - 1) / DTH);
+  const int n_tiles = n * per_img;
+  auto issue = [&](int t, int stage) {
+    if (t < n_tiles) {
+      const int img = t / per_img, r = t % per_img;
+      const int y0 = (r / tiles_x) * DTH - 1, x0 = (r % tiles_x) * DTW - 1;
+      int8_t* sh = smem + L::OFF_HALO + stage * 2 * L::HALO;
+      tc::load_halo_async<C, L::HH, L::HWD>(sh, x, img, y0, x0, h, w);
+      tc::load_halo_async<C, L::HH, L::HWD>(sh + L::HALO, z, img, y0, x0, h, w);
+    }
+    tc::cp_async_commit();
+  };
+  for (int s = 0; s < STAGES - 1; ++s) issue(blockIdx.x + s * gridDim.x, s);
+  tc::load_weights_rows<C, C>(s_wx, wx);
+  tc::load_weights_rows<C, C>(s_wz, wz);
+  for (int i = threadIdx.x; i < C; i += tc::THREADS) {
+    s_sx[i] = sx[i];
+    s_sz[i] = sz[i];
+    s_b[i] = bias[i];
+  }
+  const int row = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int p0[2] = {row * L::HWD + tc::a_row(), row * L::HWD + 16 + tc::a_row()};
+  int8_t* s_o = smem + L::OFF_OUT + row * DTW * C;  // this warp's output row, swizzled
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // this tile's halos are in; the last tile's stage is free
+    issue(t + (STAGES - 1) * gridDim.x, (it + STAGES - 1) % STAGES);
+    const int8_t* sh = smem + L::OFF_HALO + (it % STAGES) * 2 * L::HALO;
+    int ax[2][NT8][4] = {}, az[2][NT8][4] = {};
+    tc::conv_mma<C, C, L::HWD, 2, NT8>(ax, sh, s_wx, p0, 0);
+    tc::conv_mma<C, C, L::HWD, 2, NT8>(az, sh + L::HALO, s_wz, p0, 0);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int co = 8 * j + 2 * tq;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          int8_t q[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float yx = __fmul_rn(__int2float_rn(ax[m][j][2 * hf + e]), s_sx[co + e]);
+            const float yz = __fmul_rn(__int2float_rn(az[m][j][2 * hf + e]), s_sz[co + e]);
+            q[e] = requant(__fadd_rn(__fadd_rn(yx, yz), s_b[co + e]), relu);
+          }
+          const int pix = 16 * m + g + 8 * hf;
+          *reinterpret_cast<uint16_t*>(s_o + tc::swz<CH>(pix, co / 16) * 16 + co % 16) =
+              tc::pack2(q[0], q[1]);
+        }
+      }
+    __syncwarp();
+    const int img = t / per_img, r = t % per_img;
+    const int gy = (r / tiles_x) * DTH + row, x0 = (r % tiles_x) * DTW;
+    if (gy < h) {
+      for (int k = lane; k < DTW * CH; k += 32) {
+        const int pix = k / CH, c = k % CH;
+        if (x0 + pix < w)
+          *reinterpret_cast<uint4*>(out + (((size_t)img * h + gy) * w + x0 + pix) * C + c * 16) =
+              *reinterpret_cast<const uint4*>(s_o + tc::swz<CH>(pix, c) * 16);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
 }
 
 template <int CIN, int COUT>
@@ -258,17 +446,71 @@ int launch_pool(const void* x, const void* wt, const void* scale, const void* bi
                 static_cast<int8_t*>(out), static_cast<int8_t*>(pool), pool_sc, h, w, relu);
 }
 
+constexpr int RING = 2;  // halo stages of the tensor-core kernels
+
+// Blocks an SM holds (__launch_bounds__ caps the registers for them): two
+// wherever shared memory leaves room, which J at 64 channels (178 KB) does
+// not. I takes 8-row source tiles so that two of its blocks fit (115 and
+// 85 KB), K 16-row ones. On the H100 one block an SM with 16-row tiles for
+// I ran I up to 17 %, J at 32 channels about 30 % and K about 20 % slower
+// (the one_block variant of kernels/tc_variants.py).
+constexpr int dual_min_blocks(int c) { return c == 64 ? 1 : 2; }
+constexpr int up2_rows(int cin) { return cin == 64 ? 8 : 16; }
+constexpr int UP2_MIN_BLOCKS = 2;
+
+// What a tensor-core entry launches for a shape: the kernel instantiation,
+// its shared memory a block and the tiles its persistent blocks walk. The
+// launch and the shape query (sifsr_conv_mma_shape) both read it here.
+template <int CIN, int COUT, bool VPU>
+struct Up2Entry {
+  static constexpr int UH = up2_rows(CIN);
+  static constexpr size_t SMEM = Up2Layout<CIN, COUT, UH, RING>::BYTES;
+  static auto kernel() {
+    return conv_up2_mma_kernel<CIN, COUT, VPU, UH, RING, UP2_MIN_BLOCKS>;
+  }
+  static int tiles(int n, int h, int w) {
+    return n * ((h + UH - 1) / UH) * ((w + UW - 1) / UW);
+  }
+};
+
+template <int C>
+struct DualEntry {
+  static constexpr size_t SMEM = DualLayout<C, RING>::BYTES;
+  static auto kernel() { return conv_dual_mma_kernel<C, RING, dual_min_blocks(C)>; }
+  static int tiles(int n, int h, int w) {
+    return n * ((h + DTH - 1) / DTH) * ((w + DTW - 1) / DTW);
+  }
+};
+
+template <typename E>
+int entry_shape(int n, int h, int w, int* blocks, int* smem, int* tiles) {
+  *smem = (int)E::SMEM;
+  *tiles = E::tiles(n, h, w);
+  return tc::persistent_grid(E::kernel(), E::SMEM, *tiles, blocks);
+}
+
 template <int CIN, int COUT, bool VPU>
 int launch_up2(const void* x, const void* wt, const void* scale, const void* bias,
                const void* rtab, const void* ctab, float inv, void* out, int n, int h, int w,
                int relu, cudaStream_t s) {
-  constexpr int CW = CIN / 4;
-  const size_t smem = (size_t)(HALO * CW + 9 * CW * COUT) * sizeof(int32_t) + NT * COUT;
-  const dim3 grid((w + UW - 1) / UW, (h + UH - 1) / UH, n);
-  return launch(conv_prow_up2_kernel<CIN, COUT, VPU>, grid, smem, s,
-                static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-                static_cast<const float*>(scale), static_cast<const float*>(bias), rtab, ctab,
-                inv, static_cast<int8_t*>(out), h, w, relu);
+  using E = Up2Entry<CIN, COUT, VPU>;
+  return tc::launch_persistent(E::kernel(), E::SMEM, E::tiles(n, h, w), s,
+                               static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
+                               static_cast<const float*>(scale), static_cast<const float*>(bias),
+                               rtab, ctab, inv, static_cast<int8_t*>(out), n, h, w, relu);
+}
+
+template <int C>
+int launch_dual_mma(const void* x, const void* z, const void* wx, const void* wz,
+                    const void* sx, const void* sz, const void* bias, void* out, int n, int h,
+                    int w, int relu, cudaStream_t s) {
+  using E = DualEntry<C>;
+  return tc::launch_persistent(E::kernel(), E::SMEM, E::tiles(n, h, w), s,
+                               static_cast<const int8_t*>(x), static_cast<const int8_t*>(z),
+                               static_cast<const int8_t*>(wx), static_cast<const int8_t*>(wz),
+                               static_cast<const float*>(sx), static_cast<const float*>(sz),
+                               static_cast<const float*>(bias), static_cast<int8_t*>(out), n, h,
+                               w, relu);
 }
 
 }  // namespace
@@ -342,8 +584,28 @@ int sifsr_conv_prow_dual(const void* x, const void* z, const void* wx, const voi
                          const void* sx, const void* sz, const void* bias, void* out, int n,
                          int h, int w, int c, int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c == 32) return launch_dual<32>(x, z, wx, wz, sx, sz, bias, out, n, h, w, relu, s);
-  if (c == 64) return launch_dual<64>(x, z, wx, wz, sx, sz, bias, out, n, h, w, relu, s);
+  if (c == 32) return launch_dual_mma<32>(x, z, wx, wz, sx, sz, bias, out, n, h, w, relu, s);
+  if (c == 64) return launch_dual_mma<64>(x, z, wx, wz, sx, sz, bias, out, n, h, w, relu, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch of a tensor-core entry for the given shape, without launching:
+// kind 0 sifsr_conv_prow_dual (cin == cout == C), 1 sifsr_conv_prow_up2,
+// 2 sifsr_conv_prow_up2_vpu. Writes the persistent grid (blocks), the
+// dynamic shared memory of a block in bytes and the number of tiles.
+int sifsr_conv_mma_shape(int kind, int cin, int cout, int n, int h, int w, int* blocks,
+                         int* smem, int* tiles) {
+  if (kind == 0 && cin == 32 && cout == 32)
+    return entry_shape<DualEntry<32>>(n, h, w, blocks, smem, tiles);
+  if (kind == 0 && cin == 64 && cout == 64)
+    return entry_shape<DualEntry<64>>(n, h, w, blocks, smem, tiles);
+#define SIFSR_CASE(CI, CO)                                                                  \
+  if (kind == 1 && cin == CI && cout == CO)                                                 \
+    return entry_shape<Up2Entry<CI, CO, false>>(n, h, w, blocks, smem, tiles);              \
+  if (kind == 2 && cin == CI && cout == CO)                                                 \
+    return entry_shape<Up2Entry<CI, CO, true>>(n, h, w, blocks, smem, tiles);
+  SIFSR_UP2_SHAPES(SIFSR_CASE)
+#undef SIFSR_CASE
   return (int)cudaErrorInvalidValue;
 }
 

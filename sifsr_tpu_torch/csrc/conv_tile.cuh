@@ -1,8 +1,9 @@
 // The 8x32-tile dp4a main loop of the replicate-pad 3x3 int8 convs, shared
 // by csrc/conv_i8.cu (kernels B-F, generic) and csrc/conv_px.cu
 // (kernels G-L): halo and weight loads into shared memory, the int32 inner
-// product, the float32 epilogue helpers, 16-byte int8 stores, and the dual
-// conv(concat(x, z)) kernel that kernels C and J share.
+// product, the float32 epilogue helpers, 16-byte int8 stores, and kernel C's
+// dual conv(concat(x, z)). Kernels I-L run on the int8 tensor cores instead
+// (conv_mma.cuh).
 //
 // One block of 256 threads per 8x32 output tile, each thread one pixel and
 // all its output channels; the (8+2)x(32+2) input halo is loaded once into
@@ -183,8 +184,7 @@ inline dim3 tile_grid(int n, int h, int w) {
 }
 
 // conv(concat(x, z)) = conv_x(x)*scale_x + conv_z(z)*scale_z + bias,
-// C + C -> C int8; the concat is never formed. Kernel C (C = 16, ub3.conv1)
-// and kernel J (C = 64 ub1.conv1, C = 32 ub2.conv1).
+// C + C -> C int8; the concat is never formed. Kernel C (C = 16, ub3.conv1).
 template <int C>
 __global__ void __launch_bounds__(NT)
 conv_i8_dual_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ z,

@@ -5,7 +5,9 @@ by ``nvcc`` for ``sm_90a`` into a shared library under
 ``sifsr_tpu_torch/build/``, named by a hash of its source, the shared
 ``csrc/*.cuh`` headers and the flags, so that an edited source is rebuilt, and loaded with
 ``ctypes``. ``build()`` compiles several sources at once, one ``nvcc``
-process each, all started together.
+process each, all started together. ptxas reports each kernel's registers,
+spills and static shared memory (``-Xptxas -v``); the report is kept beside
+the library and read by ``ptxas_report()``.
 
 Wrappers pass device pointers (``tensor.data_ptr()``) and the current
 stream as ``c_void_p``; every C entry point returns ``cudaGetLastError()``
@@ -17,17 +19,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build", "load", "check"]
+__all__ = ["build", "load", "check", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 BUILD_DIR = _PKG / "build"
 
@@ -78,6 +81,7 @@ def build(names=None) -> dict[str, Path]:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             os.unlink(tmp)
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -100,3 +104,31 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.sifsr_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """ptxas's account of each kernel of ``csrc/<name>.cu`` from its last
+    build: [{kernel (mangled), registers, spill_stores, spill_loads,
+    stack, smem_static}] in bytes where not a count."""
+    log = _target(name)[1].with_suffix(".log").read_text()
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "spill_stores": None,
+                   "spill_loads": None, "stack": None, "smem_static": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem_static"] = int(m.group(1))
+    return out

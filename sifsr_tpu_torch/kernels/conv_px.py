@@ -1,8 +1,10 @@
 """Kernels G-L: the int8 mid chain's convs with fused epilogues.
 
 Counterparts, by function, of ``sifsr_tpu/pallas/conv_px.py``; CUDA source
-``csrc/conv_px.cu`` (the dual conv is kernel C's template in
-``csrc/conv_tile.cuh``):
+``csrc/conv_px.cu``. G and H run the dp4a main loop of ``csrc/conv_tile.cuh``;
+I, J, K and L the int8 tensor-core main loop of ``csrc/conv_mma.cuh`` in
+persistent blocks (``tensor_core_launch`` gives their grid and shared
+memory):
 
 - ``conv_prow`` (G): 3x3 conv + requantise, optionally with the residual add
   of DownBlock_pool fused before the requantise (db1-db3 res.conv1/conv2);
@@ -62,6 +64,7 @@ __all__ = [
     "conv_prow_up2_pack", "conv_prow_plain", "conv_prow_split_pool_plain",
     "conv_prow_up2_plain", "conv_prow_dual_planes_plain", "conv_prow_up2_pack_plain",
     "conv_prow_dual", "conv_prow_dual_plain", "prow_leaf", "up2_coeffs_mxu", "up2_coeffs",
+    "tensor_core_launch",
 ]
 
 # (cin, cout) pairs each CUDA entry point is built for (csrc/conv_px.cu)
@@ -207,19 +210,50 @@ conv_prow_dual_plain = conv_i8_exact_dual_plain
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = _build.load("conv_px")
+    return bind(_build.load("conv_px"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points of ``csrc/conv_px.cu`` on a loaded library:
+    the built one, or one built from a variant of the source
+    (``kernels/tc_variants.py``)."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sifsr_error_string.argtypes = [i]
+    lib.sifsr_error_string.restype = ctypes.c_char_p
     sigs = {
         "sifsr_conv_prow": [vp, vp, vp, vp, vp, f, vp, i, i, i, i, i, i, vp],
         "sifsr_conv_prow_split_pool": [vp, vp, vp, vp, vp, vp, f, i, i, i, i, i, i, vp],
         "sifsr_conv_prow_up2": [vp, vp, vp, vp, vp, vp, f, vp, i, i, i, i, i, i, vp],
         "sifsr_conv_prow_up2_vpu": [vp, vp, vp, vp, vp, vp, f, vp, i, i, i, i, i, i, vp],
         "sifsr_conv_prow_dual": [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp],
+        "sifsr_conv_mma_shape": [i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
+                                 ctypes.POINTER(i)],
     }
     for name, args in sigs.items():
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     return lib
+
+
+_MMA_KINDS = {"dual": 0, "up2": 1, "up2_vpu": 2}
+
+
+def tensor_core_launch(kind: str, n: int, h: int, w: int, cin: int, cout: int) -> dict:
+    """The launch the tensor-core entry ``kind`` ('dual': J and L, 'up2': I
+    and K, 'up2_vpu': their float32 chain) makes for an (n,h,w,cin) input:
+    {'blocks': persistent grid, 'smem_bytes': dynamic shared memory a block,
+    'tiles': output tiles the blocks walk}. Needs the card."""
+    lib = _lib()
+    out = [ctypes.c_int(0) for _ in range(3)]
+    code = lib.sifsr_conv_mma_shape(_MMA_KINDS[kind], cin, cout, n, h, w,
+                                    *(ctypes.byref(v) for v in out))
+    _build.check(lib, code, f"tensor_core_launch({kind})")
+    return dict(zip(("blocks", "smem_bytes", "tiles"), (v.value for v in out)))
+
+
+def _nonempty(n, h, wd, what):
+    if min(n, h, wd) < 1:
+        raise ValueError(f"{what} takes N, H, W >= 1, got {n}x{h}x{wd}")
 
 
 def _conv_checks(x, w, scale, bias, shapes, what):
@@ -286,6 +320,7 @@ def _up2_launch(x, w, scale, bias, rnum, cnum, inv, relu, shapes, what):
                          f"(up2_coeffs), got {rnum.dtype}")
     _check(rnum, "rnum", (2, 3, h), rnum.dtype, x.device)
     _check(cnum, "cnum", (2, 3, wd), rnum.dtype, x.device)
+    _nonempty(n, h, wd, what)
     out = torch.empty((n, 2 * h, 2 * wd, cout), dtype=torch.int8, device=x.device)
     lib = _lib()
     entry = lib.sifsr_conv_prow_up2 if rnum.dtype == torch.int32 else lib.sifsr_conv_prow_up2_vpu
@@ -333,6 +368,7 @@ def _dual_launch(x, z, wx, wz, scale_x, scale_z, bias, relu, what):
         _check(t, name, (3, 3, c, c), torch.int8, dev)
     for name, t in (("scale_x", scale_x), ("scale_z", scale_z), ("bias", bias)):
         _check(t, name, (c,), torch.float32, dev)
+    _nonempty(n, h, wd, what)
     out = torch.empty_like(x)
     lib = _lib()
     code = lib.sifsr_conv_prow_dual(

@@ -30,6 +30,20 @@ def _rand_case(rng, n, h, w, c, c_out):
     return x_q, k, bias
 
 
+def _sat_case(rng, n, h, w, c, c_out):
+    """Every input at +-127 and every quantised weight at +-127 (random
+    signs): accumulators of 127^2 * sqrt(9 c) typically, up to 9 * 64 *
+    127^2 = 9,290,304 at 64 channels."""
+    x_q = (127 * rng.choice([-1, 1], (n, h, w, c))).astype(np.int8)
+    k = (0.2 * rng.choice([-1.0, 1.0], (3, 3, c, c_out))).astype(np.float32)
+    bias = rng.normal(size=(c_out,)).astype(np.float32)
+    return x_q, k, bias
+
+
+# input scales that keep the saturating cases' outputs mid-range
+SAT_S_IN = {"x": 0.003, "z": 0.006, "up2": 0.006}
+
+
 def _leaf(k, bias, s_in, s_out=None, post_scale=1.0):
     """The port's leaf as CPU tensors."""
     leaf = conv_px.prow_leaf(k, bias, s_in, s_out, post_scale)
@@ -114,16 +128,18 @@ def test_conv_prow_split_pool_matches_pallas(rng, p, c, c_out, h, w):
     _assert_identical(pool.numpy(), np.asarray(pooled).reshape(2, h // 2, w // 2, c_out))
 
 
-@pytest.mark.parametrize("p,c,c_out,p_out,h,w,fold", [
-    (2, 64, 64, 2, 8, 16, 1),      # db3.last-like
-    (4, 64, 32, 4, 8, 16, 2),      # ub1.conv2-like (folded input rows)
-])
-def test_conv_prow_up2_matches_pallas(rng, p, c, c_out, p_out, h, w, fold):
+@pytest.mark.parametrize("p,c,c_out,p_out,h,w,fold,sat", [
+    (2, 64, 64, 2, 8, 16, 1, False),      # db3.last-like
+    (4, 64, 32, 4, 8, 16, 2, False),      # ub1.conv2-like (folded input rows)
+    (2, 64, 64, 2, 8, 16, 1, True),       # every input and weight at +-127
+], ids=["2-64-64-2-8-16-1", "4-64-32-4-8-16-2", "saturating-2-64-64-2-8-16-1"])
+def test_conv_prow_up2_matches_pallas(rng, p, c, c_out, p_out, h, w, fold, sat):
     """Kernel I, integer-exact row mix (up2_impl='mxu'), in natural pixel
     order after undoing the e-major groups."""
     s_mid, s_up = 0.12, 0.2
-    x, k, bias = _rand_case(rng, 2, h, w, c, c_out)
-    leaf = jax_px.prow_leaf(k, bias, p, s_in=0.17, s_out=s_mid)
+    x, k, bias = (_sat_case if sat else _rand_case)(rng, 2, h, w, c, c_out)
+    s_in = SAT_S_IN["up2"] if sat else 0.17
+    leaf = jax_px.prow_leaf(k, bias, p, s_in=s_in, s_out=s_mid)
     _, rm, cc, inv = jax_px.up2_coeffs_mxu(h, w, c_out, s_mid, s_up)
     leaf.update(rm=jnp.asarray(rm), cc=jnp.asarray(cc), inv=jnp.asarray(inv))
     want = jax_px.conv_prow_up2(nhwc_to_rows(jnp.asarray(x), p // fold), leaf, p, c, c_out,
@@ -131,27 +147,38 @@ def test_conv_prow_up2_matches_pallas(rng, p, c, c_out, p_out, h, w, fold):
     inv_perm = np.argsort(np.asarray(up2_perm(p_out)))
     want = np.asarray(want).reshape(2, 2 * h, (2 * w) // p_out, p_out, c_out)
     want = want[:, :, :, inv_perm, :].reshape(2, 2 * h, 2 * w, c_out)
-    got = conv_px.conv_prow_up2(torch.from_numpy(x), *_leaf(k, bias, 0.17, s_mid),
+    got = conv_px.conv_prow_up2(torch.from_numpy(x), *_leaf(k, bias, s_in, s_mid),
                                 *_up2_tables(h, w, s_mid, s_up))
     _assert_identical(got.numpy(), want)
 
 
-@pytest.mark.parametrize("p,c,h,w", [(4, 32, 8, 16), (2, 64, 8, 16)])
-def test_conv_prow_dual_planes_matches_pallas(rng, p, c, h, w):
-    """Kernel J at ub2.conv1's (32) and ub1.conv1's (64) channel counts; the
-    JAX side takes the skip as the producer's two half-planes."""
-    x, kx, bias = _rand_case(rng, 2, h, w, c, c)
-    z, kz, _ = _rand_case(rng, 2, h, w, c, c)
+def _dual_case(rng, h, w, c, sat):
+    """x, kx, bias, z, kz and the two input scales of a dual-conv case."""
+    make = _sat_case if sat else _rand_case
+    x, kx, bias = make(rng, 2, h, w, c, c)
+    z, kz, _ = make(rng, 2, h, w, c, c)
+    s_x, s_z = (SAT_S_IN["x"], SAT_S_IN["z"]) if sat else (0.1, 0.21)
+    return x, kx, bias, z, kz, s_x, s_z
+
+
+@pytest.mark.parametrize("p,c,h,w,sat", [(4, 32, 8, 16, False), (2, 64, 8, 16, False),
+                                         (2, 64, 8, 16, True)],
+                         ids=["4-32-8-16", "2-64-8-16", "saturating-2-64-8-16"])
+def test_conv_prow_dual_planes_matches_pallas(rng, p, c, h, w, sat):
+    """Kernel J at ub2.conv1's (32) and ub1.conv1's (64) channel counts, and
+    with every input and weight at +-127; the JAX side takes the skip as the
+    producer's two half-planes."""
+    x, kx, bias, z, kz, s_x, s_z = _dual_case(rng, h, w, c, sat)
     z6 = z.reshape(2, h, w // (2 * p), 2, p * c)
     z_lo = jnp.asarray(z6[:, :, :, 0].reshape(2, h * w // (2 * p), p * c))
     z_hi = jnp.asarray(z6[:, :, :, 1].reshape(2, h * w // (2 * p), p * c))
     want = rows_to_nhwc(jax_px.conv_prow_dual_planes(
         nhwc_to_rows(jnp.asarray(x), p), z_lo, z_hi,
-        jax_px.prow_leaf(kx, bias, p, s_in=0.1, s_out=0.05),
-        jax_px.prow_leaf(kz, np.zeros_like(bias), p, s_in=0.21, s_out=0.05),
+        jax_px.prow_leaf(kx, bias, p, s_in=s_x, s_out=0.05),
+        jax_px.prow_leaf(kz, np.zeros_like(bias), p, s_in=s_z, s_out=0.05),
         p, c, c, h, w, interpret=True), h, w, c)
-    wx, sx, bx = _leaf(kx, bias, 0.1, 0.05)
-    wz, sz, _ = _leaf(kz, np.zeros_like(bias), 0.21, 0.05)
+    wx, sx, bx = _leaf(kx, bias, s_x, 0.05)
+    wz, sz, _ = _leaf(kz, np.zeros_like(bias), s_z, 0.05)
     got = conv_px.conv_prow_dual_planes(torch.from_numpy(x), torch.from_numpy(z), wx, wz,
                                         sx, sz, bx)
     _assert_identical(got.numpy(), want)
@@ -210,19 +237,20 @@ def test_up2_coeffs_mxu_equal_jax(h, w, c_out):
     np.testing.assert_array_equal(np.repeat(cnum, c_out, axis=2).astype(np.float32), cc)
 
 
-@pytest.mark.parametrize("p,c,h,w", [(2, 64, 8, 16), (4, 32, 8, 16)])
-def test_conv_prow_dual_matches_pallas(rng, p, c, h, w):
+@pytest.mark.parametrize("p,c,h,w,sat", [(2, 64, 8, 16, False), (4, 32, 8, 16, False),
+                                         (2, 64, 8, 16, True)],
+                         ids=["2-64-8-16", "4-32-8-16", "saturating-2-64-8-16"])
+def test_conv_prow_dual_matches_pallas(rng, p, c, h, w, sat):
     """Kernel L against the Pallas conv_prow_dual (the skip as one rows
     tensor, not half-planes): identical int8, and identical to kernel J."""
-    x, kx, bias = _rand_case(rng, 2, h, w, c, c)
-    z, kz, _ = _rand_case(rng, 2, h, w, c, c)
+    x, kx, bias, z, kz, s_x, s_z = _dual_case(rng, h, w, c, sat)
     want = rows_to_nhwc(jax_px.conv_prow_dual(
         nhwc_to_rows(jnp.asarray(x), p), nhwc_to_rows(jnp.asarray(z), p),
-        jax_px.prow_leaf(kx, bias, p, s_in=0.1, s_out=0.05),
-        jax_px.prow_leaf(kz, np.zeros_like(bias), p, s_in=0.21, s_out=0.05),
+        jax_px.prow_leaf(kx, bias, p, s_in=s_x, s_out=0.05),
+        jax_px.prow_leaf(kz, np.zeros_like(bias), p, s_in=s_z, s_out=0.05),
         p, c, c, h, w, interpret=True), h, w, c)
-    wx, sx, bx = _leaf(kx, bias, 0.1, 0.05)
-    wz, sz, _ = _leaf(kz, np.zeros_like(bias), 0.21, 0.05)
+    wx, sx, bx = _leaf(kx, bias, s_x, 0.05)
+    wz, sz, _ = _leaf(kz, np.zeros_like(bias), s_z, 0.05)
     args = (torch.from_numpy(x), torch.from_numpy(z), wx, wz, sx, sz, bx)
     got = conv_px.conv_prow_dual(*args)
     _assert_identical(got.numpy(), want)

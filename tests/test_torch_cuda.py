@@ -135,6 +135,106 @@ def test_conv_prow_dual_planes_cuda(rng, cuda, c):
     assert torch.equal(got, want)
 
 
+def _sat_args(rng, cuda, n, h, w, cin, cout, mode):
+    """Saturating int8 operands: 'mixed' has inputs and weights of +-127 with
+    random signs, 'max' all +127 (the largest accumulator, 9*cin*127^2 =
+    9,290,304 at 64 channels). The scales put the outputs mid-range, so the
+    float32 epilogue rounds at large accumulator values."""
+    if mode == "max":
+        x = np.full((n, h, w, cin), 127, np.int8)
+        wt = np.full((3, 3, cin, cout), 127, np.int8)
+        acc = 9 * cin * 127.0 * 127.0
+    else:
+        x = (127 * rng.choice([-1, 1], (n, h, w, cin))).astype(np.int8)
+        wt = (127 * rng.choice([-1, 1], (3, 3, cin, cout))).astype(np.int8)
+        acc = 127.0 * 127.0 * np.sqrt(9 * cin)
+    args = [torch.from_numpy(x), torch.from_numpy(wt),
+            _f32(40.0 / acc * (0.5 + rng.random(cout))), _f32(rng.normal(0.0, 5.0, cout))]
+    return [a.to(cuda) for a in args]
+
+
+# Tilings of the tensor-core kernels (8x32 output tiles for J, 8x32 source
+# tiles for I at 64 input channels and 16x32 for K at 32, persistent grids
+# of k x the SM count): batch 1, H and W
+# off the tile, and batches whose tile count passes the grid by a remainder.
+# (The x2 tables of up2_coeffs_mxu take at most 128 source pixels a side.)
+DUAL_SHAPES = [(1, 64, 64), (2, 66, 130), (7, 128, 128), (19, 64, 64)]
+UP2_SHAPES = [(1, 32, 32), (2, 66, 100), (53, 64, 64)]
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("n,h,w", DUAL_SHAPES)
+def test_conv_prow_dual_planes_tilings_cuda(rng, cuda, c, n, h, w):
+    """Kernel J on the int8 tensor cores, bit for bit against its plain
+    version where a tiling breaks."""
+    x, wx, sx, b = _conv_args(rng, cuda, n, h, w, c, c)
+    z, wz, sz, _ = _conv_args(rng, cuda, n, h, w, c, c)
+    got = conv_px.conv_prow_dual_planes(x, z, wx, wz, sx, sz, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv_px.conv_prow_dual_planes_plain(x, z, wx, wz, sx, sz, b))
+
+
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("mode", ["mixed", "max"])
+def test_conv_prow_dual_planes_saturating_cuda(rng, cuda, c, mode):
+    """Kernel J with every input and weight at +-127: int32 accumulators up
+    to 9.3 M a input and the float32 epilogue at those values."""
+    x, wx, sx, b = _sat_args(rng, cuda, 3, 40, 36, c, c, mode)
+    z, wz, sz, _ = _sat_args(rng, cuda, 3, 40, 36, c, c, mode)
+    got = conv_px.conv_prow_dual_planes(x, z, wx, wz, sx, sz, b)
+    torch.cuda.synchronize()
+    want = conv_px.conv_prow_dual_planes_plain(x, z, wx, wz, sx, sz, b)
+    assert torch.equal(got, want)
+    assert float(want.float().abs().mean()) > 2.0
+
+
+def _up2_tables(cuda, h, w, table):
+    make = conv_px.up2_coeffs_mxu if table == "mxu" else conv_px.up2_coeffs
+    a, b, inv = make(h, w, 0.05, 0.0625)
+    return [torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda), inv]
+
+
+@pytest.mark.parametrize("table", ["mxu", "vpu"])
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 32), (32, 16)])
+@pytest.mark.parametrize("n,h,w", UP2_SHAPES)
+def test_conv_prow_up2_tilings_cuda(rng, cuda, table, cin, cout, n, h, w):
+    """Kernels I (64->64, 64->32) and K (32->16) on the int8 tensor cores,
+    both x2 tables, bit for bit against their plain versions where a tiling
+    breaks."""
+    args = _conv_args(rng, cuda, n, h, w, cin, cout)
+    tables = _up2_tables(cuda, h, w, table)
+    kernel = conv_px.conv_prow_up2_pack if cout == 16 else conv_px.conv_prow_up2
+    got = kernel(*args, *tables)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 2 * h, 2 * w, cout)
+    assert torch.equal(got, conv_px.conv_prow_up2_plain(*args, *tables))
+
+
+@pytest.mark.parametrize("table", ["mxu", "vpu"])
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 32), (32, 16)])
+@pytest.mark.parametrize("mode", ["mixed", "max"])
+def test_conv_prow_up2_saturating_cuda(rng, cuda, table, cin, cout, mode):
+    """Kernels I and K with every input and weight at +-127."""
+    args = _sat_args(rng, cuda, 2, 40, 36, cin, cout, mode)
+    tables = _up2_tables(cuda, 40, 36, table)
+    kernel = conv_px.conv_prow_up2_pack if cout == 16 else conv_px.conv_prow_up2
+    got = kernel(*args, *tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv_px.conv_prow_up2_plain(*args, *tables))
+
+
+def test_tensor_core_launch_cuda(cuda):
+    """The persistent grids at the serving shapes: a whole number of blocks
+    on every SM (or one a tile), within the card's shared memory."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kind, hw, cin, cout in (("dual", 64, 64, 64), ("dual", 128, 32, 32), ("up2", 32, 64, 64),
+                                ("up2", 64, 64, 32), ("up2_vpu", 128, 32, 16)):
+        got = conv_px.tensor_core_launch(kind, 324, hw, hw, cin, cout)
+        assert 0 < got["smem_bytes"] <= 232448, (kind, got)
+        assert got["blocks"] % sms == 0 and got["blocks"] < got["tiles"], (kind, got)
+    assert conv_px.tensor_core_launch("dual", 1, 8, 32, 64, 64)["blocks"] == 1
+
+
 @pytest.mark.parametrize("h,w", [(64, 64), (40, 36)])
 def test_conv_i8_in1_and_outlay_cuda(rng, cuda, h, w):
     """Kernels E (identical to its plain version and to kernel D on the
