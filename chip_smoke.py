@@ -8,7 +8,7 @@ Phases, each of which raises on failure (no result line is printed then):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every ``sifsr_tpu_torch/csrc/*.cu`` by nvcc for sm_90a, in
    parallel; ptxas's registers, spills and stack of the tensor-core kernels
-   (I, J, K, L);
+   (B, C, I, J, K, L);
 3. kernels: each hand-written kernel of the int8 serving paths at the
    shapes the paths give it (batch 324), held against its plain PyTorch
    version on the same seeded inputs: the outputs must be identical (int8 and
@@ -19,11 +19,14 @@ Phases, each of which raises on failure (no result line is printed then):
    in_scale on the conv's int8 output; CUDA-event times of kernel and plain
    version, the least time the card could take (bytes or operations), and,
    for kernel A, of the PyTorch interpolate calls that compute its float
-   function; for J, L, I and K the time of ``torch._int_mm`` over the
-   im2col'd product at the same shapes (the product alone: M = N*H*W,
-   K = 9*C, N = C_out, once per input for J and L; the im2col is built
-   beforehand and the yardstick checked against the exact conv on one
-   image), and each one's persistent grid and shared memory a block. The
+   function; for every int8 conv (B-L and the generic conv) the time of
+   ``torch._int_mm`` over the im2col'd product at the same shapes (the
+   product alone: M = N*H*W, K = 9*C, N = C_out, once per input for C, J
+   and L; K and N zero-padded to _int_mm's multiples of 8 where a shape
+   needs it, D's K = 18 to 24 and the outlay's N = 1 to 8; the im2col is
+   built beforehand and the yardstick checked against the exact conv on one
+   image), and for B, C, I, J, K and L their persistent grid and shared
+   memory a block. The
    float kernels of the training losses at training batch 32:
    fused_psf_downscale forward at (32,256,256) and backward (32,64,64) ->
    (32,256,256) within max|d| 1e-5 of the plain version evaluated in
@@ -209,13 +212,14 @@ def main(profile: bool = False) -> None:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    ptxas = {r["kernel"]: r for r in _build.ptxas_report("conv_px") if "_mma_kernel" in r["kernel"]}
+    ptxas = {r["kernel"]: r for name in ("conv_px", "conv_i8")
+             for r in _build.ptxas_report(name) if "_mma_kernel" in r["kernel"]}
     for mangled, r in ptxas.items():
         log(f"ptxas {demangle(mangled)}: {r['registers']} registers, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads, {r['stack']} B stack, "
             f"{r['smem_static']} B static shared memory")
-    if len(ptxas) != 8:
-        raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 8")
+    if len(ptxas) != 11:
+        raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 11")
 
     # 3. kernels vs plain versions at serving shapes
     rng = np.random.default_rng(0)
@@ -306,12 +310,23 @@ def main(profile: bool = False) -> None:
         return cols.reshape(n * h * w, 9 * c)
 
     def int_mm_product(x, w):
-        """torch._int_mm over the im2col'd conv (the product alone), checked
-        against the exact conv of the first image; returns the timed call."""
-        a = im2col(x)
-        b = w.reshape(-1, w.shape[-1]).t().contiguous().t()      # (9*C, C_out), column-major
+        """torch._int_mm over the im2col'd conv (the product alone), K = 9*C
+        and N = C_out zero-padded to _int_mm's multiples of 8 where needed,
+        checked against the exact conv of the first image; returns the timed
+        call."""
+        cols = im2col(x)
+        k, cout = cols.shape[1], w.shape[-1]
+        kp, np_ = -(-k // 8) * 8, -(-cout // 8) * 8
+        a = cols
+        if kp != k:
+            a = torch.zeros((cols.shape[0], kp), dtype=torch.int8, device=dev)
+            a[:, :k] = cols
+        del cols
+        wm = torch.zeros((kp, np_), dtype=torch.int8, device=dev)
+        wm[:k, :cout] = w.reshape(-1, cout)
+        b = wm.t().contiguous().t()                         # (K, N), column-major
         h, wd = x.shape[1], x.shape[2]
-        first = torch._int_mm(a[:h * wd], b)
+        first = torch._int_mm(a[:h * wd], b)[:, :cout]
         if not torch.equal(first, conv_i8.conv3x3_i32(x[:1], w).reshape(h * wd, -1)):
             raise AssertionError("the _int_mm yardstick differs from the exact conv")
         return lambda: torch._int_mm(a, b)
@@ -321,8 +336,10 @@ def main(profile: bool = False) -> None:
         of its kernel, logged."""
         got = conv_px.tensor_core_launch(kind, n, h, w, cin, cout)
         # template arguments as the mangled names spell them
-        key = (f"conv_dual_mma_kernelILi{cin}E" if kind == "dual" else
-               f"conv_up2_mma_kernelILi{cin}ELi{cout}ELb{int(kind == 'up2_vpu')}E")
+        key = {"dual": f"conv_dual_mma_kernelILi{cin}E",
+               "exact": "conv16_mma_kernelILi1ELb0E", "exact_pm": "conv16_mma_kernelILi1ELb1E",
+               "exact_dual": "conv16_mma_kernelILi2ELb0E"}.get(
+            kind, f"conv_up2_mma_kernelILi{cin}ELi{cout}ELb{int(kind == 'up2_vpu')}E")
         (mangled, rep), = [(k, v) for k, v in ptxas.items() if key in k]
         kname = demangle(mangled)
         got.update(kernel=kname, registers=rep["registers"], spill_stores=rep["spill_stores"],
@@ -360,27 +377,33 @@ def main(profile: bool = False) -> None:
                                          align_corners=True)])
     del xa, mid_out
 
+    mm_words = "torch._int_mm over the im2col'd conv, the product alone"
+
     # D: inbloc.conv1, LST and NDVI int8 planes -> 16 channels at 256²
     x2, w1, sc1, b1 = conv_args(2, 16, (N, 256, 256))
     lst_q, ndvi_q = x2[..., 0].contiguous(), x2[..., 1].contiguous()
+    d_product = int_mm_product(x2, w1)
     check("conv_i8_in1_split", [(
         lambda: K.conv_i8_in1_split(lst_q, ndvi_q, w1, sc1, b1),
         lambda: conv_i8.conv_i8_in1_split_plain(lst_q, ndvi_q, w1, sc1, b1),
-        conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))])
+        conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))],
+        library=[d_product], library_is=mm_words + "; K 18 zero-padded to 24")
     # E: the same conv on the channel-interleaved tensor; identical to D
     check("conv_i8_in1", [(
         lambda: K.conv_i8_in1(x2, w1, sc1, b1),
         lambda: conv_i8.conv_i8_in1_plain(x2, w1, sc1, b1),
-        conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))])
+        conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))],
+        library=[d_product], library_is=mm_words + "; K 18 zero-padded to 24")
     if not torch.equal(K.conv_i8_in1(x2, w1, sc1, b1),
                        K.conv_i8_in1_split(lst_q, ndvi_q, w1, sc1, b1)):
         raise AssertionError("conv_i8_in1 differs from conv_i8_in1_split")
     log("kernel conv_i8_in1: identical to conv_i8_in1_split on the de-interleaved planes")
-    del x2, lst_q, ndvi_q
+    del x2, lst_q, ndvi_q, d_product
 
     # B: inbloc.conv2 with the fused phase mean, ub3.conv2 without
     x, w, sc, b = conv_args(16, 16, (N, 256, 256))
     pm_scale = float(np.float32(0.9) / np.float32(4.0))
+    b_product = int_mm_product(x, w)
     check("conv_i8_exact", [
         (lambda: K.conv_i8_exact(x, w, sc, b, pm_scale=pm_scale),
          lambda: conv_i8.conv_i8_exact_plain(x, w, sc, b, pm_scale=pm_scale),
@@ -388,7 +411,11 @@ def main(profile: bool = False) -> None:
          int8_ms(conv_ops(N, 256, 256, 16, 16))),
         (lambda: K.conv_i8_exact(x, w, sc, b),
          lambda: conv_i8.conv_i8_exact_plain(x, w, sc, b),
-         conv_bytes(N, 256, 256, 16, 16, 1), int8_ms(conv_ops(N, 256, 256, 16, 16)))])
+         conv_bytes(N, 256, 256, 16, 16, 1), int8_ms(conv_ops(N, 256, 256, 16, 16)))],
+        library=[b_product, b_product], library_is=mm_words + ", once per call",
+        launch=[mma_launch("exact_pm", N, 256, 256, 16, 16),
+                mma_launch("exact", N, 256, 256, 16, 16)])
+    del b_product
 
     # C: ub3.conv1 over concat(up, s0)
     z, wz, scz, _ = conv_args(16, 16, (N, 256, 256))
@@ -396,23 +423,29 @@ def main(profile: bool = False) -> None:
         lambda: K.conv_i8_exact_dual(x, z, w, wz, sc, scz, b),
         lambda: conv_i8.conv_i8_exact_dual_plain(x, z, w, wz, sc, scz, b),
         N * 256 * 256 * (16 + 16 + 16) + 2 * 9 * 16 * 16 + 12 * 16,
-        int8_ms(2 * conv_ops(N, 256, 256, 16, 16)))])
+        int8_ms(2 * conv_ops(N, 256, 256, 16, 16)))],
+        library=[int_mm_product(x, w), int_mm_product(z, wz)],
+        library_is=mm_words + ", once per input",
+        launch=[mma_launch("exact_dual", N, 256, 256, 16, 16)])
     del x, z
+    torch.cuda.empty_cache()
 
     # generic: the 13 mid-chain convs and the outlay of one batch
     mid_shapes = ([(128, 16, 16)] * 2 + [(128, 16, 32)] + [(64, 32, 32)] * 2 + [(64, 32, 64)]
                   + [(32, 64, 64)] * 3 + [(64, 128, 64), (64, 64, 32), (128, 64, 32),
                                           (128, 32, 16), (256, 16, 1)])
-    generic_calls = []
+    generic_calls, generic_lib = [], []
     for hw, cin, cout in mid_shapes:
         gx, gw, gs, gb = conv_args(cin, cout, (N, hw, hw))
         relu = cout != 1
+        generic_lib.append(int_mm_product(gx, gw))
         generic_calls.append((
             (lambda gx=gx, gw=gw, gs=gs, gb=gb, relu=relu: K.conv_i8_generic(gx, gw, gs, gb, relu)),
             (lambda gx=gx, gw=gw, gs=gs, gb=gb, relu=relu:
              conv_i8.conv_i8_generic_plain(gx, gw, gs, gb, relu)),
             conv_bytes(N, hw, hw, cin, cout, 4), int8_ms(conv_ops(N, hw, hw, cin, cout))))
-    check("conv_i8_generic", generic_calls, reps=5, plain_reps=1)
+    check("conv_i8_generic", generic_calls, reps=5, plain_reps=1, library=generic_lib,
+          library_is=mm_words + "; the outlay's N 1 zero-padded to 8")
     # F: the outlay with the de-normalise folded into one scale and one bias;
     # identical to the generic conv on the same operands (gx.. are the
     # outlay's, the last of mid_shapes)
@@ -420,20 +453,22 @@ def main(profile: bool = False) -> None:
     check("conv_i8_outlay", [(
         lambda: K.conv_i8_outlay(*ol_args),
         lambda: conv_i8.conv_i8_outlay_plain(*ol_args),
-        conv_bytes(N, 256, 256, 16, 1, 4), int8_ms(conv_ops(N, 256, 256, 16, 1)))])
+        conv_bytes(N, 256, 256, 16, 1, 4), int8_ms(conv_ops(N, 256, 256, 16, 1)))],
+        library=generic_lib[-1:], library_is=mm_words + "; N 1 zero-padded to 8")
     if not torch.equal(K.conv_i8_outlay(*ol_args),
                        K.conv_i8_generic(*ol_args, relu=False)[..., 0]):
         raise AssertionError("conv_i8_outlay differs from conv_i8_generic")
     log(f"kernel conv_i8_outlay: identical to conv_i8_generic; the generic call at this shape "
         f"{time_ms(torch, lambda: K.conv_i8_generic(*ol_args, relu=False), 10):.4f} ms")
-    del generic_calls, ol_args, gx, gw, gs, gb
+    del generic_calls, generic_lib, ol_args, gx, gw, gs, gb
     torch.cuda.empty_cache()
 
     # G: res.conv1 and res.conv2 (residual fused) of db1, db2, db3
-    prow_calls = []
+    prow_calls, prow_lib = [], []
     for hw, c in ((128, 16), (64, 32), (32, 64)):
         gx, gw, gs, gb = conv_args(c, c, (N, hw, hw))
         v0 = i8((N, hw, hw, c))
+        prow_lib += [int_mm_product(gx, gw)] * 2
         for res in (None, v0):
             kw = {} if res is None else dict(residual=res, res_sc=0.71)
             prow_calls.append((
@@ -442,23 +477,25 @@ def main(profile: bool = False) -> None:
                  conv_px.conv_prow_plain(gx, gw, gs, gb, **kw)),
                 conv_bytes(N, hw, hw, c, c, 1) + (0 if res is None else N * hw * hw * c),
                 int8_ms(conv_ops(N, hw, hw, c, c))))
-    check("conv_prow", prow_calls, reps=5, plain_reps=1)
-    del prow_calls
+    check("conv_prow", prow_calls, reps=5, plain_reps=1, library=prow_lib,
+          library_is=mm_words + ", once per call (no residual)")
+    del prow_calls, prow_lib
 
     # H: db1/db2 lastconv with the fused 2x2 pool
-    pool_calls = []
+    pool_calls, pool_lib = [], []
     for hw, cin, cout in ((128, 16, 32), (64, 32, 64)):
         gx, gw, gs, gb = conv_args(cin, cout, (N, hw, hw))
+        pool_lib.append(int_mm_product(gx, gw))
         pool_calls.append((
             (lambda gx=gx, gw=gw, gs=gs, gb=gb: K.conv_prow_split_pool(gx, gw, gs, gb, 0.19)),
             (lambda gx=gx, gw=gw, gs=gs, gb=gb:
              conv_px.conv_prow_split_pool_plain(gx, gw, gs, gb, 0.19)),
             conv_bytes(N, hw, hw, cin, cout, 1) + N * hw * hw * cout // 4,
             int8_ms(conv_ops(N, hw, hw, cin, cout))))
-    check("conv_prow_split_pool", pool_calls, reps=5, plain_reps=1)
-    del pool_calls
+    check("conv_prow_split_pool", pool_calls, reps=5, plain_reps=1, library=pool_lib,
+          library_is=mm_words + " (no pool)")
+    del pool_calls, pool_lib
 
-    mm_words = "torch._int_mm over the im2col'd conv, the product alone"
     up2_lib, up2_launch = {}, {}
 
     def up2_call(kernel, hw, cin, cout):
@@ -1162,9 +1199,13 @@ def main(profile: bool = False) -> None:
     meta = {
         "upsample_phases": (src + "resize_phases.cu", "sifsr_tpu/pallas/resize_phases.py:93"),
         "conv_i8_in1_split": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:732"),
-        "conv_i8_exact": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:333"),
+        "conv_i8_exact": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:333",
+                          "entry sifsr_conv_i8_exact (int8 tensor cores, the 16-channel "
+                          "tap-pair loop of csrc/conv_mma.cuh), kernel shared with "
+                          "conv_i8_exact_dual"),
         "conv_i8_exact_dual": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:395",
-                               "the dp4a dual template of csrc/conv_tile.cuh at 16 channels"),
+                               "entry sifsr_conv_i8_exact_dual: the kernel of conv_i8_exact "
+                               "with two inputs"),
         "conv_i8_in1": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:605",
                         "the kernel of conv_i8_in1_split templated on the source"),
         "conv_i8_generic": (src + "conv_i8.cu", "sifsr_tpu/models/quantized_packed.py:66"),
@@ -1238,9 +1279,12 @@ def demangle(name: str) -> str:
 
     if shutil.which("c++filt") is None:
         return name
+    import re
+
     out = subprocess.run(["c++filt", name], capture_output=True, text=True, timeout=30).stdout
-    # drop the anonymous namespace and the parameter list
-    return out.strip().split("::")[-1].split("(")[0] or name
+    # the name and template arguments, without namespace, return type and parameters
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", out)
+    return m.group(1) if m else name
 
 
 def synthetic_granule(rng):

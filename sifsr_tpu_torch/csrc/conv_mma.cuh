@@ -1,6 +1,7 @@
-// The int8 tensor-core main loop of the replicate-pad 3x3 convs, used by
-// kernels I, J, K and L in csrc/conv_px.cu; the other int8 convs keep the
-// dp4a loop of csrc/conv_tile.cuh.
+// The int8 tensor-core main loops of the replicate-pad 3x3 convs: the one of
+// kernels I, J, K and L (csrc/conv_px.cu), inputs of 32 or more channels, and
+// the 16-channel tap-pair form of kernels B and C (csrc/conv_i8.cu). The
+// other int8 convs keep the dp4a loop of csrc/conv_tile.cuh.
 //
 // Implicit GEMM on mma.sync.m16n8k32 s8 x s8 -> s32: rows are output pixels,
 // K runs over the 9 taps and the input channels in chunks of 32, N over the
@@ -19,6 +20,12 @@
 // conflict). Halos are copied by 16-byte cp.async with the replicate clamp in
 // the source address, into a ring of stages, so that a persistent block
 // loads tile t+1 while it computes tile t.
+//
+// At 16 channels (conv16_mma) a halo pixel is exactly one 16-byte ldmatrix
+// row, so K = 9 taps x 16 channels goes as tap pairs: chunk kc of the
+// m16n8k32 product takes tap 2kc in k 0-15 and tap 2kc+1 in k 16-31, and
+// tap 8 is one m16n8k16 product. The weights, 2.3 KB a conv, are few enough
+// to stay in registers as B fragments for a persistent block's whole life.
 
 #pragma once
 
@@ -62,6 +69,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
   asm volatile(
@@ -69,6 +82,15 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The k16 product: A rows 0-7 / 8-15 at k 0-15 (a[0], a[1]), B k 0-15.
+__device__ __forceinline__ void mma_s8_k16(int (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // Start the copy of the HH x HWD halo of a C-channel int8 NHWC image whose
@@ -152,6 +174,101 @@ __device__ __forceinline__ void conv_mma(int (&acc)[MT][NT][4], const int8_t* s_
   }
 }
 
+// ---- The 16-channel form
+
+// This lane's B fragments of a 16-channel conv with NT n8 output tiles: for
+// tile j, output channel 8j + (lane >> 2), input channels 4(lane & 3) + 0..3
+// of tap 2kc (pair[kc][j][0], k 0-15 of chunk kc) and tap 2kc+1 (pair[kc][j][1],
+// k 16-31), and of tap 8 (last[j], the k16 product). 9 * NT words a lane.
+template <int NT>
+struct W16Frags {
+  uint32_t pair[4][NT][2];
+  uint32_t last[NT];
+};
+
+// From HWIO int8 weights (3,3,16,8*NT) in device memory.
+template <int NT>
+__device__ __forceinline__ void load_w16(W16Frags<NT>& f, const int8_t* __restrict__ wt) {
+  constexpr int COUT = 8 * NT;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  auto word = [&](int tap, int j) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      v |= (uint32_t)(uint8_t)__ldg(wt + (tap * 16 + 4 * tq + b) * COUT + 8 * j + g) << (8 * b);
+    return v;
+  };
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      f.pair[kc][j][0] = word(2 * kc, j);
+      f.pair[kc][j][1] = word(2 * kc + 1, j);
+    }
+    f.last[j] = word(8, j);
+  }
+}
+
+// Halo pixels between a pixel and its neighbour at tap (tap / 3, tap % 3).
+template <int HWD>
+__host__ __device__ constexpr int tap_shift(int tap) {
+  return (tap / 3) * HWD + tap % 3;
+}
+
+// acc[m][j] += the 3x3 conv of a 16-channel halo (rows of 16 bytes, HWD
+// pixels a halo row, unswizzled: 8 consecutive pixels are 128 contiguous
+// bytes, conflict-free) for MT m16 pixel tiles; p0 and the C fragment as
+// conv_mma's. ldmatrix.x4 takes the row addresses of its matrices 0-1 (k
+// 0-15) from lanes 0-15 and of matrices 2-3 (k 16-31) from lanes 16-31, so
+// lanes 0-15 name the pixel shifted by tap 2kc and lanes 16-31 the pixel
+// shifted by tap 2kc+1; tap 8 goes through ldmatrix.x2 (lanes 0-15) and the
+// k16 product. An m16 tile takes 4 ldmatrix.x4, 1 ldmatrix.x2 and 5 * NT
+// products.
+template <int HWD, int MT, int NT>
+__device__ __forceinline__ void conv16_mma(int (&acc)[MT][NT][4], const int8_t* s_in,
+                                           const W16Frags<NT>& wf, const int (&p0)[MT]) {
+  const bool second = (threadIdx.x & 31) >= 16;
+  const uint32_t base = smem_u32(s_in);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const int shift = second ? tap_shift<HWD>(2 * kc + 1) : tap_shift<HWD>(2 * kc);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t a[4];
+      ldsm_x4(a, base + (p0[m] + shift) * 16);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_s8(acc[m][j], a, wf.pair[kc][j][0], wf.pair[kc][j][1]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    uint32_t a[2];
+    ldsm_x2(a, base + (p0[m] + tap_shift<HWD>(8)) * 16);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_s8_k16(acc[m][j], a, wf.last[j]);
+  }
+}
+
+// Exact conversions for the 16-channel epilogues on the float and integer
+// pipes; Hopper's conversion unit gives 16 results a clock an SM, and an
+// epilogue element needs two or three. int -> float: a 16-channel conv's
+// |acc| <= 9 * 16 * 128 * 128 = 2,359,296 < 2^22, so the bits
+// 0x4B400000 + acc are the float 1.5 * 2^23 + acc, and subtracting 1.5 * 2^23
+// is exact: __int2float_rn(acc).
+__device__ __forceinline__ float i2f_small(int v) {
+  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);
+}
+
+// requant (conv_tile.cuh) as the int8 in the low byte: [ReLU], clip to
+// [-127, 127] (before the rounding: the bounds are integers and rint is
+// monotone, so the value is the same), then rint, half to even, as the
+// round-to-nearest-even of y + 1.5 * 2^23, whose unit in the last place is 1;
+// the low byte of the sum's bits is the rounded value's two's complement.
+__device__ __forceinline__ uint32_t requant_bits(float y, bool relu) {
+  y = fminf(fmaxf(y, relu ? 0.f : -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(y, 12582912.f));
+}
+
 // Two int8 values as one 16-bit word (byte 0 first).
 __device__ __forceinline__ uint16_t pack2(int8_t a, int8_t b) {
   return (uint16_t)((uint32_t)(uint8_t)a | ((uint32_t)(uint8_t)b << 8));
@@ -182,6 +299,15 @@ int launch_persistent(void (*kern)(KArgs...), size_t smem, int n_tiles, cudaStre
   if (e != 0) return e;
   kern<<<grid, THREADS, smem, s>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// The shape query of an entry E (E::SMEM, E::kernel(), E::tiles(n, h, w)):
+// the persistent grid, shared memory a block and tiles of its launch.
+template <typename E>
+int entry_shape(int n, int h, int w, int* blocks, int* smem, int* tiles) {
+  *smem = (int)E::SMEM;
+  *tiles = E::tiles(n, h, w);
+  return persistent_grid(E::kernel(), E::SMEM, *tiles, blocks);
 }
 
 constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }

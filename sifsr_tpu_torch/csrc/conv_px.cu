@@ -482,13 +482,6 @@ struct DualEntry {
   }
 };
 
-template <typename E>
-int entry_shape(int n, int h, int w, int* blocks, int* smem, int* tiles) {
-  *smem = (int)E::SMEM;
-  *tiles = E::tiles(n, h, w);
-  return tc::persistent_grid(E::kernel(), E::SMEM, *tiles, blocks);
-}
-
 template <int CIN, int COUT, bool VPU>
 int launch_up2(const void* x, const void* wt, const void* scale, const void* bias,
                const void* rtab, const void* ctab, float inv, void* out, int n, int h, int w,
@@ -596,14 +589,14 @@ int sifsr_conv_prow_dual(const void* x, const void* z, const void* wx, const voi
 int sifsr_conv_mma_shape(int kind, int cin, int cout, int n, int h, int w, int* blocks,
                          int* smem, int* tiles) {
   if (kind == 0 && cin == 32 && cout == 32)
-    return entry_shape<DualEntry<32>>(n, h, w, blocks, smem, tiles);
+    return tc::entry_shape<DualEntry<32>>(n, h, w, blocks, smem, tiles);
   if (kind == 0 && cin == 64 && cout == 64)
-    return entry_shape<DualEntry<64>>(n, h, w, blocks, smem, tiles);
+    return tc::entry_shape<DualEntry<64>>(n, h, w, blocks, smem, tiles);
 #define SIFSR_CASE(CI, CO)                                                                  \
   if (kind == 1 && cin == CI && cout == CO)                                                 \
-    return entry_shape<Up2Entry<CI, CO, false>>(n, h, w, blocks, smem, tiles);              \
+    return tc::entry_shape<Up2Entry<CI, CO, false>>(n, h, w, blocks, smem, tiles);              \
   if (kind == 2 && cin == CI && cout == CO)                                                 \
-    return entry_shape<Up2Entry<CI, CO, true>>(n, h, w, blocks, smem, tiles);
+    return tc::entry_shape<Up2Entry<CI, CO, true>>(n, h, w, blocks, smem, tiles);
   SIFSR_UP2_SHAPES(SIFSR_CASE)
 #undef SIFSR_CASE
   return (int)cudaErrorInvalidValue;

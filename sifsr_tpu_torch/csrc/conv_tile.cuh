@@ -1,9 +1,8 @@
 // The 8x32-tile dp4a main loop of the replicate-pad 3x3 int8 convs, shared
-// by csrc/conv_i8.cu (kernels B-F, generic) and csrc/conv_px.cu
-// (kernels G-L): halo and weight loads into shared memory, the int32 inner
-// product, the float32 epilogue helpers, 16-byte int8 stores, and kernel C's
-// dual conv(concat(x, z)). Kernels I-L run on the int8 tensor cores instead
-// (conv_mma.cuh).
+// by csrc/conv_i8.cu (kernels D, E, F, the generic conv) and csrc/conv_px.cu
+// (kernels G, H): halo and weight loads into shared memory, the int32 inner
+// product, the float32 epilogue helpers and 16-byte int8 stores. Kernels B,
+// C and I-L run on the int8 tensor cores instead (conv_mma.cuh).
 //
 // One block of 256 threads per 8x32 output tile, each thread one pixel and
 // all its output channels; the (8+2)x(32+2) input halo is loaded once into
@@ -181,60 +180,6 @@ int launch(void (*kern)(KArgs...), dim3 grid, size_t smem, cudaStream_t s, Args.
 
 inline dim3 tile_grid(int n, int h, int w) {
   return dim3((w + TW - 1) / TW, (h + TH - 1) / TH, n);
-}
-
-// conv(concat(x, z)) = conv_x(x)*scale_x + conv_z(z)*scale_z + bias,
-// C + C -> C int8; the concat is never formed. Kernel C (C = 16, ub3.conv1).
-template <int C>
-__global__ void __launch_bounds__(NT)
-conv_i8_dual_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ z,
-                    const int8_t* __restrict__ wx, const int8_t* __restrict__ wz,
-                    const float* __restrict__ sx, const float* __restrict__ sz,
-                    const float* __restrict__ bias, int8_t* __restrict__ out, int h,
-                    int w, int relu) {
-  constexpr int CW = C / 4;
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* s_x = smem;
-  int32_t* s_z = s_x + HALO * CW;
-  int32_t* s_wx = s_z + HALO * CW;
-  int32_t* s_wz = s_wx + 9 * CW * C;
-  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  load_halo<C>(s_x, x, n, y0, x0, h, w);
-  load_halo<C>(s_z, z, n, y0, x0, h, w);
-  load_weights<C, C>(s_wx, wx);
-  load_weights<C, C>(s_wz, wz);
-  __syncthreads();
-  int ax[C] = {}, az[C] = {};
-  accumulate<CW, C>(ax, s_x, s_wx);
-  accumulate<CW, C>(az, s_z, s_wz);
-  const int gy = y0 + threadIdx.x / TW, gx = x0 + threadIdx.x % TW;
-  if (gy >= h || gx >= w) return;
-  int8_t* o = out + (((size_t)n * h + gy) * w + gx) * C;
-#pragma unroll
-  for (int c0 = 0; c0 < C; c0 += 16) {
-    int8_t q[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int co = c0 + j;
-      const float yx = __fmul_rn(__int2float_rn(ax[co]), __ldg(sx + co));
-      const float yz = __fmul_rn(__int2float_rn(az[co]), __ldg(sz + co));
-      q[j] = requant(__fadd_rn(__fadd_rn(yx, yz), __ldg(bias + co)), relu);
-    }
-    store16(o + c0, q);
-  }
-}
-
-template <int C>
-int launch_dual(const void* x, const void* z, const void* wx, const void* wz, const void* sx,
-                const void* sz, const void* bias, void* out, int n, int h, int w, int relu,
-                cudaStream_t s) {
-  constexpr int CW = C / 4;
-  const size_t smem = (size_t)(2 * HALO * CW + 2 * 9 * CW * C) * sizeof(int32_t);
-  return launch(conv_i8_dual_kernel<C>, tile_grid(n, h, w), smem, s,
-                static_cast<const int8_t*>(x), static_cast<const int8_t*>(z),
-                static_cast<const int8_t*>(wx), static_cast<const int8_t*>(wz),
-                static_cast<const float*>(sx), static_cast<const float*>(sz),
-                static_cast<const float*>(bias), static_cast<int8_t*>(out), h, w, relu);
 }
 
 }  // namespace

@@ -1,6 +1,9 @@
 """Kernels B-F and the generic int8 conv: replicate-pad 3x3 int8 convs.
 
-Counterparts, CUDA source ``csrc/conv_i8.cu``:
+Counterparts, CUDA source ``csrc/conv_i8.cu``; B and C run on the int8
+tensor cores (the 16-channel loop of ``csrc/conv_mma.cuh``, persistent
+blocks whose grid and shared memory ``conv_px.tensor_core_launch`` gives),
+the others on the dp4a loop of ``csrc/conv_tile.cuh``:
 
 - ``conv_i8_exact`` (B): ``sifsr_tpu/pallas/conv_i8.py::conv_i8_exact``,
   16 -> 16 with the optional fused phase mean (inbloc.conv2, ub3.conv2);
@@ -133,11 +136,21 @@ def _stream(x: torch.Tensor) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = _build.load("conv_i8")
+    return bind(_build.load("conv_i8"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points of ``csrc/conv_i8.cu`` on a loaded library:
+    the built one, or one built from a variant of the source
+    (``kernels/tc_variants.py``)."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(i)
+    lib.sifsr_error_string.argtypes = [i]
+    lib.sifsr_error_string.restype = ctypes.c_char_p
     sigs = {
         "sifsr_conv_i8_exact": [vp, vp, vp, vp, vp, vp, f, i, i, i, i, vp],
         "sifsr_conv_i8_exact_dual": [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp],
+        "sifsr_conv_i8_mma_shape": [i, i, i, i, ip, ip, ip],
         "sifsr_conv_i8_in1_split": [vp, vp, vp, vp, vp, vp, i, i, i, i, vp],
         "sifsr_conv_i8_in1": [vp, vp, vp, vp, vp, i, i, i, i, vp],
         "sifsr_conv_i8_outlay": [vp, vp, vp, vp, vp, i, i, i, vp],

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from sifsr_tpu_torch.kernels import _build
+from sifsr_tpu_torch.kernels.conv_i8 import _lib as _conv_i8_lib
 from sifsr_tpu_torch.kernels.conv_i8 import (
     _check,
     _dequant,
@@ -236,17 +237,27 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _MMA_KINDS = {"dual": 0, "up2": 1, "up2_vpu": 2}
+# B and C (csrc/conv_i8.cu, 16 channels in and out)
+_MMA16_KINDS = {"exact": 0, "exact_pm": 1, "exact_dual": 2}
 
 
 def tensor_core_launch(kind: str, n: int, h: int, w: int, cin: int, cout: int) -> dict:
     """The launch the tensor-core entry ``kind`` ('dual': J and L, 'up2': I
-    and K, 'up2_vpu': their float32 chain) makes for an (n,h,w,cin) input:
-    {'blocks': persistent grid, 'smem_bytes': dynamic shared memory a block,
-    'tiles': output tiles the blocks walk}. Needs the card."""
-    lib = _lib()
+    and K, 'up2_vpu': their float32 chain; 'exact', 'exact_pm': B without
+    and with the phase mean, 'exact_dual': C, at 16 channels) makes for an
+    (n,h,w,cin) input: {'blocks': persistent grid, 'smem_bytes': dynamic
+    shared memory a block, 'tiles': output tiles the blocks walk}. Needs the
+    card."""
     out = [ctypes.c_int(0) for _ in range(3)]
-    code = lib.sifsr_conv_mma_shape(_MMA_KINDS[kind], cin, cout, n, h, w,
-                                    *(ctypes.byref(v) for v in out))
+    refs = [ctypes.byref(v) for v in out]
+    if kind in _MMA16_KINDS:
+        if (cin, cout) != (16, 16):
+            raise ValueError(f"{kind} takes 16 -> 16 channels, got {cin} -> {cout}")
+        lib = _conv_i8_lib()
+        code = lib.sifsr_conv_i8_mma_shape(_MMA16_KINDS[kind], n, h, w, *refs)
+    else:
+        lib = _lib()
+        code = lib.sifsr_conv_mma_shape(_MMA_KINDS[kind], cin, cout, n, h, w, *refs)
     _build.check(lib, code, f"tensor_core_launch({kind})")
     return dict(zip(("blocks", "smem_bytes", "tiles"), (v.value for v in out)))
 

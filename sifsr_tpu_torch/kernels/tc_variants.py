@@ -1,12 +1,14 @@
-"""Where the time of the tensor-core convs (kernels I, J, K, L) goes, on the card.
+"""Where the time of the tensor-core convs (kernels B, C, I, J, K, L) goes, on the card.
 
     python -m sifsr_tpu_torch.kernels.tc_variants [--reps 7]
 
-Builds ``csrc/conv_px.cu`` as it is and in variants made by editing its
-source text (each edit must match exactly once), then times kernels J (both
-shapes), I (both shapes, both x2 tables) and K (both tables) at the serving
-shapes (batch 324), every variant in turns within one process (in order, then
-in reverse):
+Builds ``csrc/conv_px.cu`` and ``csrc/conv_i8.cu`` as they are and in
+variants made by editing the source text (each edit must match exactly
+once; a variant rebuilds the sources its edits touch, every source for an
+edited header), then times kernels B (with and without the phase mean), C,
+J (both shapes), I (both shapes, both x2 tables) and K (both tables) at the
+serving shapes (batch 324), every variant in turns within one process (in
+order, then in reverse):
 
 - ``built``: the source as it is;
 - ``one_block``: one block an SM (registers uncapped) and 16-row source tiles
@@ -14,6 +16,16 @@ in reverse):
 - ``m_seq``: J's warps accumulate the two m16 tiles of their row one after
   the other rather than together (half the accumulators, twice the B
   fragment loads);
+- ``c16_rows``: B on 16-row output tiles (two rows a warp) in place of
+  32-row ones, C on 32-row tiles in place of 16-row ones: the other tiling;
+- ``c16_ring4``: B and C with four halo stages in place of three (one more
+  tile's input in flight a block);
+- ``c16_two_rows``: B's warps take two of their rows at a time (four m16
+  tiles, twice the independent accumulator chains and registers) in place
+  of one;
+- ``cvt``: B's and C's epilogue with the conversion instructions
+  (``__int2float_rn``, ``rintf`` and the float-to-int cast) in place of the
+  exact float and integer forms: the same values, another unit;
 - ``no_mma``: each tensor-core product replaced by one integer operation on
   the same fragments (the ldmatrix loads stay): the time without the
   tensor-core work;
@@ -24,7 +36,10 @@ in reverse):
   arithmetic. J has no x2; its ``no_x2`` row is the built code again, a
   reading of the noise.
 
-The outputs of ``built``, ``one_block`` and ``m_seq`` are checked against the plain
+A variant that leaves a kernel's code as built (the ``c16_*`` and ``cvt``
+rows of I-L, the ``one_block``, ``m_seq`` and ``no_x2`` rows of B and C)
+reads the noise. The outputs of ``built``, ``one_block``, ``m_seq``,
+``c16_rows``, ``c16_ring4``, ``c16_two_rows`` and ``cvt`` are checked against the plain
 versions; the other variants' outputs are meaningless and only timed. Prints
 a line per kernel and variant and, last, one JSON object of the times with
 the card's name and power limit. Needs the card and nvcc.
@@ -42,10 +57,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-from sifsr_tpu_torch.kernels import _build, conv_px
+from sifsr_tpu_torch.kernels import _build, conv_i8, conv_px
 
 N = 324
-VARIANTS = ("built", "one_block", "m_seq", "no_mma", "no_halo", "no_x2")
+VARIANTS = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "cvt",
+            "no_mma", "no_halo", "no_x2")
+CHECKED = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "cvt")
+SOURCES = ("conv_px.cu", "conv_i8.cu", "conv_mma.cuh", "conv_tile.cuh")
 
 # J's two m16 tiles a warp, accumulated together (as built) or one after
 # the other (m_seq)
@@ -121,6 +139,27 @@ _EDITS = {
          "  const int p0[2] = {row * L::HWD + tc::a_row(), "
          "row * L::HWD + 16 + tc::a_row()};\n", ""),
     ],
+    "c16_rows": [
+        ("conv_i8.cu", "constexpr int c16_rows(int nin) { return nin == 1 ? 32 : 16; }",
+         "constexpr int c16_rows(int nin) { return nin == 1 ? 16 : 32; }"),
+    ],
+    "c16_ring4": [
+        ("conv_i8.cu", "constexpr int C16_RING = 3;", "constexpr int C16_RING = 4;"),
+    ],
+    "c16_two_rows": [
+        ("conv_i8.cu", "constexpr int c16_rows_a_pass(int) { return 1; }",
+         "constexpr int c16_rows_a_pass(int nin) { return nin == 1 ? 2 : 1; }"),
+    ],
+    "cvt": [
+        ("conv_mma.cuh",
+         "  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);",
+         "  return __int2float_rn(v);"),
+        ("conv_mma.cuh",
+         """  y = fminf(fmaxf(y, relu ? 0.f : -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(y, 12582912.f));""",
+         """  if (relu) y = fmaxf(y, 0.f);
+  return (uint32_t)(uint8_t)(int8_t)(int)fminf(fmaxf(rintf(y), -127.f), 127.f);"""),
+    ],
     "no_mma": [
         ("conv_mma.cuh",
          '''  asm volatile(
@@ -132,6 +171,14 @@ _EDITS = {
   d[1] += (int)(a[1] ^ b1);
   d[2] += (int)a[2];
   d[3] += (int)a[3];'''),
+        ("conv_mma.cuh",
+         '''  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));''',
+         '''  d[0] += (int)(a[0] ^ b);
+  d[1] += (int)a[1];'''),
     ],
     "no_halo": [
         ("conv_mma.cuh",
@@ -154,12 +201,12 @@ _EDITS = {
 }
 
 
-def build_variants() -> dict[str, ctypes.CDLL]:
-    """Write and compile every variant in parallel; returns the bound libraries."""
+def build_variants() -> dict[str, dict]:
+    """Write and compile every variant in parallel; returns, for each, the
+    bound libraries {'conv_px': ..., 'conv_i8': ...} (the built ones where
+    the variant leaves a source as it is)."""
     root = _build.BUILD_DIR / "variants"
-    sources = {p.name: p.read_text() for p in
-               (_build.CSRC / "conv_px.cu", _build.CSRC / "conv_mma.cuh",
-                _build.CSRC / "conv_tile.cuh")}
+    sources = {name: (_build.CSRC / name).read_text() for name in SOURCES}
     procs = {}
     for name, edits in _EDITS.items():
         texts = dict(sources)
@@ -167,21 +214,36 @@ def build_variants() -> dict[str, ctypes.CDLL]:
             if texts[fname].count(old) != 1:
                 raise RuntimeError(f"variant {name}: the edit of {fname} does not match once")
             texts[fname] = texts[fname].replace(old, new)
+        touched = {fname for fname, _, _ in edits}
+        rebuild = [f for f in SOURCES if f.endswith(".cu") and
+                   (name == "built" or f in touched or any(t.endswith(".cuh") for t in touched))]
         d = root / name
         d.mkdir(parents=True, exist_ok=True)
         for fname, text in texts.items():
             (d / fname).write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "conv_px.so"),
-               str(d / "conv_px.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    libs = {}
-    for name, proc in procs.items():
+        for f in rebuild:
+            lib = d / f.replace(".cu", ".so")
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(d / f)]
+            procs[name, f] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True))
+    paths = {}
+    for (name, f), (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc of variant {name} failed:\n{log}")
-        libs[name] = conv_px.bind(ctypes.CDLL(str(root / name / "conv_px.so")))
+            raise RuntimeError(f"nvcc of {f} in variant {name} failed:\n{log}")
+        paths[name, f] = lib
+    binders = {"conv_px.cu": conv_px.bind, "conv_i8.cu": conv_i8.bind}
+    libs = {}
+    for name in _EDITS:
+        libs[name] = {f[:-3]: binders[f](ctypes.CDLL(str(paths.get((name, f), paths["built", f]))))
+                      for f in binders}
     return libs
+
+
+def _same(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -208,6 +270,18 @@ def _cases(dev, rng):
         return [torch.from_numpy(a).to(dev) for a in
                 (x, w, (40.0 / acc_rms).astype(np.float32),
                  rng.normal(0.0, 4.0, cout).astype(np.float32))]
+
+    b_args = conv_args(16, 16, 256)
+    pm = float(np.float32(0.9) / np.float32(4.0))
+    yield ("B 16ch 256² phase mean", lambda a=b_args: conv_i8.conv_i8_exact(*a, pm_scale=pm),
+           lambda a=b_args: conv_i8.conv_i8_exact_plain(*a, pm_scale=pm))
+    yield ("B 16ch 256²", lambda a=b_args: conv_i8.conv_i8_exact(*a),
+           lambda a=b_args: conv_i8.conv_i8_exact_plain(*a))
+    x, wx, sx, b = b_args
+    z, wz, sz, _ = conv_args(16, 16, 256)
+    c_args = (x, z, wx, wz, sx, sz, b)
+    yield ("C 16ch 256²", lambda a=c_args: conv_i8.conv_i8_exact_dual(*a),
+           lambda a=c_args: conv_i8.conv_i8_exact_dual_plain(*a))
 
     for hw, c in ((64, 64), (128, 32)):
         x, wx, sx, b = conv_args(c, c, hw)
@@ -241,10 +315,10 @@ def main(reps: int = 7) -> None:
         want = plain()
         times = {v: [] for v in VARIANTS}
         for v in VARIANTS + VARIANTS[::-1]:
-            with mock.patch.object(conv_px, "_lib", lambda lib=libs[v]: lib):
-                if v in ("built", "one_block", "m_seq") and not times[v]:
-                    if not torch.equal(kern(), want):
-                        raise AssertionError(f"{name}: variant {v} differs from the plain version")
+            with mock.patch.object(conv_px, "_lib", lambda lib=libs[v]["conv_px"]: lib), \
+                    mock.patch.object(conv_i8, "_lib", lambda lib=libs[v]["conv_i8"]: lib):
+                if v in CHECKED and not times[v] and not _same(kern(), want):
+                    raise AssertionError(f"{name}: variant {v} differs from the plain version")
                 times[v].append(_time_ms(kern, reps))
         del want
         result[name] = times

@@ -70,6 +70,87 @@ def test_conv_i8_dual_and_in1_cuda(rng, cuda):
     assert torch.equal(conv_i8.conv_i8_in1_split(*args), conv_i8.conv_i8_in1_split_plain(*args))
 
 
+# Tilings of kernels B and C on the int8 tensor cores (32x32 output tiles for
+# B, 16x32 for C, persistent grids of k x the SM count): batch 1, H and W off
+# the tile (even, as the phase mean needs; odd without it), and a batch whose
+# tiles outnumber the grid by a remainder (13 x 64 and 13 x 128 tiles).
+EXACT_SHAPES = [(1, 64, 64), (2, 66, 130), (2, 66, 100), (13, 256, 256)]
+EXACT_CASES = [(*s, pm) for s in EXACT_SHAPES for pm in (None, 0.17)] + [(3, 37, 45, None)]
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, wnt in zip(got, want):
+        assert g.shape == wnt.shape and torch.equal(g, wnt)
+
+
+@pytest.mark.parametrize("n,h,w,pm", EXACT_CASES)
+def test_conv_i8_exact_tilings_cuda(rng, cuda, n, h, w, pm):
+    """Kernel B, with and without the fused phase mean, bit for bit against
+    its plain version where a tiling breaks; one launch a call."""
+    args = _conv_args(rng, cuda, n, h, w, 16, 16)
+    conv_i8.conv_i8_exact.launches = 0
+    got = conv_i8.conv_i8_exact(*args, pm_scale=pm)
+    torch.cuda.synchronize()
+    assert conv_i8.conv_i8_exact.launches == 1
+    _same(got, conv_i8.conv_i8_exact_plain(*args, pm_scale=pm))
+
+
+@pytest.mark.parametrize("pm", [None, 0.17])
+@pytest.mark.parametrize("mode", ["mixed", "max"])
+def test_conv_i8_exact_saturating_cuda(rng, cuda, mode, pm):
+    """Kernel B with every input and weight at +-127 (accumulators up to
+    9 * 16 * 127^2 = 2,322,576)."""
+    args = _sat_args(rng, cuda, 2, 40, 36, 16, 16, mode)
+    got = conv_i8.conv_i8_exact(*args, pm_scale=pm)
+    torch.cuda.synchronize()
+    want = conv_i8.conv_i8_exact_plain(*args, pm_scale=pm)
+    _same(got, want)
+    assert float((want[0] if pm else want).float().abs().mean()) > 2.0
+
+
+@pytest.mark.parametrize("n,h,w", EXACT_SHAPES + [(3, 37, 45)])
+def test_conv_i8_exact_dual_tilings_cuda(rng, cuda, n, h, w):
+    """Kernel C, bit for bit against its plain version where a tiling
+    breaks; one launch a call."""
+    x, wx, sx, b = _conv_args(rng, cuda, n, h, w, 16, 16)
+    z, wz, sz, _ = _conv_args(rng, cuda, n, h, w, 16, 16)
+    conv_i8.conv_i8_exact_dual.launches = 0
+    got = conv_i8.conv_i8_exact_dual(x, z, wx, wz, sx, sz, b)
+    torch.cuda.synchronize()
+    assert conv_i8.conv_i8_exact_dual.launches == 1
+    _same(got, conv_i8.conv_i8_exact_dual_plain(x, z, wx, wz, sx, sz, b))
+
+
+@pytest.mark.parametrize("mode", ["mixed", "max"])
+def test_conv_i8_exact_dual_saturating_cuda(rng, cuda, mode):
+    """Kernel C with every input and weight at +-127, both inputs."""
+    x, wx, sx, b = _sat_args(rng, cuda, 3, 40, 36, 16, 16, mode)
+    z, wz, sz, _ = _sat_args(rng, cuda, 3, 40, 36, 16, 16, mode)
+    got = conv_i8.conv_i8_exact_dual(x, z, wx, wz, sx, sz, b)
+    torch.cuda.synchronize()
+    want = conv_i8.conv_i8_exact_dual_plain(x, z, wx, wz, sx, sz, b)
+    _same(got, want)
+    assert float(want.float().abs().mean()) > 2.0
+
+
+@pytest.mark.parametrize("kind", ["exact", "exact_pm", "exact_dual"])
+def test_conv_i8_exact_launch_cuda(cuda, kind):
+    """B's and C's persistent grids at the serving shape (324 x 256²: 20,736
+    tiles of 32x32 for B, 41,472 of 16x32 for C): a whole number of blocks on
+    every SM, within the card's shared memory; one block for one tile."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = conv_px.tensor_core_launch(kind, 324, 256, 256, 16, 16)
+    assert got["tiles"] == 324 * (256 // (16 if kind == "exact_dual" else 32)) * 8
+    assert 0 < got["smem_bytes"] <= 232448, got
+    assert got["blocks"] % sms == 0 and got["blocks"] < got["tiles"], got
+    assert conv_px.tensor_core_launch(kind, 1, 16, 32, 16, 16)["blocks"] == 1
+    with pytest.raises(ValueError):
+        conv_px.tensor_core_launch(kind, 1, 16, 32, 32, 32)
+
+
 @pytest.mark.parametrize("cin,cout", [(4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
                                       (128, 64), (64, 32), (32, 16), (16, 1)])
 def test_conv_i8_generic_cuda(rng, cuda, cin, cout):

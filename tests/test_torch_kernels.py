@@ -68,12 +68,27 @@ def test_upsample_phases_matches_pallas(rng, factor, kind, size, c, quantise):
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("with_pm", [True, False])
-def test_conv_i8_exact_matches_pallas(rng, with_pm):
-    """Kernel B (inbloc.conv2 with the fused phase mean; ub3.conv2 without)."""
-    x = rng.integers(-127, 128, (N, H, H, 16)).astype(np.int8)
-    w = rng.integers(-40, 41, (3, 3, 16, 16)).astype(np.int8)
-    scale, bias = _scales(rng)
+def _b_operands(rng, sat):
+    """x (N,H,H,16) and w (3,3,16,16) int8 with scale/bias; saturating: every
+    input and weight at +-127 (random signs; accumulators of 127^2 *
+    sqrt(144) typically, up to 2,322,576), scales that keep the outputs
+    mid-range."""
+    if not sat:
+        return (rng.integers(-127, 128, (N, H, H, 16)).astype(np.int8),
+                rng.integers(-40, 41, (3, 3, 16, 16)).astype(np.int8), *_scales(rng))
+    x = (127 * rng.choice([-1, 1], (N, H, H, 16))).astype(np.int8)
+    w = (127 * rng.choice([-1, 1], (3, 3, 16, 16))).astype(np.int8)
+    scale = (40.0 / (127.0 ** 2 * 12.0) * (0.5 + rng.random(16))).astype(np.float32)
+    return x, w, scale, rng.normal(0.0, 5.0, 16).astype(np.float32)
+
+
+@pytest.mark.parametrize("with_pm,sat", [(True, False), (False, False), (True, True),
+                                         (False, True)],
+                         ids=["True", "False", "saturating-True", "saturating-False"])
+def test_conv_i8_exact_matches_pallas(rng, with_pm, sat):
+    """Kernel B (inbloc.conv2 with the fused phase mean; ub3.conv2 without),
+    also with every input and weight at +-127."""
+    x, w, scale, bias = _b_operands(rng, sat)
     wm, wc = pallas_conv.pack_row_tap_weights(_pack_i8(w))
     phase_mean = np.float32(0.7)
     out = pallas_conv.conv_i8_exact(
@@ -92,22 +107,22 @@ def test_conv_i8_exact_matches_pallas(rng, with_pm):
         np.testing.assert_array_equal(got[1].numpy(), pm_want)
 
 
-def test_conv_i8_exact_dual_matches_pallas(rng):
-    """Kernel C (ub3.conv1 over concat(up, s0), concat never formed)."""
-    x = rng.integers(-127, 128, (N, H, H, 16)).astype(np.int8)
-    z = rng.integers(-127, 128, (N, H, H, 16)).astype(np.int8)
-    wx = rng.integers(-40, 41, (3, 3, 16, 16)).astype(np.int8)
-    wz = rng.integers(-40, 41, (3, 3, 16, 16)).astype(np.int8)
-    sx, bias = _scales(rng)
-    sz, _ = _scales(rng)
+@pytest.mark.parametrize("sat", [False, True], ids=["random", "saturating"])
+def test_conv_i8_exact_dual_matches_pallas(rng, sat):
+    """Kernel C (ub3.conv1 over concat(up, s0), concat never formed), also
+    with every input and weight of both halves at +-127."""
+    x, wx, sx, bias = _b_operands(rng, sat)
+    z, wz, sz, _ = _b_operands(rng, sat)
     wmx, wcx = pallas_conv.pack_row_tap_weights(_pack_i8(wx))
     wmz, wcz = pallas_conv.pack_row_tap_weights(_pack_i8(wz))
     want = pallas_conv.conv_i8_exact_dual(
         _s2d(x), _s2d(z), *map(jnp.asarray, (wmx, wcx, wmz, wcz, np.tile(sx, 8),
                                              np.tile(sz, 8), np.tile(bias, 8))),
         H // 2, H // 2, interpret=True)
+    want = np.asarray(_depth_to_space(want, 16))
     got = conv_i8_exact_dual(*map(torch.from_numpy, (x, z, wx, wz, sx, sz, bias)))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(_depth_to_space(want, 16)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.abs(want.astype(int)).mean() > 5
 
 
 def test_conv_i8_in1_split_matches_pallas(rng):
