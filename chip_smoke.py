@@ -8,7 +8,7 @@ Phases, each of which raises on failure (no result line is printed then):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every ``sifsr_tpu_torch/csrc/*.cu`` by nvcc for sm_90a, in
    parallel; ptxas's registers, spills and stack of the tensor-core kernels
-   (B, C, I, J, K, L);
+   (B, C, G-L: 19 instances);
 3. kernels: each hand-written kernel of the int8 serving paths at the
    shapes the paths give it (batch 324), held against its plain PyTorch
    version on the same seeded inputs: the outputs must be identical (int8 and
@@ -25,8 +25,8 @@ Phases, each of which raises on failure (no result line is printed then):
    and L; K and N zero-padded to _int_mm's multiples of 8 where a shape
    needs it, D's K = 18 to 24 and the outlay's N = 1 to 8; the im2col is
    built beforehand and the yardstick checked against the exact conv on one
-   image), and for B, C, I, J, K and L their persistent grid and shared
-   memory a block. The
+   image), and for B, C and G-L their persistent grid and shared memory a
+   block. The
    float kernels of the training losses at training batch 32:
    fused_psf_downscale forward at (32,256,256) and backward (32,64,64) ->
    (32,256,256) within max|d| 1e-5 of the plain version evaluated in
@@ -212,14 +212,15 @@ def main(profile: bool = False) -> None:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    ptxas = {r["kernel"]: r for name in ("conv_px", "conv_i8")
+    # (library, mangled name): the 16-channel kernel is instantiated in both
+    ptxas = {(name, r["kernel"]): r for name in ("conv_px", "conv_i8")
              for r in _build.ptxas_report(name) if "_mma_kernel" in r["kernel"]}
-    for mangled, r in ptxas.items():
-        log(f"ptxas {demangle(mangled)}: {r['registers']} registers, {r['spill_stores']} B spill "
-            f"stores, {r['spill_loads']} B spill loads, {r['stack']} B stack, "
+    for (name, mangled), r in ptxas.items():
+        log(f"ptxas {name} {demangle(mangled)}: {r['registers']} registers, {r['spill_stores']} B "
+            f"spill stores, {r['spill_loads']} B spill loads, {r['stack']} B stack, "
             f"{r['smem_static']} B static shared memory")
-    if len(ptxas) != 11:
-        raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 11")
+    if len(ptxas) != 19:
+        raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 19")
 
     # 3. kernels vs plain versions at serving shapes
     rng = np.random.default_rng(0)
@@ -335,12 +336,18 @@ def main(profile: bool = False) -> None:
         """The persistent launch of a tensor-core entry, with ptxas's account
         of its kernel, logged."""
         got = conv_px.tensor_core_launch(kind, n, h, w, cin, cout)
-        # template arguments as the mangled names spell them
+        # the library and the template arguments as the mangled names spell them
+        res, pool = int(kind == "prow_res"), int(kind == "pool")
         key = {"dual": f"conv_dual_mma_kernelILi{cin}E",
-               "exact": "conv16_mma_kernelILi1ELb0E", "exact_pm": "conv16_mma_kernelILi1ELb1E",
-               "exact_dual": "conv16_mma_kernelILi2ELb0E"}.get(
-            kind, f"conv_up2_mma_kernelILi{cin}ELi{cout}ELb{int(kind == 'up2_vpu')}E")
-        (mangled, rep), = [(k, v) for k, v in ptxas.items() if key in k]
+               "up2": f"conv_up2_mma_kernelILi{cin}ELi{cout}ELb0E",
+               "up2_vpu": f"conv_up2_mma_kernelILi{cin}ELi{cout}ELb1E",
+               "exact": "conv16_mma_kernelILi1ELi16ELb0ELb0E",
+               "exact_pm": "conv16_mma_kernelILi1ELi16ELb1ELb0E",
+               "exact_dual": "conv16_mma_kernelILi2ELi16ELb0ELb0E"}.get(
+            kind, (f"conv16_mma_kernelILi1ELi{cout}ELb{pool}ELb{res}E" if cin == 16 else
+                   f"conv_prow_mma_kernelILi{cin}ELi{cout}ELb{res}ELb{pool}E"))
+        lib = "conv_i8" if kind.startswith("exact") else "conv_px"
+        (mangled, rep), = [(k, v) for (name, k), v in ptxas.items() if name == lib and key in k]
         kname = demangle(mangled)
         got.update(kernel=kname, registers=rep["registers"], spill_stores=rep["spill_stores"],
                    spill_loads=rep["spill_loads"])
@@ -464,11 +471,12 @@ def main(profile: bool = False) -> None:
     torch.cuda.empty_cache()
 
     # G: res.conv1 and res.conv2 (residual fused) of db1, db2, db3
-    prow_calls, prow_lib = [], []
+    prow_calls, prow_lib, prow_launch = [], [], []
     for hw, c in ((128, 16), (64, 32), (32, 64)):
         gx, gw, gs, gb = conv_args(c, c, (N, hw, hw))
         v0 = i8((N, hw, hw, c))
         prow_lib += [int_mm_product(gx, gw)] * 2
+        prow_launch += [mma_launch(k, N, hw, hw, c, c) for k in ("prow", "prow_res")]
         for res in (None, v0):
             kw = {} if res is None else dict(residual=res, res_sc=0.71)
             prow_calls.append((
@@ -478,14 +486,15 @@ def main(profile: bool = False) -> None:
                 conv_bytes(N, hw, hw, c, c, 1) + (0 if res is None else N * hw * hw * c),
                 int8_ms(conv_ops(N, hw, hw, c, c))))
     check("conv_prow", prow_calls, reps=5, plain_reps=1, library=prow_lib,
-          library_is=mm_words + ", once per call (no residual)")
+          library_is=mm_words + ", once per call (no residual)", launch=prow_launch)
     del prow_calls, prow_lib
 
     # H: db1/db2 lastconv with the fused 2x2 pool
-    pool_calls, pool_lib = [], []
+    pool_calls, pool_lib, pool_launch = [], [], []
     for hw, cin, cout in ((128, 16, 32), (64, 32, 64)):
         gx, gw, gs, gb = conv_args(cin, cout, (N, hw, hw))
         pool_lib.append(int_mm_product(gx, gw))
+        pool_launch.append(mma_launch("pool", N, hw, hw, cin, cout))
         pool_calls.append((
             (lambda gx=gx, gw=gw, gs=gs, gb=gb: K.conv_prow_split_pool(gx, gw, gs, gb, 0.19)),
             (lambda gx=gx, gw=gw, gs=gs, gb=gb:
@@ -493,7 +502,7 @@ def main(profile: bool = False) -> None:
             conv_bytes(N, hw, hw, cin, cout, 1) + N * hw * hw * cout // 4,
             int8_ms(conv_ops(N, hw, hw, cin, cout))))
     check("conv_prow_split_pool", pool_calls, reps=5, plain_reps=1, library=pool_lib,
-          library_is=mm_words + " (no pool)")
+          library_is=mm_words + " (no pool)", launch=pool_launch)
     del pool_calls, pool_lib
 
     up2_lib, up2_launch = {}, {}
@@ -1201,8 +1210,8 @@ def main(profile: bool = False) -> None:
         "conv_i8_in1_split": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:732"),
         "conv_i8_exact": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:333",
                           "entry sifsr_conv_i8_exact (int8 tensor cores, the 16-channel "
-                          "tap-pair loop of csrc/conv_mma.cuh), kernel shared with "
-                          "conv_i8_exact_dual"),
+                          "kernel of csrc/conv16.cuh), kernel shared with conv_i8_exact_dual "
+                          "and, at 16 input channels, conv_prow and conv_prow_split_pool"),
         "conv_i8_exact_dual": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:395",
                                "entry sifsr_conv_i8_exact_dual: the kernel of conv_i8_exact "
                                "with two inputs"),
@@ -1210,8 +1219,13 @@ def main(profile: bool = False) -> None:
                         "the kernel of conv_i8_in1_split templated on the source"),
         "conv_i8_generic": (src + "conv_i8.cu", "sifsr_tpu/models/quantized_packed.py:66"),
         "conv_i8_outlay": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:464"),
-        "conv_prow": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:335"),
-        "conv_prow_split_pool": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:488"),
+        "conv_prow": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:335",
+                      "entry sifsr_conv_prow (int8 tensor cores: at 16 channels the kernel "
+                      "of conv_i8_exact, csrc/conv16.cuh; at 32 and 64 conv_prow_mma_kernel), "
+                      "shared with conv_prow_split_pool"),
+        "conv_prow_split_pool": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:488",
+                                 "entry sifsr_conv_prow_split_pool: the kernels of conv_prow "
+                                 "with the 2x2 pool"),
         "conv_prow_up2": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:971",
                           "entry sifsr_conv_prow_up2 (int8 tensor cores, main loop "
                           "csrc/conv_mma.cuh), shared with conv_prow_up2_pack"),

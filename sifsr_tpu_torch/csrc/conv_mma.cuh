@@ -1,7 +1,9 @@
 // The int8 tensor-core main loops of the replicate-pad 3x3 convs: the one of
-// kernels I, J, K and L (csrc/conv_px.cu), inputs of 32 or more channels, and
-// the 16-channel tap-pair form of kernels B and C (csrc/conv_i8.cu). The
-// other int8 convs keep the dp4a loop of csrc/conv_tile.cuh.
+// inputs of 32 or more channels (kernels G and H at db2/db3, I, J, K and L in
+// csrc/conv_px.cu), and the 16-channel tap-pair form (the kernel of
+// csrc/conv16.cuh: B and C in csrc/conv_i8.cu, G and H at db1). The other
+// int8 convs (D, E, F, the generic conv) keep the dp4a loop of
+// csrc/conv_tile.cuh.
 //
 // Implicit GEMM on mma.sync.m16n8k32 s8 x s8 -> s32: rows are output pixels,
 // K runs over the 9 taps and the input channels in chunks of 32, N over the
@@ -110,17 +112,32 @@ __device__ __forceinline__ void load_halo_async(int8_t* s, const int8_t* __restr
 }
 
 // HWIO int8 weights (3,3,CIN,COUT) -> swizzled rows (tap * COUT + cout) of
-// CIN bytes; consecutive threads read consecutive output channels.
+// CIN bytes; consecutive threads read consecutive output channels. Each
+// thread has the loads of WB words in flight before it stores them, so that
+// a block's prologue waits for device memory a few times, not once a word.
 template <int CIN, int COUT>
 __device__ __forceinline__ void load_weights_rows(int8_t* s, const int8_t* __restrict__ wt) {
   constexpr int CH = CIN / 16, WPR = CIN / 4;  // chunks, 4-byte words per row
-  for (int i = threadIdx.x; i < 9 * COUT * WPR; i += THREADS) {
-    const int co = i % COUT, t = i / COUT, wd = t % WPR, tap = t / WPR;
-    uint32_t word = 0;
+  constexpr int WORDS = 9 * COUT * WPR, WB = 6;
+  for (int i0 = threadIdx.x; i0 < WORDS; i0 += WB * THREADS) {
+    uint32_t word[WB];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      word |= (uint32_t)(uint8_t)__ldg(wt + (tap * CIN + wd * 4 + j) * COUT + co) << (8 * j);
-    *reinterpret_cast<uint32_t*>(s + swz<CH>(tap * COUT + co, wd / 4) * 16 + (wd % 4) * 4) = word;
+    for (int b = 0; b < WB; ++b) {
+      const int i = i0 + b * THREADS, co = i % COUT, t = i / COUT, wd = t % WPR, tap = t / WPR;
+      word[b] = 0;
+      if (i < WORDS) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          word[b] |= (uint32_t)(uint8_t)__ldg(wt + (tap * CIN + wd * 4 + j) * COUT + co) << (8 * j);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < WB; ++b) {
+      const int i = i0 + b * THREADS, co = i % COUT, t = i / COUT, wd = t % WPR, tap = t / WPR;
+      if (i < WORDS)
+        *reinterpret_cast<uint32_t*>(s + swz<CH>(tap * COUT + co, wd / 4) * 16 + (wd % 4) * 4) =
+            word[b];
+    }
   }
 }
 

@@ -36,11 +36,21 @@
 //   J: requant(relu(acc_x*sc_x + acc_z*sc_z + b)).
 //
 // Bound on the H100: memory at the serving shapes (int8 tensors of 1-5 MB
-// per image against a few tens of M int8 multiply-adds). G and H keep the
-// 8x32-tile dp4a main loop of conv_tile.cuh. I, J, K and L run on the int8
-// tensor cores (the main loop of conv_mma.cuh), in persistent blocks that
-// load their weights into shared memory once and stream input halos through
-// a two-stage cp.async ring:
+// per image against a few tens of M int8 multiply-adds). All of them run on
+// the int8 tensor cores (the main loops of conv_mma.cuh), in persistent
+// blocks that keep their weights on chip and stream input halos through a
+// cp.async ring:
+//   G, H at db1 (16 channels in, 128²): the 16-channel kernel of conv16.cuh
+//     that B and C share (tap pairs, weights in registers), with G's
+//     residual staged through the output tile and H's pool from its row
+//     pairs. The dp4a loop they replace took, for a G call, 0.30-0.37 ms on the INT32
+//     pipe for 12.2 G multiply-adds and for an H call 0.55-0.60 ms for
+//     24.5 G, against 0.01-0.09 ms of bytes (H100, batch 324).
+//   G, H at db2 and db3 (32 / 64 channels, 64² / 32²): conv_prow_mma_kernel,
+//     J's design with one input: weights as swizzled [tap][cout][cin] rows in
+//     shared memory, 8x32 tiles in units of two rows by 16 columns a warp (the
+//     pool's 2x2 cell in two lanes, one shuffle apart), the requantised
+//     bytes staged per warp and written as coalesced 16-byte stores.
 //   J, L (batch 324: ub1.conv1 64 ch at 64², ub2.conv1 32 ch at 128²): 97.8 G
 //     int8 multiply-adds a call, 0.198 ms of operations at 1,979 TOP/s for
 //     both calls against 0.228 ms of bytes (255 + 510 MB at 3.35 TB/s): near
@@ -60,95 +70,11 @@
 //     one of padding, five a warp: 1.25x; the dp4a version's 6x30 tiles took
 //     1.42x), so that two blocks share an SM.
 
-#include "conv_mma.cuh"
+#include <type_traits>
+
+#include "conv16.cuh"
 
 namespace {
-
-// G: CIN -> COUT int8 conv, optional fused residual add.
-template <int CIN, int COUT, bool RES>
-__global__ void __launch_bounds__(NT)
-conv_prow_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
-                 const float* __restrict__ scale, const float* __restrict__ bias,
-                 const int8_t* __restrict__ res, float res_sc, int8_t* __restrict__ out,
-                 int h, int w, int relu) {
-  constexpr int CW = CIN / 4;
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* s_in = smem;
-  int32_t* s_w = smem + HALO * CW;
-  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  load_halo<CIN>(s_in, x, n, y0, x0, h, w);
-  load_weights<CIN, COUT>(s_w, wt);
-  __syncthreads();
-  int acc[COUT] = {};
-  accumulate<CW, COUT>(acc, s_in, s_w);
-  const int gy = y0 + threadIdx.x / TW, gx = x0 + threadIdx.x % TW;
-  if (gy >= h || gx >= w) return;
-  const size_t o = (((size_t)n * h + gy) * w + gx) * COUT;
-#pragma unroll
-  for (int c0 = 0; c0 < COUT; c0 += 16) {
-    int8_t v0[16], q[16];
-    if (RES) unpack16(v0, __ldg(reinterpret_cast<const uint4*>(res + o + c0)));
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float y = dequant(acc[c0 + j], __ldg(scale + c0 + j), __ldg(bias + c0 + j));
-      if (relu) y = fmaxf(y, 0.f);
-      if (RES) y = __fadd_rn(__fmul_rn(__int2float_rn((int)v0[j]), res_sc), y);
-      q[j] = requant(y, false);
-    }
-    store16(out + o + c0, q);
-  }
-}
-
-// H: CIN -> COUT int8 conv into out (N,H,W,COUT) and its exact 2x2 pool
-// into pool (N,H/2,W/2,COUT).
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(NT)
-conv_prow_pool_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
-                      const float* __restrict__ scale, const float* __restrict__ bias,
-                      int8_t* __restrict__ out, int8_t* __restrict__ pool, float pool_sc,
-                      int h, int w, int relu) {
-  constexpr int CW = CIN / 4, CH = COUT / 16;
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* s_in = smem;
-  int32_t* s_w = smem + HALO * CW;
-  int8_t* s_q = reinterpret_cast<int8_t*>(s_w + 9 * CW * COUT);  // (TH*TW, COUT)
-  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  load_halo<CIN>(s_in, x, n, y0, x0, h, w);
-  load_weights<CIN, COUT>(s_w, wt);
-  __syncthreads();
-  int acc[COUT] = {};
-  accumulate<CW, COUT>(acc, s_in, s_w);
-  const int gy = y0 + threadIdx.x / TW, gx = x0 + threadIdx.x % TW;
-  const size_t o = (((size_t)n * h + gy) * w + gx) * COUT;
-#pragma unroll
-  for (int c0 = 0; c0 < COUT; c0 += 16) {
-    int8_t q[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      q[j] = requant(dequant(acc[c0 + j], __ldg(scale + c0 + j), __ldg(bias + c0 + j)), relu);
-    store16(s_q + threadIdx.x * COUT + c0, q);
-    if (gy < h && gx < w) store16(out + o + c0, q);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < (NT / 4) * CH; i += NT) {
-    const int cell = i / CH, c0 = (i % CH) * 16;
-    const int py = cell / (TW / 2), px = cell % (TW / 2);
-    const int gpy = y0 / 2 + py, gpx = x0 / 2 + px;
-    if (gpy >= h / 2 || gpx >= w / 2) continue;
-    const int8_t* a = s_q + (2 * py * TW + 2 * px) * COUT + c0;
-    int8_t a0[16], a1[16], b0[16], b1[16], p[16];
-    unpack16(a0, *reinterpret_cast<const uint4*>(a));
-    unpack16(a1, *reinterpret_cast<const uint4*>(a + COUT));
-    unpack16(b0, *reinterpret_cast<const uint4*>(a + TW * COUT));
-    unpack16(b1, *reinterpret_cast<const uint4*>(a + TW * COUT + COUT));
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int sum4 = (int)a0[j] + (int)a1[j] + (int)b0[j] + (int)b1[j];
-      p[j] = requant(__fmul_rn(__int2float_rn(sum4), pool_sc), false);
-    }
-    store16(pool + (((size_t)n * (h / 2) + gpy) * (w / 2) + gpx) * COUT + c0, p);
-  }
-}
 
 // I and K: CIN -> COUT int8 conv requantised at the mid scale, then the
 // align-corners x2 into out (N,2H,2W,COUT). rnum (2,3,H) and cnum (2,3,W)
@@ -422,28 +348,180 @@ conv_dual_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ z,
   tc::cp_async_wait<0>();
 }
 
-template <int CIN, int COUT>
-int launch_prow(const void* x, const void* wt, const void* scale, const void* bias,
-                const void* res, float res_sc, void* out, int n, int h, int w, int relu,
-                cudaStream_t s) {
-  constexpr int CW = CIN / 4;
-  const size_t smem = (size_t)(HALO * CW + 9 * CW * COUT) * sizeof(int32_t);
-  auto kern = res ? conv_prow_kernel<CIN, COUT, true> : conv_prow_kernel<CIN, COUT, false>;
-  return launch(kern, tile_grid(n, h, w), smem, s, static_cast<const int8_t*>(x),
-                static_cast<const int8_t*>(wt), static_cast<const float*>(scale),
-                static_cast<const float*>(bias), static_cast<const int8_t*>(res), res_sc,
-                static_cast<int8_t*>(out), h, w, relu);
-}
+// G at db2 and db3 (32 -> 32 and 64 -> 64, with or without the residual
+// add) and H at db2 (32 -> 64 with the 2x2 pool): one input on the k32 loop
+// of conv_mma.cuh. TH x 32 output tiles, walked in units of two rows by 16
+// columns (two m16 tiles, one a row; unit u: rows 2 (u / 2) + 0..1, columns
+// 16 (u % 2) + 0..15), TH / 8 units a warp. So the vertical pair of a pool
+// cell sits in one lane (pixel g of tiles m = 0 and 1) and the horizontal
+// pair in lanes 4g + tq and 4(g + 1) + tq, one shuffle apart: the pool needs
+// no block barrier and sums the requantised int8 in int32. A 32- or
+// 64-channel accumulator passes 2^22 (9 * 64 * 127^2 = 9,290,304 < 2^24), so
+// these epilogues convert with __int2float_rn (exact there); requant_bits
+// clips first and holds at any width.
+struct ProwArgs {
+  const int8_t* x;
+  const int8_t* wt;
+  const float* scale;
+  const float* bias;
+  const int8_t* res;  // G's res.conv2, or NULL
+  float res_sc;
+  int8_t* out;
+  int8_t* pool;  // H
+  float pool_sc;
+  int n, h, w, relu;
+};
 
-template <int CIN, int COUT>
-int launch_pool(const void* x, const void* wt, const void* scale, const void* bias, void* out,
-                void* pool, float pool_sc, int n, int h, int w, int relu, cudaStream_t s) {
-  constexpr int CW = CIN / 4;
-  const size_t smem = (size_t)(HALO * CW + 9 * CW * COUT) * sizeof(int32_t) + NT * COUT;
-  return launch(conv_prow_pool_kernel<CIN, COUT>, tile_grid(n, h, w), smem, s,
-                static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-                static_cast<const float*>(scale), static_cast<const float*>(bias),
-                static_cast<int8_t*>(out), static_cast<int8_t*>(pool), pool_sc, h, w, relu);
+constexpr int PTW = 32;  // tile width
+constexpr int UPX = 32;  // pixels a unit
+
+// Shared memory: the weights as load_weights_rows' rows, scale and bias, the
+// requantised output tile (each warp's units; swizzled rows of COUT bytes,
+// the residual staged there first), each warp's pool cells, the halo ring.
+template <int CIN, int COUT, bool POOL, int TH, int STAGES>
+struct ProwLayout {
+  static constexpr int HH = TH + 2, HWD = PTW + 2;
+  static constexpr size_t HALO = (size_t)HH * HWD * CIN;
+  static constexpr size_t OFF_SC = (size_t)9 * COUT * CIN;
+  static constexpr size_t OFF_OUT = tc::align128(OFF_SC + 2 * COUT * sizeof(float));
+  static constexpr size_t OFF_POOL = OFF_OUT + (size_t)TH * PTW * COUT;
+  static constexpr size_t OFF_HALO = OFF_POOL + (POOL ? (size_t)tc::WARPS * 8 * COUT : 0);
+  static constexpr size_t BYTES = OFF_HALO + STAGES * HALO;
+};
+
+template <int CIN, int COUT, bool RES, bool POOL, int TH, int STAGES, int MINB>
+__global__ void __launch_bounds__(tc::THREADS, MINB)
+conv_prow_mma_kernel(const ProwArgs a) {
+  using L = ProwLayout<CIN, COUT, POOL, TH, STAGES>;
+  constexpr int CH = COUT / 16, NT8 = COUT / 8, UPW = TH / tc::WARPS;  // units a warp
+  static_assert(TH % tc::WARPS == 0, "whole units a warp");
+  extern __shared__ __align__(128) int8_t tc_smem[];
+  int8_t* smem = tc_smem;
+  float* s_sc = reinterpret_cast<float*>(smem + L::OFF_SC);
+  float* s_b = s_sc + COUT;
+  const int h = a.h, w = a.w;
+  const int tiles_x = (w + PTW - 1) / PTW, per_img = tiles_x * ((h + TH - 1) / TH);
+  const int n_tiles = a.n * per_img;
+  auto issue = [&](int t, int stage) {
+    if (t < n_tiles) {
+      const int img = t / per_img, r = t % per_img;
+      tc::load_halo_async<CIN, L::HH, L::HWD>(smem + L::OFF_HALO + stage * L::HALO, a.x, img,
+                                              (r / tiles_x) * TH - 1, (r % tiles_x) * PTW - 1,
+                                              h, w);
+    }
+    tc::cp_async_commit();
+  };
+  for (int s = 0; s < STAGES - 1; ++s) issue(blockIdx.x + s * gridDim.x, s);
+  tc::load_weights_rows<CIN, COUT>(smem, a.wt);
+  for (int i = threadIdx.x; i < COUT; i += tc::THREADS) {
+    s_sc[i] = a.scale[i];
+    s_b[i] = a.bias[i];
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  int8_t* s_o = smem + L::OFF_OUT + warp * UPW * UPX * COUT;  // this warp's units
+  int8_t* s_p = smem + L::OFF_POOL + warp * 8 * COUT;         // one unit's 8 pool cells
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // this tile's halo is in; the last tile's stage and s_o are free
+    const int img = t / per_img, rt = t % per_img;
+    const int ty0 = (rt / tiles_x) * TH, tx0 = (rt % tiles_x) * PTW;
+    if constexpr (RES) {
+      // the residual of this warp's units into s_o (pixel k of a unit: row
+      // k / 16, column k % 16), read back by each lane's epilogue from the
+      // bytes it then overwrites; past the ragged edge the clamped pixel
+      // stands in (its output is not stored)
+      const uint32_t so = tc::smem_u32(s_o);
+      for (int k = lane; k < UPW * UPX * CH; k += 32) {
+        const int c = k % CH, px = k / CH, u = warp * UPW + px / UPX, q = px % UPX;
+        const int gy = min(ty0 + 2 * (u / 2) + q / 16, h - 1);
+        const int gx = min(tx0 + 16 * (u % 2) + q % 16, w - 1);
+        tc::cp_async16(so + tc::swz<CH>(px, c) * 16,
+                       a.res + (((size_t)img * h + gy) * w + gx) * COUT + c * 16);
+      }
+      tc::cp_async_commit();
+    }
+    issue(t + (STAGES - 1) * gridDim.x, (it + STAGES - 1) % STAGES);
+    const int8_t* sh = smem + L::OFF_HALO + (it % STAGES) * L::HALO;
+#pragma unroll 1
+    for (int v = 0; v < UPW; ++v) {
+      const int u = warp * UPW + v, y0 = ty0 + 2 * (u / 2), x0 = tx0 + 16 * (u % 2);
+      const int hp = 2 * (u / 2) * L::HWD + 16 * (u % 2) + tc::a_row();
+      const int p0[2] = {hp, hp + L::HWD};
+      int acc[2][NT8][4] = {};
+      tc::conv_mma<CIN, COUT, L::HWD, 2, NT8>(acc, sh, smem, p0, 0);
+      if constexpr (RES) {
+        if (v == 0) {
+          tc::cp_async_wait<1>();  // the residual; the halo issued after it may still fly
+          __syncwarp();
+        }
+      }
+      int8_t* so = s_o + v * UPX * COUT;
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int co = 8 * j + 2 * tq;
+        // read before the stores below, which the compiler cannot tell apart
+        const float sc[2] = {s_sc[co], s_sc[co + 1]}, bi[2] = {s_b[co], s_b[co + 1]};
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          int sum[2] = {0, 0};  // of the cell's vertical pair
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            uint16_t* dst = reinterpret_cast<uint16_t*>(
+                so + tc::swz<CH>(16 * m + g + 8 * hf, co / 16) * 16 + co % 16);
+            uint32_t v0 = 0;
+            if constexpr (RES) v0 = *dst;
+            uint32_t q[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float y = dequant(acc[m][j][2 * hf + e], sc[e], bi[e]);
+              if constexpr (RES) {
+                if (a.relu) y = fmaxf(y, 0.f);
+                const int r0 = (int8_t)(v0 >> (8 * e));
+                q[e] = tc::requant_bits(__fadd_rn(__fmul_rn(tc::i2f_small(r0), a.res_sc), y),
+                                        false);
+              } else {
+                q[e] = tc::requant_bits(y, a.relu);
+              }
+              if constexpr (POOL) sum[e] += (int8_t)q[e];
+            }
+            *dst = (uint16_t)__byte_perm(q[0], q[1], 0x0040);
+          }
+          if constexpr (POOL) {
+            uint32_t p[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int sum4 = sum[e] + __shfl_xor_sync(0xffffffffu, sum[e], 4);
+              p[e] = tc::requant_bits(__fmul_rn(tc::i2f_small(sum4), a.pool_sc), false);
+            }
+            if ((g & 1) == 0)  // cell (g + 8hf) / 2 of the unit's 8
+              *reinterpret_cast<uint16_t*>(s_p + tc::swz<CH>(g / 2 + 4 * hf, co / 16) * 16 +
+                                           co % 16) = (uint16_t)__byte_perm(p[0], p[1], 0x0040);
+          }
+        }
+      }
+      __syncwarp();
+      for (int k = lane; k < UPX * CH; k += 32) {
+        const int c = k % CH, px = k / CH, gy = y0 + px / 16, gx = x0 + px % 16;
+        if (gy < h && gx < w)
+          *reinterpret_cast<uint4*>(a.out + (((size_t)img * h + gy) * w + gx) * COUT + c * 16) =
+              *reinterpret_cast<const uint4*>(so + tc::swz<CH>(px, c) * 16);
+      }
+      if constexpr (POOL) {
+        // y0 and x0 are even; cells past the ragged edge write nothing
+        const int gpy = y0 / 2;
+        for (int k = lane; k < 8 * CH; k += 32) {
+          const int c = k % CH, gpx = x0 / 2 + k / CH;
+          if (gpy < h / 2 && gpx < w / 2)
+            *reinterpret_cast<uint4*>(a.pool + (((size_t)img * (h / 2) + gpy) * (w / 2) + gpx) *
+                                                   COUT + c * 16) =
+                *reinterpret_cast<const uint4*>(s_p + tc::swz<CH>(k / CH, c) * 16);
+        }
+        __syncwarp();  // s_p is the next unit's
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
 }
 
 constexpr int RING = 2;  // halo stages of the tensor-core kernels
@@ -481,6 +559,72 @@ struct DualEntry {
     return n * ((h + DTH - 1) / DTH) * ((w + DTW - 1) / DTW);
   }
 };
+
+// G and H at db1 (16 channels in, 128²): the 16-channel kernel of
+// conv16.cuh on B's tiling (32-row tiles, three halo stages), three blocks
+// an SM for G, two for H's 32 output channels (36 weight registers a lane).
+// On the H100 16-row tiles ran G 1-11 % slower and H 1-2 %, a fourth stage
+// 1-6 % slower (kernels/tc_variants.py: prow_rows, prow_ring).
+constexpr int PROW16_ROWS = 32;
+constexpr int PROW16_RING = 3;
+constexpr int prow16_min_blocks(int cout) { return cout == 16 ? 3 : 2; }
+
+template <int COUT, bool PM, bool RES>
+using Prow16Entry = tc::Conv16Entry<1, COUT, PM, RES, PROW16_ROWS, 1, PROW16_RING,
+                                    prow16_min_blocks(COUT)>;
+
+// G and H at db2 and db3 (32 and 64 channels in): conv_prow_mma_kernel on
+// 16x32 tiles for G at 32 channels (two units a warp), 8x32 ones elsewhere
+// (H at 16 rows spills 148 B at the register cap, for no gain), two halo
+// stages, the register cap of two blocks an SM (one where their shared
+// memory leaves no room for two). Chosen on the H100 by kernels/tc_variants.py:
+// the other heights (prow_rows) ran G 1-8 % slower at 32 channels and 0-11 %
+// at 64, more stages (prow_ring) 2-15 % slower, three blocks an SM at 32
+// channels (prow_blocks) 8-19 % slower.
+constexpr int prow_rows(int cin, int cout) { return cin == 32 && cout == 32 ? 16 : 8; }
+constexpr int prow_ring(int) { return 2; }
+constexpr int prow_blocks(int) { return 2; }
+
+template <int CIN, int COUT, bool RES, bool POOL>
+struct ProwEntry {
+  static constexpr int TH = prow_rows(CIN, COUT), STAGES = prow_ring(CIN);
+  static constexpr size_t SMEM = ProwLayout<CIN, COUT, POOL, TH, STAGES>::BYTES;
+  static constexpr int FIT = (int)(233472 / (SMEM + 1024));  // blocks an SM's shared memory holds
+  static constexpr int MINB = prow_blocks(CIN) < FIT ? prow_blocks(CIN) : FIT;
+  static auto kernel() { return conv_prow_mma_kernel<CIN, COUT, RES, POOL, TH, STAGES, MINB>; }
+  static int tiles(int n, int h, int w) {
+    return n * ((h + TH - 1) / TH) * ((w + PTW - 1) / PTW);
+  }
+  static int launch(const ProwArgs& a, cudaStream_t s) {
+    return tc::launch_persistent(kernel(), SMEM, tiles(a.n, a.h, a.w), s, a);
+  }
+};
+
+// The entry of kernel G (conv_prow, RES: with the residual) or H
+// (conv_prow_split_pool: POOL) for CIN -> COUT.
+template <int CIN, int COUT, bool RES, bool POOL>
+using GHEntry = std::conditional_t<CIN == 16, Prow16Entry<COUT, POOL, RES>,
+                                   ProwEntry<CIN, COUT, RES, POOL>>;
+
+template <int CIN, int COUT, bool RES, bool POOL>
+int launch_gh(const void* x, const void* wt, const void* scale, const void* bias,
+              const void* res, float res_sc, void* out, void* pool, float pool_sc, int n, int h,
+              int w, int relu, cudaStream_t s) {
+  const auto* xp = static_cast<const int8_t*>(x);
+  const auto* wp = static_cast<const int8_t*>(wt);
+  const auto* sp = static_cast<const float*>(scale);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* rp = static_cast<const int8_t*>(res);
+  if constexpr (CIN == 16) {
+    const tc::Conv16Args<1> a{{xp}, {wp}, {sp}, bp, static_cast<int8_t*>(out),
+                              static_cast<int8_t*>(pool), pool_sc, rp, res_sc, n, h, w, relu};
+    return GHEntry<CIN, COUT, RES, POOL>::launch(a, s);
+  } else {
+    const ProwArgs a{xp, wp, sp, bp, rp, res_sc, static_cast<int8_t*>(out),
+                     static_cast<int8_t*>(pool), pool_sc, n, h, w, relu};
+    return GHEntry<CIN, COUT, RES, POOL>::launch(a, s);
+  }
+}
 
 template <int CIN, int COUT, bool VPU>
 int launch_up2(const void* x, const void* wt, const void* scale, const void* bias,
@@ -526,7 +670,10 @@ int sifsr_conv_prow(const void* x, const void* wt, const void* scale, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIFSR_CASE(CI, CO)                                                                  \
   if (cin == CI && cout == CO)                                                              \
-    return launch_prow<CI, CO>(x, wt, scale, bias, res, res_sc, out, n, h, w, relu, s);
+    return res ? launch_gh<CI, CO, true, false>(x, wt, scale, bias, res, res_sc, out, nullptr,    \
+                                                0.f, n, h, w, relu, s)                          \
+               : launch_gh<CI, CO, false, false>(x, wt, scale, bias, nullptr, 0.f, out,         \
+                                                 nullptr, 0.f, n, h, w, relu, s);
   SIFSR_PROW_SHAPES(SIFSR_CASE)
 #undef SIFSR_CASE
   return (int)cudaErrorInvalidValue;
@@ -539,7 +686,8 @@ int sifsr_conv_prow_split_pool(const void* x, const void* wt, const void* scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIFSR_CASE(CI, CO)                                                                  \
   if (cin == CI && cout == CO)                                                              \
-    return launch_pool<CI, CO>(x, wt, scale, bias, out, pool, pool_sc, n, h, w, relu, s);
+    return launch_gh<CI, CO, false, true>(x, wt, scale, bias, nullptr, 0.f, out, pool, pool_sc, \
+                                          n, h, w, relu, s);
   SIFSR_POOL_SHAPES(SIFSR_CASE)
 #undef SIFSR_CASE
   return (int)cudaErrorInvalidValue;
@@ -584,7 +732,8 @@ int sifsr_conv_prow_dual(const void* x, const void* z, const void* wx, const voi
 
 // The launch of a tensor-core entry for the given shape, without launching:
 // kind 0 sifsr_conv_prow_dual (cin == cout == C), 1 sifsr_conv_prow_up2,
-// 2 sifsr_conv_prow_up2_vpu. Writes the persistent grid (blocks), the
+// 2 sifsr_conv_prow_up2_vpu, 3 sifsr_conv_prow without and 4 with the
+// residual, 5 sifsr_conv_prow_split_pool. Writes the persistent grid (blocks), the
 // dynamic shared memory of a block in bytes and the number of tiles.
 int sifsr_conv_mma_shape(int kind, int cin, int cout, int n, int h, int w, int* blocks,
                          int* smem, int* tiles) {
@@ -598,6 +747,18 @@ int sifsr_conv_mma_shape(int kind, int cin, int cout, int n, int h, int w, int* 
   if (kind == 2 && cin == CI && cout == CO)                                                 \
     return tc::entry_shape<Up2Entry<CI, CO, true>>(n, h, w, blocks, smem, tiles);
   SIFSR_UP2_SHAPES(SIFSR_CASE)
+#undef SIFSR_CASE
+#define SIFSR_CASE(CI, CO)                                                                  \
+  if (kind == 3 && cin == CI && cout == CO)                                                 \
+    return tc::entry_shape<GHEntry<CI, CO, false, false>>(n, h, w, blocks, smem, tiles);    \
+  if (kind == 4 && cin == CI && cout == CO)                                                 \
+    return tc::entry_shape<GHEntry<CI, CO, true, false>>(n, h, w, blocks, smem, tiles);
+  SIFSR_PROW_SHAPES(SIFSR_CASE)
+#undef SIFSR_CASE
+#define SIFSR_CASE(CI, CO)                                                                  \
+  if (kind == 5 && cin == CI && cout == CO)                                                 \
+    return tc::entry_shape<GHEntry<CI, CO, false, true>>(n, h, w, blocks, smem, tiles);
+  SIFSR_POOL_SHAPES(SIFSR_CASE)
 #undef SIFSR_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
-// The 8x32-tile dp4a main loop of the replicate-pad 3x3 int8 convs, shared
-// by csrc/conv_i8.cu (kernels D, E, F, the generic conv) and csrc/conv_px.cu
-// (kernels G, H): halo and weight loads into shared memory, the int32 inner
-// product, the float32 epilogue helpers and 16-byte int8 stores. Kernels B,
-// C and I-L run on the int8 tensor cores instead (conv_mma.cuh).
+// The 8x32-tile dp4a main loop of the replicate-pad 3x3 int8 convs of
+// csrc/conv_i8.cu (kernels D, E, F, the generic conv): halo and weight loads
+// into shared memory, the int32 inner product; and the float32 epilogue
+// helpers and 16-byte int8 stores that every conv kernel uses. Kernels B, C
+// and G-L run on the int8 tensor cores instead (conv_mma.cuh).
 //
 // One block of 256 threads per 8x32 output tile, each thread one pixel and
 // all its output channels; the (8+2)x(32+2) input halo is loaded once into

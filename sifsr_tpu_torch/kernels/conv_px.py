@@ -1,10 +1,11 @@
 """Kernels G-L: the int8 mid chain's convs with fused epilogues.
 
 Counterparts, by function, of ``sifsr_tpu/pallas/conv_px.py``; CUDA source
-``csrc/conv_px.cu``. G and H run the dp4a main loop of ``csrc/conv_tile.cuh``;
-I, J, K and L the int8 tensor-core main loop of ``csrc/conv_mma.cuh`` in
-persistent blocks (``tensor_core_launch`` gives their grid and shared
-memory):
+``csrc/conv_px.cu``. All of them run on the int8 tensor cores
+(``csrc/conv_mma.cuh``) in persistent blocks (``tensor_core_launch`` gives
+their grid and shared memory): G and H at 16 input channels in the
+16-channel kernel of ``csrc/conv16.cuh`` that B and C share, at 32 and 64
+in a one-input kernel beside J's; I, J, K and L on the k32 loop:
 
 - ``conv_prow`` (G): 3x3 conv + requantise, optionally with the residual add
   of DownBlock_pool fused before the requantise (db1-db3 res.conv1/conv2);
@@ -236,15 +237,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-_MMA_KINDS = {"dual": 0, "up2": 1, "up2_vpu": 2}
+_MMA_KINDS = {"dual": 0, "up2": 1, "up2_vpu": 2, "prow": 3, "prow_res": 4, "pool": 5}
 # B and C (csrc/conv_i8.cu, 16 channels in and out)
 _MMA16_KINDS = {"exact": 0, "exact_pm": 1, "exact_dual": 2}
 
 
 def tensor_core_launch(kind: str, n: int, h: int, w: int, cin: int, cout: int) -> dict:
     """The launch the tensor-core entry ``kind`` ('dual': J and L, 'up2': I
-    and K, 'up2_vpu': their float32 chain; 'exact', 'exact_pm': B without
-    and with the phase mean, 'exact_dual': C, at 16 channels) makes for an
+    and K, 'up2_vpu': their float32 chain, 'prow' and 'prow_res': G without
+    and with the residual, 'pool': H; 'exact', 'exact_pm': B without and
+    with the phase mean, 'exact_dual': C, at 16 channels) makes for an
     (n,h,w,cin) input: {'blocks': persistent grid, 'smem_bytes': dynamic
     shared memory a block, 'tiles': output tiles the blocks walk}. Needs the
     card."""

@@ -1,4 +1,4 @@
-"""Where the time of the tensor-core convs (kernels B, C, I, J, K, L) goes, on the card.
+"""Where the time of the tensor-core convs (kernels B, C, G-L) goes, on the card.
 
     python -m sifsr_tpu_torch.kernels.tc_variants [--reps 7]
 
@@ -6,9 +6,12 @@ Builds ``csrc/conv_px.cu`` and ``csrc/conv_i8.cu`` as they are and in
 variants made by editing the source text (each edit must match exactly
 once; a variant rebuilds the sources its edits touch, every source for an
 edited header), then times kernels B (with and without the phase mean), C,
-J (both shapes), I (both shapes, both x2 tables) and K (both tables) at the
+G (its three shapes, with and without the residual), H (both shapes), J
+(both shapes), I (both shapes, both x2 tables) and K (both tables) at the
 serving shapes (batch 324), every variant in turns within one process (in
-order, then in reverse):
+order, then in reverse); a timed repeat queues BURST calls back to back, so
+that the wrapper's host work for one call overlaps the card's work on the
+last and the time is the card's:
 
 - ``built``: the source as it is;
 - ``one_block``: one block an SM (registers uncapped) and 16-row source tiles
@@ -23,9 +26,18 @@ order, then in reverse):
 - ``c16_two_rows``: B's warps take two of their rows at a time (four m16
   tiles, twice the independent accumulator chains and registers) in place
   of one;
-- ``cvt``: B's and C's epilogue with the conversion instructions
+- ``prow_rows``: G and H on the other tiling: at 16 input channels 16-row
+  tiles in place of 32-row ones, for G at 32 8-row tiles in place of
+  16-row ones, for G at 64 and H at 32 16-row tiles (two units a warp) in
+  place of 8-row ones;
+- ``prow_ring``: G and H with more halo stages: four in place of three at
+  16 input channels, four in place of two at 32 and three at 64;
+- ``prow_blocks``: G and H at 32 and 64 input channels with the register cap
+  of three blocks an SM in place of two at 32, of one (uncapped) at 64;
+- ``cvt``: the epilogues of B, C, G and H with the conversion instructions
   (``__int2float_rn``, ``rintf`` and the float-to-int cast) in place of the
-  exact float and integer forms: the same values, another unit;
+  exact float and integer forms (``i2f_small``, ``requant_bits``): the same
+  values, another unit;
 - ``no_mma``: each tensor-core product replaced by one integer operation on
   the same fragments (the ldmatrix loads stay): the time without the
   tensor-core work;
@@ -37,10 +49,11 @@ order, then in reverse):
   reading of the noise.
 
 A variant that leaves a kernel's code as built (the ``c16_*`` and ``cvt``
-rows of I-L, the ``one_block``, ``m_seq`` and ``no_x2`` rows of B and C)
-reads the noise. The outputs of ``built``, ``one_block``, ``m_seq``,
-``c16_rows``, ``c16_ring4``, ``c16_two_rows`` and ``cvt`` are checked against the plain
-versions; the other variants' outputs are meaningless and only timed. Prints
+rows of I-L, the ``one_block``, ``m_seq`` and ``no_x2`` rows of B, C, G and
+H, the ``prow_*`` rows of all but G and H) reads the noise. The outputs of
+``built``, ``one_block``, ``m_seq``, ``c16_rows``, ``c16_ring4``,
+``c16_two_rows``, the ``prow_*`` variants and ``cvt`` are checked against
+the plain versions; the other variants' outputs are meaningless and only timed. Prints
 a line per kernel and variant and, last, one JSON object of the times with
 the card's name and power limit. Needs the card and nvcc.
 """
@@ -60,10 +73,12 @@ import torch
 from sifsr_tpu_torch.kernels import _build, conv_i8, conv_px
 
 N = 324
-VARIANTS = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "cvt",
-            "no_mma", "no_halo", "no_x2")
-CHECKED = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "cvt")
-SOURCES = ("conv_px.cu", "conv_i8.cu", "conv_mma.cuh", "conv_tile.cuh")
+BURST = 5
+VARIANTS = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "prow_rows",
+            "prow_ring", "prow_blocks", "cvt", "no_mma", "no_halo", "no_x2")
+CHECKED = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "prow_rows",
+           "prow_ring", "prow_blocks", "cvt")
+SOURCES = ("conv_px.cu", "conv_i8.cu", "conv16.cuh", "conv_mma.cuh", "conv_tile.cuh")
 
 # J's two m16 tiles a warp, accumulated together (as built) or one after
 # the other (m_seq)
@@ -149,6 +164,21 @@ _EDITS = {
     "c16_two_rows": [
         ("conv_i8.cu", "constexpr int c16_rows_a_pass(int) { return 1; }",
          "constexpr int c16_rows_a_pass(int nin) { return nin == 1 ? 2 : 1; }"),
+    ],
+    "prow_rows": [
+        ("conv_px.cu", "constexpr int PROW16_ROWS = 32;", "constexpr int PROW16_ROWS = 16;"),
+        ("conv_px.cu",
+         "constexpr int prow_rows(int cin, int cout) { return cin == 32 && cout == 32 ? 16 : 8; }",
+         "constexpr int prow_rows(int cin, int cout) { return cin == 32 && cout == 32 ? 8 : 16; }"),
+    ],
+    "prow_ring": [
+        ("conv_px.cu", "constexpr int PROW16_RING = 3;", "constexpr int PROW16_RING = 4;"),
+        ("conv_px.cu", "constexpr int prow_ring(int) { return 2; }",
+         "constexpr int prow_ring(int cin) { return cin == 64 ? 3 : 4; }"),
+    ],
+    "prow_blocks": [
+        ("conv_px.cu", "constexpr int prow_blocks(int) { return 2; }",
+         "constexpr int prow_blocks(int cin) { return cin == 64 ? 1 : 3; }"),
     ],
     "cvt": [
         ("conv_mma.cuh",
@@ -247,15 +277,18 @@ def _same(got, want) -> bool:
 
 
 def _time_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of one call over ``reps`` repeats of BURST
+    calls."""
     fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(BURST):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / BURST)
     return float(np.median(times))
 
 
@@ -282,6 +315,19 @@ def _cases(dev, rng):
     c_args = (x, z, wx, wz, sx, sz, b)
     yield ("C 16ch 256²", lambda a=c_args: conv_i8.conv_i8_exact_dual(*a),
            lambda a=c_args: conv_i8.conv_i8_exact_dual_plain(*a))
+
+    for hw, c in ((128, 16), (64, 32), (32, 64)):
+        args = conv_args(c, c, hw)
+        v0 = torch.from_numpy(rng.integers(-127, 128, (N, hw, hw, c), dtype=np.int8)).to(dev)
+        yield (f"G {c}ch {hw}²", lambda a=args: conv_px.conv_prow(*a),
+               lambda a=args: conv_px.conv_prow_plain(*a))
+        yield (f"G {c}ch {hw}² residual",
+               lambda a=args, v=v0: conv_px.conv_prow(*a, residual=v, res_sc=0.71),
+               lambda a=args, v=v0: conv_px.conv_prow_plain(*a, residual=v, res_sc=0.71))
+    for hw, cin, cout in ((128, 16, 32), (64, 32, 64)):
+        args = conv_args(cin, cout, hw)
+        yield (f"H {cin}->{cout} {hw}²", lambda a=args: conv_px.conv_prow_split_pool(*a, 0.19),
+               lambda a=args: conv_px.conv_prow_split_pool_plain(*a, 0.19))
 
     for hw, c in ((64, 64), (128, 32)):
         x, wx, sx, b = conv_args(c, c, hw)
@@ -324,11 +370,11 @@ def main(reps: int = 7) -> None:
         result[name] = times
         print(f"{name}: " + ", ".join(f"{v} {t[0]:.4f} / {t[1]:.4f} ms" for v, t in times.items()),
               flush=True)
-    print(json.dumps({"device": smi.splitlines()[0], "batch": N, "reps": reps,
+    print(json.dumps({"device": smi.splitlines()[0], "batch": N, "reps": reps, "burst": BURST,
                       "ms_two_turns": result}))
 
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--reps", type=int, default=7, help="timed calls a median is taken over")
+    parser.add_argument("--reps", type=int, default=7, help="timed repeats a median is taken over")
     main(parser.parse_args().reps)

@@ -44,6 +44,30 @@ def _sat_case(rng, n, h, w, c, c_out):
 SAT_S_IN = {"x": 0.003, "z": 0.006, "up2": 0.006}
 
 
+def _coherent_case(rng, n, h, w, c, c_out):
+    """Every input and weight at +-127 with aligned signs, so that the
+    accumulators pass 2^22 at 32 and 64 channels (the largest possible,
+    9 * c * 127^2, is 4,645,152 and 9,290,304 there): w = 0.2 * s[ci] * t[co]
+    (quantised to +-127), x = 127 * s[ci] * r * f with r = +-1 constant on
+    4x4 pixel blocks and f = -1 for one value in 32, so that inside a block
+    |acc| is about 15/16 of the largest."""
+    s, t = rng.choice([-1, 1], c), rng.choice([-1, 1], c_out)
+    r = np.kron(rng.choice([-1, 1], (n, h // 4 + 1, w // 4 + 1)), np.ones((1, 4, 4)))[:, :h, :w]
+    f = np.where(rng.random((n, h, w, c)) < 1 / 32, -1, 1)
+    x_q = (127 * r[..., None] * s * f).astype(np.int8)
+    k = np.ascontiguousarray(np.broadcast_to(0.2 * s[:, None] * t[None, :], (3, 3, c, c_out)),
+                             np.float32)
+    bias = rng.normal(size=(c_out,)).astype(np.float32)
+    return x_q, k, bias
+
+
+def _coherent_s_in(c, s_out):
+    """The input scale that maps the largest accumulator of a coherent case
+    to 90 after the epilogue (weights' scale 0.2 / 127; s_out the output
+    scale, or 1 / post_scale)."""
+    return 90.0 * s_out / (9.0 * c * 127.0 * 0.2)
+
+
 def _leaf(k, bias, s_in, s_out=None, post_scale=1.0):
     """The port's leaf as CPU tensors."""
     leaf = conv_px.prow_leaf(k, bias, s_in, s_out, post_scale)
@@ -62,15 +86,24 @@ def _assert_identical(got, want):
     assert np.abs(want.astype(int)).mean() > 2            # not a saturated/zero case
 
 
-@pytest.mark.parametrize("p,c,c_out,h,w", [
-    (8, 16, 16, 16, 32), (4, 32, 32, 16, 16), (2, 64, 64, 8, 8), (2, 64, 32, 8, 16)])
-def test_conv_prow_matches_pallas(rng, p, c, c_out, h, w):
-    """Kernel G at the three mid-chain geometries and a narrowing conv."""
-    x, k, bias = _rand_case(rng, 3, h, w, c, c_out)
+_PROW_CASES = [(8, 16, 16, 16, 32), (4, 32, 32, 16, 16), (2, 64, 64, 8, 8), (2, 64, 32, 8, 16)]
+
+
+@pytest.mark.parametrize(
+    "p,c,c_out,h,w,sat",
+    [(*case, False) for case in _PROW_CASES] + [(*case, True) for case in _PROW_CASES[:3]],
+    ids=["-".join(map(str, case)) for case in _PROW_CASES]
+    + ["saturating-" + "-".join(map(str, case)) for case in _PROW_CASES[:3]])
+def test_conv_prow_matches_pallas(rng, p, c, c_out, h, w, sat):
+    """Kernel G at the three mid-chain geometries and a narrowing conv, and
+    at the three with every input and weight at +-127 (accumulators past
+    2^22 at 32 and 64 channels)."""
+    x, k, bias = (_coherent_case if sat else _rand_case)(rng, 3, h, w, c, c_out)
+    s_in = _coherent_s_in(c, 0.07) if sat else 0.11
     want = rows_to_nhwc(jax_px.conv_prow(
-        nhwc_to_rows(jnp.asarray(x), p), jax_px.prow_leaf(k, bias, p, s_in=0.11, s_out=0.07),
+        nhwc_to_rows(jnp.asarray(x), p), jax_px.prow_leaf(k, bias, p, s_in=s_in, s_out=0.07),
         p, c, c_out, h, w, interpret=True), h, w, c_out)
-    got = conv_px.conv_prow(torch.from_numpy(x), *_leaf(k, bias, 0.11, 0.07))
+    got = conv_px.conv_prow(torch.from_numpy(x), *_leaf(k, bias, s_in, 0.07))
     _assert_identical(got.numpy(), want)
 
 
@@ -86,6 +119,26 @@ def test_conv_prow_residual_matches_pallas(rng):
         nhwc_to_rows(jnp.asarray(x), p), leaf, p, c, c, h, w,
         residual=nhwc_to_rows(jnp.asarray(v0), p), interpret=True), h, w, c)
     got = conv_px.conv_prow(torch.from_numpy(x), *_leaf(k, bias, 0.2, None, 1 / 0.15),
+                            residual=torch.from_numpy(v0), res_sc=float(res_sc))
+    _assert_identical(got.numpy(), want)
+
+
+@pytest.mark.parametrize("p,c,h,w", [(8, 16, 16, 32), (4, 32, 16, 16), (2, 64, 8, 8)])
+def test_conv_prow_residual_saturating_matches_pallas(rng, p, c, h, w):
+    """Kernel G with the fused residual add at db1's, db2's and db3's
+    channel counts, every input, weight and residual value at +-127
+    (accumulators past 2^22 at 32 and 64 channels); the residual's scale
+    keeps its share mid-range."""
+    x, k, bias = _coherent_case(rng, 2, h, w, c, c)
+    v0 = (127 * rng.choice([-1, 1], (2, h, w, c))).astype(np.int8)
+    s_in, post = _coherent_s_in(c, 0.15), 1 / 0.15
+    res_sc = np.float32(0.02 / 0.15)
+    leaf = jax_px.prow_leaf(k, bias, p, s_in=s_in, s_out=None, post_scale=post)
+    leaf["res_sc"] = jnp.full((p * c,), res_sc)
+    want = rows_to_nhwc(jax_px.conv_prow(
+        nhwc_to_rows(jnp.asarray(x), p), leaf, p, c, c, h, w,
+        residual=nhwc_to_rows(jnp.asarray(v0), p), interpret=True), h, w, c)
+    got = conv_px.conv_prow(torch.from_numpy(x), *_leaf(k, bias, s_in, None, post),
                             residual=torch.from_numpy(v0), res_sc=float(res_sc))
     _assert_identical(got.numpy(), want)
 
@@ -111,18 +164,27 @@ def test_conv_prow_split_and_fold_match_pallas(rng, fold):
     _assert_identical(got.numpy(), want)
 
 
-@pytest.mark.parametrize("p,c,c_out,h,w", [(8, 16, 32, 16, 32), (4, 32, 64, 8, 16)])
-def test_conv_prow_split_pool_matches_pallas(rng, p, c, c_out, h, w):
+_POOL_CASES = [(8, 16, 32, 16, 32), (4, 32, 64, 8, 16)]
+
+
+@pytest.mark.parametrize(
+    "p,c,c_out,h,w,sat",
+    [(*case, False) for case in _POOL_CASES] + [(*case, True) for case in _POOL_CASES],
+    ids=["-".join(map(str, case)) for case in _POOL_CASES]
+    + ["saturating-" + "-".join(map(str, case)) for case in _POOL_CASES])
+def test_conv_prow_split_pool_matches_pallas(rng, p, c, c_out, h, w, sat):
     """Kernel H: the skip at full resolution and the exact 2x2 pool of the
-    requantised int8, in NHWC."""
+    requantised int8, in NHWC; also with every input and weight at +-127
+    (accumulators past 2^22 at 32 channels in)."""
     s_out, s_next = 0.09, 0.06
     pool_sc = np.float32(s_out / (4 * s_next))
-    x, k, bias = _rand_case(rng, 2, h, w, c, c_out)
-    leaf = jax_px.prow_leaf(k, bias, p, s_in=0.13, s_out=s_out)
+    x, k, bias = (_coherent_case if sat else _rand_case)(rng, 2, h, w, c, c_out)
+    s_in = _coherent_s_in(c, s_out) if sat else 0.13
+    leaf = jax_px.prow_leaf(k, bias, p, s_in=s_in, s_out=s_out)
     leaf["pool_sc"] = jnp.full((128,), pool_sc)
     lo, hi, pooled = jax_px.conv_prow_split_pool(nhwc_to_rows(jnp.asarray(x), p), leaf, p, c,
                                                  c_out, h, w, interpret=True)
-    skip, pool = conv_px.conv_prow_split_pool(torch.from_numpy(x), *_leaf(k, bias, 0.13, s_out),
+    skip, pool = conv_px.conv_prow_split_pool(torch.from_numpy(x), *_leaf(k, bias, s_in, s_out),
                                               float(pool_sc))
     _assert_identical(skip.numpy(), planes_to_nhwc(lo, hi, h, w, p, c_out))
     _assert_identical(pool.numpy(), np.asarray(pooled).reshape(2, h // 2, w // 2, c_out))

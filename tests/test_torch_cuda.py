@@ -219,11 +219,24 @@ def test_conv_prow_dual_planes_cuda(rng, cuda, c):
 def _sat_args(rng, cuda, n, h, w, cin, cout, mode):
     """Saturating int8 operands: 'mixed' has inputs and weights of +-127 with
     random signs, 'max' all +127 (the largest accumulator, 9*cin*127^2 =
-    9,290,304 at 64 channels). The scales put the outputs mid-range, so the
-    float32 epilogue rounds at large accumulator values."""
+    9,290,304 at 64 channels), 'coherent' the signs of x and w aligned over
+    the input channels (w = 127 s[ci] t[co], x = 127 s[ci] r with r = +-1 on
+    4x4 pixel blocks, one value in 32 flipped), so that most accumulators
+    are near the largest and differ from pixel to pixel. The scales put the
+    outputs mid-range, so the float32 epilogue rounds at large accumulator
+    values."""
     if mode == "max":
         x = np.full((n, h, w, cin), 127, np.int8)
         wt = np.full((3, 3, cin, cout), 127, np.int8)
+        acc = 9 * cin * 127.0 * 127.0
+    elif mode == "coherent":
+        s, t = rng.choice([-1, 1], cin), rng.choice([-1, 1], cout)
+        r = np.kron(rng.choice([-1, 1], (n, h // 4 + 1, w // 4 + 1)),
+                    np.ones((1, 4, 4)))[:, :h, :w]
+        f = np.where(rng.random((n, h, w, cin)) < 1 / 32, -1, 1)
+        x = (127 * r[..., None] * s * f).astype(np.int8)
+        wt = np.ascontiguousarray(
+            np.broadcast_to(127 * s[:, None] * t[None, :], (3, 3, cin, cout)), np.int8)
         acc = 9 * cin * 127.0 * 127.0
     else:
         x = (127 * rng.choice([-1, 1], (n, h, w, cin))).astype(np.int8)
@@ -314,6 +327,98 @@ def test_tensor_core_launch_cuda(cuda):
         assert 0 < got["smem_bytes"] <= 232448, (kind, got)
         assert got["blocks"] % sms == 0 and got["blocks"] < got["tiles"], (kind, got)
     assert conv_px.tensor_core_launch("dual", 1, 8, 32, 64, 64)["blocks"] == 1
+
+
+# Tilings of kernels G and H on the int8 tensor cores (at 16 input channels
+# the kernel B and C share, on 32x32 output tiles; at 32 and 64 channels
+# 16x32 and 8x32 tiles walked in units of two rows by 16 columns; persistent
+# grids of k x the SM count): batch 1, H and W off the tile on both axes
+# (for H even, as its pool needs, with an odd number of pool cells on one or
+# both axes; for G also odd), and a batch of 128² images whose tiles
+# outnumber the grid by a remainder (464, 928 and 1,856 tiles).
+PROW_TILINGS = [(1, 64, 64), (2, 40, 36), (2, 66, 100), (3, 37, 45), (29, 128, 128)]
+POOL_TILINGS = [(1, 64, 64), (2, 40, 36), (2, 66, 100), (2, 34, 50), (29, 128, 128)]
+
+
+def _residual(rng, cuda, n, h, w, c, sat=False):
+    if sat:
+        return torch.from_numpy((127 * rng.choice([-1, 1], (n, h, w, c))).astype(np.int8)).to(cuda)
+    return _i8(rng, (n, h, w, c)).to(cuda)
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,h,w", PROW_TILINGS)
+def test_conv_prow_tilings_cuda(rng, cuda, c, residual, n, h, w):
+    """Kernel G, with and without the fused residual, bit for bit against
+    its plain version where a tiling breaks; one launch a call."""
+    args = _conv_args(rng, cuda, n, h, w, c, c)
+    kw = dict(residual=_residual(rng, cuda, n, h, w, c), res_sc=0.73) if residual else {}
+    conv_px.conv_prow.launches = 0
+    got = conv_px.conv_prow(*args, **kw)
+    torch.cuda.synchronize()
+    assert conv_px.conv_prow.launches == 1
+    _same(got, conv_px.conv_prow_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("mode", ["mixed", "max", "coherent"])
+def test_conv_prow_saturating_cuda(rng, cuda, c, residual, mode):
+    """Kernel G with every input, weight and residual value at +-127: int32
+    accumulators up to 9 * c * 127^2 (past 2^22 at 32 and 64 channels) and
+    the float32 epilogue at those values."""
+    args = _sat_args(rng, cuda, 2, 40, 36, c, c, mode)
+    kw = dict(residual=_residual(rng, cuda, 2, 40, 36, c, sat=True), res_sc=0.11) \
+        if residual else {}
+    got = conv_px.conv_prow(*args, **kw)
+    torch.cuda.synchronize()
+    want = conv_px.conv_prow_plain(*args, **kw)
+    _same(got, want)
+    assert float(want.float().abs().mean()) > 2.0
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 32), (32, 64)])
+@pytest.mark.parametrize("n,h,w", POOL_TILINGS)
+def test_conv_prow_split_pool_tilings_cuda(rng, cuda, cin, cout, n, h, w):
+    """Kernel H, the skip and the pool bit for bit against its plain version
+    where a tiling breaks; one launch a call."""
+    args = _conv_args(rng, cuda, n, h, w, cin, cout)
+    conv_px.conv_prow_split_pool.launches = 0
+    got = conv_px.conv_prow_split_pool(*args, 0.21)
+    torch.cuda.synchronize()
+    assert conv_px.conv_prow_split_pool.launches == 1
+    _same(got, conv_px.conv_prow_split_pool_plain(*args, 0.21))
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 32), (32, 64)])
+@pytest.mark.parametrize("mode", ["mixed", "max", "coherent"])
+def test_conv_prow_split_pool_saturating_cuda(rng, cuda, cin, cout, mode):
+    """Kernel H with every input and weight at +-127."""
+    args = _sat_args(rng, cuda, 2, 40, 36, cin, cout, mode)
+    got = conv_px.conv_prow_split_pool(*args, 0.21)
+    torch.cuda.synchronize()
+    want = conv_px.conv_prow_split_pool_plain(*args, 0.21)
+    _same(got, want)
+    assert float(want[0].float().abs().mean()) > 2.0
+
+
+@pytest.mark.parametrize("kind,hw,cin,cout", [
+    ("prow", 128, 16, 16), ("prow_res", 128, 16, 16), ("prow", 64, 32, 32),
+    ("prow_res", 64, 32, 32), ("prow", 32, 64, 64), ("prow_res", 32, 64, 64),
+    ("pool", 128, 16, 32), ("pool", 64, 32, 64)])
+def test_conv_prow_launch_cuda(cuda, kind, hw, cin, cout):
+    """G's and H's persistent grids at the serving shapes (batch 324): a
+    whole number of blocks on every SM, within the card's shared memory; one
+    block for one tile; no launch for a shape the entry is not built for."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = conv_px.tensor_core_launch(kind, 324, hw, hw, cin, cout)
+    assert 0 < got["smem_bytes"] <= 232448, got
+    assert got["blocks"] % sms == 0 and got["blocks"] < got["tiles"], got
+    assert got["tiles"] in [324 * (hw // th) * (hw // 32) for th in (8, 16, 32)], got
+    assert conv_px.tensor_core_launch(kind, 1, 8, 32, cin, cout)["blocks"] == 1
+    with pytest.raises(RuntimeError):
+        conv_px.tensor_core_launch(kind, 1, 8, 32, cin, 2 * cout)
 
 
 @pytest.mark.parametrize("h,w", [(64, 64), (40, 36)])
