@@ -8,7 +8,7 @@ Phases, each of which raises on failure (no result line is printed then):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every ``sifsr_tpu_torch/csrc/*.cu`` by nvcc for sm_90a, in
    parallel; ptxas's registers, spills and stack of the tensor-core kernels
-   (B, C, G-L: 19 instances);
+   (B-L and the outlay: 22 instances);
 3. kernels: each hand-written kernel of the int8 serving paths at the
    shapes the paths give it (batch 324), held against its plain PyTorch
    version on the same seeded inputs: the outputs must be identical (int8 and
@@ -25,8 +25,8 @@ Phases, each of which raises on failure (no result line is printed then):
    and L; K and N zero-padded to _int_mm's multiples of 8 where a shape
    needs it, D's K = 18 to 24 and the outlay's N = 1 to 8; the im2col is
    built beforehand and the yardstick checked against the exact conv on one
-   image), and for B, C and G-L their persistent grid and shared memory a
-   block. The
+   image), and for B-L and the outlay their persistent grid and shared
+   memory a block; each call's share of the bytes rate. The
    float kernels of the training losses at training batch 32:
    fused_psf_downscale forward at (32,256,256) and backward (32,64,64) ->
    (32,256,256) within max|d| 1e-5 of the plain version evaluated in
@@ -219,8 +219,8 @@ def main(profile: bool = False) -> None:
         log(f"ptxas {name} {demangle(mangled)}: {r['registers']} registers, {r['spill_stores']} B "
             f"spill stores, {r['spill_loads']} B spill loads, {r['stack']} B stack, "
             f"{r['smem_static']} B static shared memory")
-    if len(ptxas) != 19:
-        raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 19")
+    if len(ptxas) != 22:
+        raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 22")
 
     # 3. kernels vs plain versions at serving shapes
     rng = np.random.default_rng(0)
@@ -281,7 +281,9 @@ def main(profile: bool = False) -> None:
             b_ms += nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms += o_ms
             log(f"  {name} call: {k_ms:.4f} ms (plain {p_ms:.4f} ms), bytes bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, ops bound {o_ms:.4f} ms"
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"({nbytes / HBM_BYTES_PER_S * 1e3 / k_ms:.1%} of the bytes rate), ops bound "
+                f"{o_ms:.4f} ms"
                 + ("" if burst == 1 else f"; back to back in bursts of {burst}, a single call "
                    f"through the wrapper {time_ms(torch, kern, reps):.4f} ms"))
         if not err <= (tol or 0.0):
@@ -343,10 +345,12 @@ def main(profile: bool = False) -> None:
                "up2_vpu": f"conv_up2_mma_kernelILi{cin}ELi{cout}ELb1E",
                "exact": "conv16_mma_kernelILi1ELi16ELb0ELb0E",
                "exact_pm": "conv16_mma_kernelILi1ELi16ELb1ELb0E",
-               "exact_dual": "conv16_mma_kernelILi2ELi16ELb0ELb0E"}.get(
+               "exact_dual": "conv16_mma_kernelILi2ELi16ELb0ELb0E",
+               "in1_split": "conv_in1_mma_kernelILb0E", "in1": "conv_in1_mma_kernelILb1E",
+               "outlay": "conv16_outlay_mma_kernelI"}.get(
             kind, (f"conv16_mma_kernelILi1ELi{cout}ELb{pool}ELb{res}E" if cin == 16 else
                    f"conv_prow_mma_kernelILi{cin}ELi{cout}ELb{res}ELb{pool}E"))
-        lib = "conv_i8" if kind.startswith("exact") else "conv_px"
+        lib = "conv_i8" if kind.startswith(("exact", "in1", "outlay")) else "conv_px"
         (mangled, rep), = [(k, v) for (name, k), v in ptxas.items() if name == lib and key in k]
         kname = demangle(mangled)
         got.update(kernel=kname, registers=rep["registers"], spill_stores=rep["spill_stores"],
@@ -394,13 +398,15 @@ def main(profile: bool = False) -> None:
         lambda: K.conv_i8_in1_split(lst_q, ndvi_q, w1, sc1, b1),
         lambda: conv_i8.conv_i8_in1_split_plain(lst_q, ndvi_q, w1, sc1, b1),
         conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))],
-        library=[d_product], library_is=mm_words + "; K 18 zero-padded to 24")
+        library=[d_product], library_is=mm_words + "; K 18 zero-padded to 24",
+        launch=[mma_launch("in1_split", N, 256, 256, 2, 16)])
     # E: the same conv on the channel-interleaved tensor; identical to D
     check("conv_i8_in1", [(
         lambda: K.conv_i8_in1(x2, w1, sc1, b1),
         lambda: conv_i8.conv_i8_in1_plain(x2, w1, sc1, b1),
         conv_bytes(N, 256, 256, 2, 16, 1), int8_ms(conv_ops(N, 256, 256, 2, 16)))],
-        library=[d_product], library_is=mm_words + "; K 18 zero-padded to 24")
+        library=[d_product], library_is=mm_words + "; K 18 zero-padded to 24",
+        launch=[mma_launch("in1", N, 256, 256, 2, 16)])
     if not torch.equal(K.conv_i8_in1(x2, w1, sc1, b1),
                        K.conv_i8_in1_split(lst_q, ndvi_q, w1, sc1, b1)):
         raise AssertionError("conv_i8_in1 differs from conv_i8_in1_split")
@@ -461,7 +467,8 @@ def main(profile: bool = False) -> None:
         lambda: K.conv_i8_outlay(*ol_args),
         lambda: conv_i8.conv_i8_outlay_plain(*ol_args),
         conv_bytes(N, 256, 256, 16, 1, 4), int8_ms(conv_ops(N, 256, 256, 16, 1)))],
-        library=generic_lib[-1:], library_is=mm_words + "; N 1 zero-padded to 8")
+        library=generic_lib[-1:], library_is=mm_words + "; N 1 zero-padded to 8",
+        launch=[mma_launch("outlay", N, 256, 256, 16, 1)])
     if not torch.equal(K.conv_i8_outlay(*ol_args),
                        K.conv_i8_generic(*ol_args, relu=False)[..., 0]):
         raise AssertionError("conv_i8_outlay differs from conv_i8_generic")
@@ -1207,7 +1214,9 @@ def main(profile: bool = False) -> None:
     src = "sifsr_tpu_torch/csrc/"
     meta = {
         "upsample_phases": (src + "resize_phases.cu", "sifsr_tpu/pallas/resize_phases.py:93"),
-        "conv_i8_in1_split": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:732"),
+        "conv_i8_in1_split": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:732",
+                              "entry sifsr_conv_i8_in1_split (int8 tensor cores, "
+                              "conv_in1_mma_kernel), kernel shared with conv_i8_in1"),
         "conv_i8_exact": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:333",
                           "entry sifsr_conv_i8_exact (int8 tensor cores, the 16-channel "
                           "kernel of csrc/conv16.cuh), kernel shared with conv_i8_exact_dual "
@@ -1217,8 +1226,14 @@ def main(profile: bool = False) -> None:
                                "with two inputs"),
         "conv_i8_in1": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:605",
                         "the kernel of conv_i8_in1_split templated on the source"),
-        "conv_i8_generic": (src + "conv_i8.cu", "sifsr_tpu/models/quantized_packed.py:66"),
-        "conv_i8_outlay": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:464"),
+        "conv_i8_generic": (src + "conv_i8.cu", "sifsr_tpu/models/quantized_packed.py:66",
+                            "entry sifsr_conv_i8_generic: at 16 -> 1 (the outlay, the only "
+                            "call under prow) the kernel of conv_i8_outlay, the other shapes "
+                            "on dp4a"),
+        "conv_i8_outlay": (src + "conv_i8.cu", "sifsr_tpu/pallas/conv_i8.py:464",
+                           "entry sifsr_conv_i8_outlay (int8 tensor cores, "
+                           "conv16_outlay_mma_kernel of csrc/conv16.cuh), kernel shared with "
+                           "conv_i8_generic at 16 -> 1"),
         "conv_prow": (src + "conv_px.cu", "sifsr_tpu/pallas/conv_px.py:335",
                       "entry sifsr_conv_prow (int8 tensor cores: at 16 channels the kernel "
                       "of conv_i8_exact, csrc/conv16.cuh; at 32 and 64 conv_prow_mma_kernel), "

@@ -16,6 +16,9 @@
 // requant_bits: the same values as __int2float_rn and rintf; a 16-channel
 // accumulator stays below 2^22 whatever COUT is), since Hopper converts 16
 // values a clock an SM.
+//
+// The outlay (kernel F, and the generic entry at 16 -> 1) is a sibling on the
+// same ring and loop at one n8 tile: one float32 value a pixel, no staging.
 
 #pragma once
 
@@ -59,6 +62,25 @@ struct Conv16Layout {
   static constexpr size_t BYTES = OFF_HALO + (size_t)STAGES * NIN * HALO;
 };
 
+// Start the copies of tile t's NIN halos (TH x C16_TW output tiles, tiles_x
+// a tile row, per_img an image) into stage `stage` of the ring at `ring`;
+// past the last tile nothing is copied. Commits the group either way.
+template <int NIN, int TH>
+__device__ __forceinline__ void issue_halo16(int8_t* ring, const int8_t* const (&x)[NIN], int t,
+                                             int stage, int n_tiles, int tiles_x, int per_img,
+                                             int h, int w) {
+  constexpr int HH = TH + 2, HWD = C16_TW + 2;
+  constexpr size_t HALO = (size_t)HH * HWD * 16;
+  if (t < n_tiles) {
+    const int img = t / per_img, r = t % per_img;
+    const int y0 = (r / tiles_x) * TH - 1, x0 = (r % tiles_x) * C16_TW - 1;
+#pragma unroll
+    for (int i = 0; i < NIN; ++i)
+      load_halo_async<16, HH, HWD>(ring + (stage * NIN + i) * HALO, x[i], img, y0, x0, h, w);
+  }
+  cp_async_commit();
+}
+
 template <int NIN, int COUT, bool PM, bool RES, int TH, int RPP, int STAGES, int MINB>
 __global__ void __launch_bounds__(THREADS, MINB)
 conv16_mma_kernel(const Conv16Args<NIN> a) {
@@ -74,15 +96,7 @@ conv16_mma_kernel(const Conv16Args<NIN> a) {
   const int tiles_x = (w + C16_TW - 1) / C16_TW, per_img = tiles_x * ((h + TH - 1) / TH);
   const int n_tiles = a.n * per_img;
   auto issue = [&](int t, int stage) {
-    if (t < n_tiles) {
-      const int img = t / per_img, r = t % per_img;
-      const int y0 = (r / tiles_x) * TH - 1, x0 = (r % tiles_x) * C16_TW - 1;
-#pragma unroll
-      for (int i = 0; i < NIN; ++i)
-        load_halo_async<16, L::HH, L::HWD>(tc_smem + L::OFF_HALO + (stage * NIN + i) * L::HALO,
-                                           a.x[i], img, y0, x0, h, w);
-    }
-    cp_async_commit();
+    issue_halo16<NIN, TH>(tc_smem + L::OFF_HALO, a.x, t, stage, n_tiles, tiles_x, per_img, h, w);
   };
   for (int s = 0; s < STAGES - 1; ++s) issue(blockIdx.x + s * gridDim.x, s);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
@@ -210,6 +224,77 @@ struct Conv16Entry {
   }
   static int launch(const Conv16Args<NIN>& a, cudaStream_t s) {
     return launch_persistent(kernel(), SMEM, tiles(a.n, a.h, a.w), s, a);
+  }
+};
+
+// The outlay: x (N,H,W,16) int8 -> out (N,H,W) float32
+//   y = acc * scale + bias [ReLU]
+// (two roundings; the caller folds the input scale and the Kelvin
+// de-normalise into the two scalars). conv16_mma at one n8 tile: column 0
+// holds the weights, columns 1-7 zeros, 5 products an m16 tile. Each warp
+// takes TH / 8 tile rows, a 32-pixel row (two m16 tiles) at a time; channel 0
+// of pixel p of the row sits in lane 4 (p % 8), register c0 (p % 16 < 8) or c2,
+// of m16 tile p / 16, so four shuffles give lane p its pixel and the warp
+// writes the row as one 128-byte store. Shared memory is the halo ring only.
+template <int TH, int STAGES, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+conv16_outlay_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+                         const float* __restrict__ scale, const float* __restrict__ bias,
+                         float* __restrict__ out, int n, int h, int w, int relu) {
+  constexpr int HWD = C16_TW + 2, RPW = TH / WARPS;
+  constexpr size_t HALO = (size_t)(TH + 2) * HWD * 16;
+  static_assert(TH % WARPS == 0, "whole rows a warp");
+  extern __shared__ __align__(128) int8_t tc_smem[];
+  const int tiles_x = (w + C16_TW - 1) / C16_TW, per_img = tiles_x * ((h + TH - 1) / TH);
+  const int n_tiles = n * per_img;
+  const int8_t* const xs[1] = {x};
+  for (int s = 0; s < STAGES - 1; ++s)
+    issue_halo16<1, TH>(tc_smem, xs, blockIdx.x + s * gridDim.x, s, n_tiles, tiles_x, per_img,
+                        h, w);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  W16Frags<1> wf;
+  load_w16<1, 1>(wf, wt);
+  const float sc = __ldg(scale), bi = __ldg(bias);
+  const int src = 4 * (lane & 7), part = lane >> 3;  // the lane and value of this lane's pixel
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // this tile's halo is in; the last tile's stage is free
+    issue_halo16<1, TH>(tc_smem, xs, t + (STAGES - 1) * gridDim.x, (it + STAGES - 1) % STAGES,
+                        n_tiles, tiles_x, per_img, h, w);
+    const int img = t / per_img, rt = t % per_img;
+    const int y0 = (rt / tiles_x) * TH + warp * RPW, gx = (rt % tiles_x) * C16_TW + lane;
+    const int8_t* sh = tc_smem + (it % STAGES) * HALO;
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int p0[2] = {(warp * RPW + r) * HWD + a_row(), (warp * RPW + r) * HWD + 16 + a_row()};
+      int acc[2][1][4] = {};
+      conv16_mma<HWD, 2, 1>(acc, sh, wf, p0);
+      const int v0 = __shfl_sync(0xffffffffu, acc[0][0][0], src);
+      const int v1 = __shfl_sync(0xffffffffu, acc[0][0][2], src);
+      const int v2 = __shfl_sync(0xffffffffu, acc[1][0][0], src);
+      const int v3 = __shfl_sync(0xffffffffu, acc[1][0][2], src);
+      const int v = part == 0 ? v0 : part == 1 ? v1 : part == 2 ? v2 : v3;
+      float y = __fadd_rn(__fmul_rn(i2f_small(v), sc), bi);
+      if (relu) y = fmaxf(y, 0.f);
+      const int gy = y0 + r;
+      if (gy < h && gx < w) out[((size_t)img * h + gy) * w + gx] = y;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int TH, int STAGES, int MINB>
+struct OutlayEntry {
+  static constexpr size_t SMEM = (size_t)STAGES * (TH + 2) * (C16_TW + 2) * 16;
+  static auto kernel() { return conv16_outlay_mma_kernel<TH, STAGES, MINB>; }
+  static int tiles(int n, int h, int w) {
+    return n * ((h + TH - 1) / TH) * ((w + C16_TW - 1) / C16_TW);
+  }
+  static int launch(const int8_t* x, const int8_t* wt, const float* scale, const float* bias,
+                    float* out, int n, int h, int w, int relu, cudaStream_t s) {
+    return launch_persistent(kernel(), SMEM, tiles(n, h, w), s, x, wt, scale, bias, out, n, h,
+                             w, relu);
   }
 };
 

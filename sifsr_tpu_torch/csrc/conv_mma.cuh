@@ -1,8 +1,9 @@
 // The int8 tensor-core main loops of the replicate-pad 3x3 convs: the one of
 // inputs of 32 or more channels (kernels G and H at db2/db3, I, J, K and L in
-// csrc/conv_px.cu), and the 16-channel tap-pair form (the kernel of
-// csrc/conv16.cuh: B and C in csrc/conv_i8.cu, G and H at db1). The other
-// int8 convs (D, E, F, the generic conv) keep the dp4a loop of
+// csrc/conv_px.cu), and the 16-channel tap-pair form (the kernels of
+// csrc/conv16.cuh: B and C in csrc/conv_i8.cu, G and H at db1, and the
+// 16 -> 1 outlay). D and E (2 input channels) build their A fragments
+// themselves (csrc/conv_i8.cu); the generic conv keeps the dp4a loop of
 // csrc/conv_tile.cuh.
 //
 // Implicit GEMM on mma.sync.m16n8k32 s8 x s8 -> s32: rows are output pixels,
@@ -203,16 +204,19 @@ struct W16Frags {
   uint32_t last[NT];
 };
 
-// From HWIO int8 weights (3,3,16,8*NT) in device memory.
-template <int NT>
+// From HWIO int8 weights (3,3,16,COUT) in device memory; the columns of the
+// NT n8 tiles past COUT (the outlay's 1 of 8) hold zeros.
+template <int NT, int COUT = 8 * NT>
 __device__ __forceinline__ void load_w16(W16Frags<NT>& f, const int8_t* __restrict__ wt) {
-  constexpr int COUT = 8 * NT;
+  static_assert(COUT >= 1 && COUT <= 8 * NT, "COUT within the NT n8 tiles");
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   auto word = [&](int tap, int j) {
     uint32_t v = 0;
+    if (COUT == 8 * NT || 8 * j + g < COUT) {
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
-      v |= (uint32_t)(uint8_t)__ldg(wt + (tap * 16 + 4 * tq + b) * COUT + 8 * j + g) << (8 * b);
+      for (int b = 0; b < 4; ++b)
+        v |= (uint32_t)(uint8_t)__ldg(wt + (tap * 16 + 4 * tq + b) * COUT + 8 * j + g) << (8 * b);
+    }
     return v;
   };
 #pragma unroll
@@ -272,9 +276,15 @@ __device__ __forceinline__ void conv16_mma(int (&acc)[MT][NT][4], const int8_t* 
 // |acc| <= 9 * 16 * 128 * 128 = 2,359,296 < 2^22, so the bits
 // 0x4B400000 + acc are the float 1.5 * 2^23 + acc, and subtracting 1.5 * 2^23
 // is exact: __int2float_rn(acc).
-__device__ __forceinline__ float i2f_small(int v) {
-  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);
+constexpr int I2F_BIAS = 0x4B400000;  // the bits of 1.5 * 2^23
+
+// __int2float_rn(acc) from the bits I2F_BIAS + acc: an MMA whose int32 sums
+// start at I2F_BIAS yields them, so that the add folds into the products.
+__device__ __forceinline__ float i2f_biased(int bits) {
+  return __fsub_rn(__int_as_float(bits), 12582912.f);
 }
+
+__device__ __forceinline__ float i2f_small(int v) { return i2f_biased(I2F_BIAS + v); }
 
 // requant (conv_tile.cuh) as the int8 in the low byte: [ReLU], clip to
 // [-127, 127] (before the rounding: the bounds are integers and rint is

@@ -1,8 +1,9 @@
-// The 8x32-tile dp4a main loop of the replicate-pad 3x3 int8 convs of
-// csrc/conv_i8.cu (kernels D, E, F, the generic conv): halo and weight loads
-// into shared memory, the int32 inner product; and the float32 epilogue
-// helpers and 16-byte int8 stores that every conv kernel uses. Kernels B, C
-// and G-L run on the int8 tensor cores instead (conv_mma.cuh).
+// The 8x32-tile dp4a main loop of the generic replicate-pad 3x3 int8 conv
+// of csrc/conv_i8.cu (every shape but the outlay's 16 -> 1): halo and weight
+// loads into shared memory, the int32 inner product; and the float32
+// epilogue helpers and 16-byte int8 stores that every conv kernel uses.
+// Kernels B-L and the outlay run on the int8 tensor cores instead
+// (conv_mma.cuh, conv16.cuh, conv_i8.cu).
 //
 // One block of 256 threads per 8x32 output tile, each thread one pixel and
 // all its output channels; the (8+2)x(32+2) input halo is loaded once into
@@ -41,34 +42,6 @@ __device__ __forceinline__ void load_halo(int32_t* s, const int8_t* __restrict__
     const int gy = clampi(y0 - 1 + p / HW, 0, h - 1);
     const int gx = clampi(x0 - 1 + p % HW, 0, w - 1);
     s[i] = __ldg(xw + (((size_t)n * h + gy) * w + gx) * CW + cw);
-  }
-}
-
-// Halo tile of two single-channel int8 images in one word: byte 0 from a,
-// byte 1 from b (channels 2, 3 zero).
-__device__ __forceinline__ void load_halo_pair(int32_t* s, const int8_t* __restrict__ a,
-                                               const int8_t* __restrict__ b, int n,
-                                               int y0, int x0, int h, int w) {
-  for (int i = threadIdx.x; i < HALO; i += NT) {
-    const int gy = clampi(y0 - 1 + i / HW, 0, h - 1);
-    const int gx = clampi(x0 - 1 + i % HW, 0, w - 1);
-    const size_t o = ((size_t)n * h + gy) * w + gx;
-    s[i] = (int32_t)((uint32_t)(uint8_t)__ldg(a + o) |
-                     ((uint32_t)(uint8_t)__ldg(b + o) << 8));
-  }
-}
-
-// The same word from one channel-interleaved (N,H,W,2) int8 image: the two
-// bytes of a pixel are one aligned 16-bit load (little-endian: byte 0 is
-// channel 0).
-__device__ __forceinline__ void load_halo_pair_interleaved(int32_t* s,
-                                                           const int8_t* __restrict__ x, int n,
-                                                           int y0, int x0, int h, int w) {
-  const uint16_t* xp = reinterpret_cast<const uint16_t*>(x);
-  for (int i = threadIdx.x; i < HALO; i += NT) {
-    const int gy = clampi(y0 - 1 + i / HW, 0, h - 1);
-    const int gx = clampi(x0 - 1 + i % HW, 0, w - 1);
-    s[i] = (int32_t)(uint32_t)__ldg(xp + ((size_t)n * h + gy) * w + gx);
   }
 }
 

@@ -1,9 +1,11 @@
 """Kernels B-F and the generic int8 conv: replicate-pad 3x3 int8 convs.
 
-Counterparts, CUDA source ``csrc/conv_i8.cu``; B and C run on the int8
-tensor cores (the 16-channel loop of ``csrc/conv_mma.cuh``, persistent
-blocks whose grid and shared memory ``conv_px.tensor_core_launch`` gives),
-the others on the dp4a loop of ``csrc/conv_tile.cuh``:
+Counterparts, CUDA source ``csrc/conv_i8.cu``. B-F run on the int8 tensor
+cores in persistent blocks whose grid and shared memory
+``conv_px.tensor_core_launch`` gives: B and C on the 16-channel loop of
+``csrc/conv_mma.cuh``, D and E as one k32 chunk a pixel, F (and the generic
+conv at 16 -> 1) on the 16-channel loop at one n8 tile; the generic conv's
+other shapes run on the dp4a loop of ``csrc/conv_tile.cuh``:
 
 - ``conv_i8_exact`` (B): ``sifsr_tpu/pallas/conv_i8.py::conv_i8_exact``,
   16 -> 16 with the optional fused phase mean (inbloc.conv2, ub3.conv2);

@@ -238,25 +238,28 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _MMA_KINDS = {"dual": 0, "up2": 1, "up2_vpu": 2, "prow": 3, "prow_res": 4, "pool": 5}
-# B and C (csrc/conv_i8.cu, 16 channels in and out)
-_MMA16_KINDS = {"exact": 0, "exact_pm": 1, "exact_dual": 2}
+# the entries of csrc/conv_i8.cu, each at one channel pair: kind -> (index, cin, cout)
+_MMA_I8_KINDS = {"exact": (0, 16, 16), "exact_pm": (1, 16, 16), "exact_dual": (2, 16, 16),
+                 "in1_split": (3, 2, 16), "in1": (4, 2, 16), "outlay": (5, 16, 1)}
 
 
 def tensor_core_launch(kind: str, n: int, h: int, w: int, cin: int, cout: int) -> dict:
     """The launch the tensor-core entry ``kind`` ('dual': J and L, 'up2': I
     and K, 'up2_vpu': their float32 chain, 'prow' and 'prow_res': G without
     and with the residual, 'pool': H; 'exact', 'exact_pm': B without and
-    with the phase mean, 'exact_dual': C, at 16 channels) makes for an
-    (n,h,w,cin) input: {'blocks': persistent grid, 'smem_bytes': dynamic
-    shared memory a block, 'tiles': output tiles the blocks walk}. Needs the
-    card."""
+    with the phase mean, 'exact_dual': C, at 16 channels; 'in1_split': D and
+    'in1': E at 2 -> 16; 'outlay': F and the generic conv at 16 -> 1) makes
+    for an (n,h,w,cin) input: {'blocks': persistent grid, 'smem_bytes':
+    dynamic shared memory a block, 'tiles': output tiles the blocks walk}.
+    Needs the card."""
     out = [ctypes.c_int(0) for _ in range(3)]
     refs = [ctypes.byref(v) for v in out]
-    if kind in _MMA16_KINDS:
-        if (cin, cout) != (16, 16):
-            raise ValueError(f"{kind} takes 16 -> 16 channels, got {cin} -> {cout}")
+    if kind in _MMA_I8_KINDS:
+        index, kin, kout = _MMA_I8_KINDS[kind]
+        if (cin, cout) != (kin, kout):
+            raise ValueError(f"{kind} takes {kin} -> {kout} channels, got {cin} -> {cout}")
         lib = _conv_i8_lib()
-        code = lib.sifsr_conv_i8_mma_shape(_MMA16_KINDS[kind], n, h, w, *refs)
+        code = lib.sifsr_conv_i8_mma_shape(index, n, h, w, *refs)
     else:
         lib = _lib()
         code = lib.sifsr_conv_mma_shape(_MMA_KINDS[kind], cin, cout, n, h, w, *refs)

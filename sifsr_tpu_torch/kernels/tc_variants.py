@@ -1,14 +1,16 @@
-"""Where the time of the tensor-core convs (kernels B, C, G-L) goes, on the card.
+"""Where the time of the tensor-core convs (kernels B-L, the outlay) goes, on the card.
 
-    python -m sifsr_tpu_torch.kernels.tc_variants [--reps 7]
+    python -m sifsr_tpu_torch.kernels.tc_variants [--reps 7] [--only D,F]
 
 Builds ``csrc/conv_px.cu`` and ``csrc/conv_i8.cu`` as they are and in
 variants made by editing the source text (each edit must match exactly
 once; a variant rebuilds the sources its edits touch, every source for an
 edited header), then times kernels B (with and without the phase mean), C,
-G (its three shapes, with and without the residual), H (both shapes), J
-(both shapes), I (both shapes, both x2 tables) and K (both tables) at the
-serving shapes (batch 324), every variant in turns within one process (in
+D, the outlay (F's entry), G (its three shapes, with and without the
+residual), H (both shapes), J (both shapes), I (both shapes, both x2
+tables) and K (both tables) at the serving shapes (batch 324), or those
+whose case names start with one of ``--only``'s letters, every variant in
+turns within one process (in
 order, then in reverse); a timed repeat queues BURST calls back to back, so
 that the wrapper's host work for one call overlaps the card's work on the
 last and the time is the card's:
@@ -34,7 +36,12 @@ last and the time is the card's:
   16 input channels, four in place of two at 32 and three at 64;
 - ``prow_blocks``: G and H at 32 and 64 input channels with the register cap
   of three blocks an SM in place of two at 32, of one (uncapped) at 64;
-- ``cvt``: the epilogues of B, C, G and H with the conversion instructions
+- ``in1_rows``: D and E on 16-row output tiles (two rows a warp) in place of
+  32-row ones;
+- ``in1_blocks``: D and E with the register cap of five blocks an SM in
+  place of four;
+- ``ol_ring``: the outlay with four halo stages in place of three;
+- ``cvt``: the epilogues of B, C, D, G, H and the outlay with the conversion instructions
   (``__int2float_rn``, ``rintf`` and the float-to-int cast) in place of the
   exact float and integer forms (``i2f_small``, ``requant_bits``): the same
   values, another unit;
@@ -42,20 +49,27 @@ last and the time is the card's:
   the same fragments (the ldmatrix loads stay): the time without the
   tensor-core work;
 - ``no_halo``: the halo copies dropped (the kernels compute on whatever shared
-  memory holds): the time without the input traffic;
+  memory holds; D and E still write their halo buffers, from registers
+  that hold no input): the time without the input traffic;
+- ``no_store``: the output stores of D, E and the outlay dropped (the
+  epilogue and its staging stay): the time without the output traffic;
 - ``no_x2``: the x2 epilogue of I and K replaced by a copy of the centre tap
   to each output (the stores stay): the time without the upsample
   arithmetic. J has no x2; its ``no_x2`` row is the built code again, a
   reading of the noise.
 
 A variant that leaves a kernel's code as built (the ``c16_*`` and ``cvt``
-rows of I-L, the ``one_block``, ``m_seq`` and ``no_x2`` rows of B, C, G and
-H, the ``prow_*`` rows of all but G and H) reads the noise. The outputs of
-``built``, ``one_block``, ``m_seq``, ``c16_rows``, ``c16_ring4``,
-``c16_two_rows``, the ``prow_*`` variants and ``cvt`` are checked against
-the plain versions; the other variants' outputs are meaningless and only timed. Prints
-a line per kernel and variant and, last, one JSON object of the times with
-the card's name and power limit. Needs the card and nvcc.
+rows of I-L, the ``one_block``, ``m_seq`` and ``no_x2`` rows of B-H and the
+outlay, the ``prow_*`` rows of all but G and H, the ``in1_*``, ``ol_ring``
+and ``no_store`` rows of all but D and the outlay) reads the noise. The
+outputs of ``built``, ``one_block``, ``m_seq``, ``c16_rows``, ``c16_ring4``,
+``c16_two_rows``, the ``prow_*`` and ``in1_*`` variants, ``ol_ring`` and
+``cvt`` are checked against the plain versions; the other variants' outputs
+are meaningless and only timed. First it times the card on bare streams of
+the 16-channel 256² output's size (``zero_``: 340 MB written; ``copy_``:
+340 MB read and written), what a kernel whose output is its bytes can
+reach. Prints a line per kernel and variant and, last, one JSON object of
+the times with the card's name and power limit. Needs the card and nvcc.
 """
 
 from __future__ import annotations
@@ -75,9 +89,10 @@ from sifsr_tpu_torch.kernels import _build, conv_i8, conv_px
 N = 324
 BURST = 5
 VARIANTS = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "prow_rows",
-            "prow_ring", "prow_blocks", "cvt", "no_mma", "no_halo", "no_x2")
+            "prow_ring", "prow_blocks", "in1_rows", "in1_blocks", "ol_ring", "cvt",
+            "no_mma", "no_halo", "no_store", "no_x2")
 CHECKED = ("built", "one_block", "m_seq", "c16_rows", "c16_ring4", "c16_two_rows", "prow_rows",
-           "prow_ring", "prow_blocks", "cvt")
+           "prow_ring", "prow_blocks", "in1_rows", "in1_blocks", "ol_ring", "cvt")
 SOURCES = ("conv_px.cu", "conv_i8.cu", "conv16.cuh", "conv_mma.cuh", "conv_tile.cuh")
 
 # J's two m16 tiles a warp, accumulated together (as built) or one after
@@ -180,10 +195,19 @@ _EDITS = {
         ("conv_px.cu", "constexpr int prow_blocks(int) { return 2; }",
          "constexpr int prow_blocks(int cin) { return cin == 64 ? 1 : 3; }"),
     ],
+    "in1_rows": [
+        ("conv_i8.cu", "constexpr int IN1_ROWS = 32;", "constexpr int IN1_ROWS = 16;"),
+    ],
+    "in1_blocks": [
+        ("conv_i8.cu", "constexpr int IN1_MIN_BLOCKS = 4;", "constexpr int IN1_MIN_BLOCKS = 5;"),
+    ],
+    "ol_ring": [
+        ("conv_i8.cu", "constexpr int OL_RING = 3;", "constexpr int OL_RING = 4;"),
+    ],
     "cvt": [
         ("conv_mma.cuh",
-         "  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);",
-         "  return __int2float_rn(v);"),
+         "  return __fsub_rn(__int_as_float(bits), 12582912.f);",
+         "  return __int2float_rn(bits - I2F_BIAS);"),
         ("conv_mma.cuh",
          """  y = fminf(fmaxf(y, relu ? 0.f : -127.f), 127.f);
   return __float_as_uint(__fadd_rn(y, 12582912.f));""",
@@ -215,6 +239,20 @@ _EDITS = {
          "    cp_async16(base + swz<CH>(p, c) * 16, "
          "x + (((size_t)n * h + gy) * w + gx) * C + c * 16);",
          "    (void)base, (void)gy, (void)gx;"),
+        ("conv_i8.cu",
+         """        if constexpr (INTERLEAVED)
+          pf[k] = __ldg(reinterpret_cast<const uint16_t*>(lst) + o);
+        else
+          pf[k] = (uint32_t)(uint8_t)__ldg(lst + o) | (uint32_t)(uint8_t)__ldg(ndvi + o) << 8;""",
+         "        pf[k] = (uint32_t)o;"),
+    ],
+    "no_store": [
+        ("conv_i8.cu", """      if (gy < h && gx < w)
+        *reinterpret_cast<uint4*>(out + (((size_t)img * h + gy) * w + gx) * 16) =""",
+         """      if (gy < h && gx < w && relu == 7)
+        *reinterpret_cast<uint4*>(out + (((size_t)img * h + gy) * w + gx) * 16) ="""),
+        ("conv16.cuh", "      if (gy < h && gx < w) out[((size_t)img * h + gy) * w + gx] = y;",
+         "      if (gy < h && gx < w && relu == 7) out[((size_t)img * h + gy) * w + gx] = y;"),
     ],
     "no_x2": [
         ("conv_px.cu",
@@ -292,6 +330,16 @@ def _time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def _streams(dev, reps: int) -> dict:
+    """Times of bare streams of a (N,256,256,16) int8 tensor: ``zero_`` (340
+    MB written) and ``copy_`` into another (340 MB read, 340 MB written)."""
+    a = torch.empty((N, 256, 256, 16), dtype=torch.int8, device=dev)
+    b = torch.empty_like(a)
+    out = {"zero_": _time_ms(a.zero_, reps), "copy_": _time_ms(lambda: b.copy_(a), reps)}
+    del a, b
+    return out
+
+
 def _cases(dev, rng):
     """(name, kernel call, plain call) at the serving shapes, inputs as
     chip_smoke.py makes them."""
@@ -303,6 +351,16 @@ def _cases(dev, rng):
         return [torch.from_numpy(a).to(dev) for a in
                 (x, w, (40.0 / acc_rms).astype(np.float32),
                  rng.normal(0.0, 4.0, cout).astype(np.float32))]
+
+    x2, w1, s1, b1 = conv_args(2, 16, 256)
+    planes = (x2[..., 0].contiguous(), x2[..., 1].contiguous())
+    del x2
+    d_args = (*planes, w1, s1, b1)
+    yield ("D 2->16 256²", lambda a=d_args: conv_i8.conv_i8_in1_split(*a),
+           lambda a=d_args: conv_i8.conv_i8_in1_split_plain(*a))
+    ol_args = conv_args(16, 1, 256)
+    yield ("F outlay 16->1 256²", lambda a=ol_args: conv_i8.conv_i8_outlay(*a),
+           lambda a=ol_args: conv_i8.conv_i8_outlay_plain(*a))
 
     b_args = conv_args(16, 16, 256)
     pm = float(np.float32(0.9) / np.float32(4.0))
@@ -346,7 +404,7 @@ def _cases(dev, rng):
                    lambda a=args, t=tabs: conv_px.conv_prow_up2_plain(*a, *t))
 
 
-def main(reps: int = 7) -> None:
+def main(reps: int = 7, only: str = "") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("tc_variants: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -356,8 +414,15 @@ def main(reps: int = 7) -> None:
     libs = build_variants()
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda")
+    streams = _streams(dev, reps)
+    nbytes = N * 256 * 256 * 16
+    rates = {k: (1 if k == "zero_" else 2) * nbytes / t / 1e9 for k, t in streams.items()}
+    print("streams: " + ", ".join(f"{k} {t:.4f} ms ({rates[k]:.2f} TB/s)"
+                                  for k, t in streams.items()), flush=True)
     result = {}
     for name, kern, plain in _cases(dev, np.random.default_rng(0)):
+        if only and name[0] not in only.split(","):
+            continue
         want = plain()
         times = {v: [] for v in VARIANTS}
         for v in VARIANTS + VARIANTS[::-1]:
@@ -371,10 +436,13 @@ def main(reps: int = 7) -> None:
         print(f"{name}: " + ", ".join(f"{v} {t[0]:.4f} / {t[1]:.4f} ms" for v, t in times.items()),
               flush=True)
     print(json.dumps({"device": smi.splitlines()[0], "batch": N, "reps": reps, "burst": BURST,
-                      "ms_two_turns": result}))
+                      "streams_ms": streams, "ms_two_turns": result}))
 
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=7, help="timed repeats a median is taken over")
-    main(parser.parse_args().reps)
+    parser.add_argument("--only", default="",
+                        help="comma-separated first letters of the cases to time (default: all)")
+    args = parser.parse_args()
+    main(args.reps, args.only)

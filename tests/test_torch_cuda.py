@@ -219,15 +219,24 @@ def test_conv_prow_dual_planes_cuda(rng, cuda, c):
 def _sat_args(rng, cuda, n, h, w, cin, cout, mode):
     """Saturating int8 operands: 'mixed' has inputs and weights of +-127 with
     random signs, 'max' all +127 (the largest accumulator, 9*cin*127^2 =
-    9,290,304 at 64 channels), 'coherent' the signs of x and w aligned over
-    the input channels (w = 127 s[ci] t[co], x = 127 s[ci] r with r = +-1 on
-    4x4 pixel blocks, one value in 32 flipped), so that most accumulators
-    are near the largest and differ from pixel to pixel. The scales put the
-    outputs mid-range, so the float32 epilogue rounds at large accumulator
-    values."""
-    if mode == "max":
-        x = np.full((n, h, w, cin), 127, np.int8)
+    9,290,304 at 64 channels), 'min' inputs all -127 and weights all +127 (the
+    most negative), 'alternating' +-127 in a checkerboard over pixels and
+    channels (weights over taps and channels), 'coherent' the signs of x and
+    w aligned over the input channels (w = 127 s[ci] t[co], x = 127 s[ci] r
+    with r = +-1 on 4x4 pixel blocks, one value in 32 flipped), so that most
+    accumulators are near the largest and differ from pixel to pixel. The
+    scales put the outputs mid-range, so the float32 epilogue rounds at large
+    accumulator values."""
+    if mode in ("max", "min"):
+        x = np.full((n, h, w, cin), 127 if mode == "max" else -127, np.int8)
         wt = np.full((3, 3, cin, cout), 127, np.int8)
+        acc = 9 * cin * 127.0 * 127.0
+    elif mode == "alternating":
+        yy, xx, cc = np.ogrid[:h, :w, :cin]
+        x = np.broadcast_to((127 * (-1) ** (yy + xx + cc)).astype(np.int8), (n, h, w, cin))
+        tt, ci, co = np.ogrid[:9, :cin, :cout]
+        wt = (127 * (-1) ** (tt + ci + co)).astype(np.int8).reshape(3, 3, cin, cout)
+        x = np.ascontiguousarray(x)
         acc = 9 * cin * 127.0 * 127.0
     elif mode == "coherent":
         s, t = rng.choice([-1, 1], cin), rng.choice([-1, 1], cout)
@@ -560,3 +569,111 @@ def test_degrade_batch_runs_norm_l4_kernel_cuda(rng, cuda):
     for k in want:
         assert got[k].shape == want[k].shape
         assert float((got[k].cpu() - want[k]).abs().max()) <= 2e-5, k
+
+
+# Tilings of D, E (2 -> 16, 32x32 output tiles) and the outlay (16 -> 1,
+# 32x32 tiles) on the int8 tensor cores, persistent grids of k x the SM
+# count: batch 1 and 3, H and W of 8, 40, 72 and 256 (off the tile or
+# shorter than it), odd sizes, and a batch whose tiles outnumber the grid by
+# a remainder (13 x 64 tiles).
+IN1_SHAPES = [(1, 8, 8), (1, 8, 40), (3, 40, 72), (1, 72, 40), (3, 37, 45), (3, 256, 40),
+              (13, 256, 256)]
+SAT_MODES = ["max", "min", "mixed", "alternating", "coherent"]
+
+
+def _in1_args(rng, cuda, n, h, w, mode=None):
+    """x (n,h,w,2) and D's weights, scale and bias; with ``mode`` saturating."""
+    if mode is not None:
+        return _sat_args(rng, cuda, n, h, w, 2, 16, mode)
+    return [_i8(rng, (n, h, w, 2)).to(cuda)] + _conv_args(rng, cuda, 1, 1, 1, 2, 16)[1:]
+
+
+def _check_in1(x, args, relu):
+    """D on the planes and E on the interleaved tensor, each identical to its
+    plain version, E to D; one launch each. Returns the plain output."""
+    planes = (x[..., 0].contiguous(), x[..., 1].contiguous())
+    conv_i8.conv_i8_in1_split.launches = conv_i8.conv_i8_in1.launches = 0
+    d = conv_i8.conv_i8_in1_split(*planes, *args, relu=relu)
+    e = conv_i8.conv_i8_in1(x, *args, relu=relu)
+    torch.cuda.synchronize()
+    assert conv_i8.conv_i8_in1_split.launches == conv_i8.conv_i8_in1.launches == 1
+    want = conv_i8.conv_i8_in1_split_plain(*planes, *args, relu=relu)
+    _same(d, want)
+    _same(e, conv_i8.conv_i8_in1_plain(x, *args, relu=relu))
+    _same(e, d)
+    return want
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("n,h,w", IN1_SHAPES)
+def test_conv_i8_in1_tilings_cuda(rng, cuda, n, h, w, relu):
+    """Kernels D and E, bit for bit against their plain versions and each
+    other where a tiling breaks."""
+    x, *args = _in1_args(rng, cuda, n, h, w)
+    _check_in1(x, args, relu)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("mode", SAT_MODES)
+def test_conv_i8_in1_saturating_cuda(rng, cuda, mode, relu):
+    """D and E with every input and weight at +-127: accumulators up to
+    18 * 127^2 = 290,322 in magnitude, where the exact float conversion of
+    the epilogue has to hold."""
+    x, *args = _in1_args(rng, cuda, 3, 40, 72, mode)
+    want = _check_in1(x, args, relu)
+    if not (relu and mode == "min"):
+        assert float(want.float().abs().mean()) > 2.0
+
+
+def _check_outlay(x, wt, scale, bias):
+    """F, and the generic conv at 16 -> 1 with and without the ReLU, each
+    identical to its plain version, F to the generic conv; one launch each."""
+    conv_i8.conv_i8_outlay.launches = conv_i8.conv_i8_generic.launches = 0
+    f = conv_i8.conv_i8_outlay(x, wt, scale, bias)
+    g = conv_i8.conv_i8_generic(x, wt, scale, bias, relu=False)
+    gr = conv_i8.conv_i8_generic(x, wt, scale, bias, relu=True)
+    torch.cuda.synchronize()
+    assert conv_i8.conv_i8_outlay.launches == 1 and conv_i8.conv_i8_generic.launches == 2
+    assert f.shape == x.shape[:3] and f.dtype == torch.float32
+    want = conv_i8.conv_i8_outlay_plain(x, wt, scale, bias)
+    _same(f, want)
+    _same(g, conv_i8.conv_i8_generic_plain(x, wt, scale, bias, relu=False))
+    _same(gr, conv_i8.conv_i8_generic_plain(x, wt, scale, bias, relu=True))
+    _same(f, g[..., 0])
+    return want
+
+
+@pytest.mark.parametrize("n,h,w", IN1_SHAPES)
+def test_conv_i8_outlay_tilings_cuda(rng, cuda, n, h, w):
+    """The outlay kernel through both entries, bit for bit where a tiling
+    breaks (the de-normalise folded into scale and bias, as the step does)."""
+    x = _i8(rng, (n, h, w, 16)).to(cuda)
+    wt = _i8(rng, (3, 3, 16, 1), -40, 41).to(cuda)
+    _check_outlay(x, wt, _f32([0.0011]).to(cuda), _f32([301.5]).to(cuda))
+
+
+@pytest.mark.parametrize("mode", SAT_MODES)
+def test_conv_i8_outlay_saturating_cuda(rng, cuda, mode):
+    """The outlay with every input and weight at +-127: accumulators up to
+    144 * 127^2 = 2,322,576 in magnitude."""
+    x, wt, scale, bias = _sat_args(rng, cuda, 3, 40, 72, 16, 1, mode)
+    want = _check_outlay(x, wt, scale, bias)
+    assert float(want.abs().mean()) > 2.0
+
+
+@pytest.mark.parametrize("kind,cin,cout", [("in1_split", 2, 16), ("in1", 2, 16),
+                                           ("outlay", 16, 1)])
+def test_conv_i8_in1_outlay_launch_cuda(cuda, kind, cin, cout):
+    """D's, E's and the outlay's persistent grids at the serving shape (324 x
+    256²): a whole number of blocks on every SM, fewer than the tiles, within
+    the card's shared memory; one block for one tile; no shape query for
+    other channels."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = conv_px.tensor_core_launch(kind, 324, 256, 256, cin, cout)
+    assert got["tiles"] in [324 * (256 // th) * 8 for th in (8, 16, 32)], got
+    assert 0 < got["smem_bytes"] <= 232448, got
+    assert got["blocks"] % sms == 0 and got["blocks"] < got["tiles"], got
+    assert conv_px.tensor_core_launch(kind, 1, 8, 32, cin, cout)["blocks"] == 1
+    assert conv_px.tensor_core_launch(kind, 1, 8, 8, cin, cout)["tiles"] == 1
+    with pytest.raises(ValueError):
+        conv_px.tensor_core_launch(kind, 1, 8, 32, 16, 16)
