@@ -26,15 +26,20 @@ Phases, each of which raises on failure (no result line is printed then):
    needs it, D's K = 18 to 24 and the outlay's N = 1 to 8; the im2col is
    built beforehand and the yardstick checked against the exact conv on one
    image), and for B-L and the outlay their persistent grid and shared
-   memory a block; each call's share of the bytes rate. The
+   memory a block; each call's share of the bytes rate. First the card's
+   launch floor (a one-element ``zero_`` back to back in bursts of 20,
+   ``floor_ms`` in every entry): a call that moves under 1 MB is judged
+   against the larger of it and its bytes bound. The
    float kernels of the training losses at training batch 32:
    fused_psf_downscale forward at (32,256,256) and backward (32,64,64) ->
    (32,256,256) within max|d| 1e-5 of the plain version evaluated in
-   float64, fused_norm_l4 at (32,256,256) and (32,64,64) within 1e-6
+   float64 (bound: the bytes of the stream and the band, the banded
+   operations), fused_norm_l4 at (32,256,256) and (32,64,64) within 1e-6
    relative, each beside the PyTorch chain that computes the same function
-   (two matmuls and an add; pow/avg_pool2d/pow); value (1e-5) and gradient
-   (rtol 1e-4 / atol 1e-6) of huber(fused_psf_downscale(x), t) through
-   autograd against the plain chain;
+   (two matmuls and an add; pow/avg_pool2d/pow), and M beside one PyTorch
+   kernel that moves the same bytes (avg_pool2d, nearest x4); value (1e-5)
+   and gradient (rtol 1e-4 / atol 1e-6) of huber(fused_psf_downscale(x), t)
+   through autograd against the plain chain;
 4. float anchor: ModelB2 in float32 (TF32 off) vs the reference torch
    outputs in golden/ at rtol 1e-4 / atol 5e-5;
 5. whole granule: a seeded synthetic 1200² LST / 4800² NDVI granule through
@@ -247,6 +252,12 @@ def main(profile: bool = False) -> None:
         return 2.0 * n * h * w * 9 * cin * cout
 
     entries = {}
+    # the card's floor for one launch: a kernel that writes one float, timed
+    # as the training kernels are; a kernel that moves under 1 MB is judged
+    # against the larger of this and its bytes bound
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(torch, one.zero_, 10, burst=20)
+    log(f"launch floor: {floor_ms:.4f} ms (a one-element zero_, back to back in bursts of 20)")
 
     def int8_ms(ops):
         return ops / INT8_OPS_PER_S * 1e3
@@ -280,10 +291,14 @@ def main(profile: bool = False) -> None:
             plain_ms += p_ms
             b_ms += nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms += o_ms
+            small = "" if nbytes >= 1e6 else (
+                f"; under 1 MB, judged against max(bytes bound, floor) "
+                f"{max(nbytes / HBM_BYTES_PER_S * 1e3, floor_ms):.4f} ms "
+                f"({max(nbytes / HBM_BYTES_PER_S * 1e3, floor_ms) / k_ms:.1%} of it)")
             log(f"  {name} call: {k_ms:.4f} ms (plain {p_ms:.4f} ms), bytes bound "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
                 f"({nbytes / HBM_BYTES_PER_S * 1e3 / k_ms:.1%} of the bytes rate), ops bound "
-                f"{o_ms:.4f} ms"
+                f"{o_ms:.4f} ms" + small
                 + ("" if burst == 1 else f"; back to back in bursts of {burst}, a single call "
                    f"through the wrapper {time_ms(torch, kern, reps):.4f} ms"))
         if not err <= (tol or 0.0):
@@ -294,7 +309,7 @@ def main(profile: bool = False) -> None:
         entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=max(b_ms, ops_ms),
                              bound_by="bytes" if b_ms >= ops_ms else "operations",
-                             library_ms=lib_ms, calls=len(calls),
+                             library_ms=lib_ms, calls=len(calls), floor_ms=floor_ms,
                              **({} if library_is is None else {"library_is": library_is}),
                              **({} if launch is None else {"launch": launch}))
         log(f"kernel {name}: {len(calls)} call(s)/batch, "
@@ -608,18 +623,27 @@ def main(profile: bool = False) -> None:
 
     # M: the ds-loss degradation, forward (32,256,256) -> (32,64,64) and its
     # backward (32,64,64) -> (32,256,256) through autograd, against the plain
-    # version in float64; dense float32 operations at the CUDA cores' rate
+    # version in float64. The kernel reads M as a band: its operations are
+    # two for each nonzero of M and row of X (step 1) or of T (step 2), at
+    # the CUDA cores' float32 rate; its bytes X or g in, Y or dx out, the
+    # band and, forward, the constant
     mean_lst, std_lst = 295.0, 10.0
     B = TRAIN_BATCH
     xm = f32(rng.standard_normal((B, 256, 256)))
     gm = f32(rng.standard_normal((B, 64, 64)))
     m_mat, mt_mat, m_const = fused_ops._sandwich_constants(256, 4, 0.1, mean_lst, std_lst, dev)
-    sandwich_ops_ms = 2.0 * B * (64 * 256 * 256 + 64 * 256 * 64) / F32_OPS_PER_S * 1e3
-    sandwich_bytes = 4 * (B * 256 * 256 + B * 64 * 64 + 64 * 256)
+    band_m, band_mt = fused_ops._sandwich_bands(256, 4, 0.1, dev)
+    band_bytes = 4 * (band_m.coef.numel() + band_m.lo.numel())
+    m_nonzeros = int((m_mat != 0).sum())
+    sandwich_ops_ms = 2.0 * B * m_nonzeros * (256 + 64) / F32_OPS_PER_S * 1e3
+    sandwich_bytes = 4 * (B * 256 * 256 + B * 64 * 64)
+    log(f"kernel M's band: {band_m.coef.shape[1]} coefficients a row forward, "
+        f"{band_mt.coef.shape[1]} backward; {m_nonzeros} nonzeros in M; "
+        f"{2.0 * B * m_nonzeros * 320 / 1e6:.1f} MFLOP a call")
     check("fused_psf_downscale", [(
         lambda: fused_ops.fused_psf_downscale(xm, mean_lst, std_lst),
         lambda: fused_ops.fused_psf_downscale_plain(xm, mean_lst, std_lst),
-        sandwich_bytes + 4 * 64 * 64, sandwich_ops_ms,
+        sandwich_bytes + 4 * 64 * 64 + band_bytes, sandwich_ops_ms,
         lambda: fused_ops.fused_psf_downscale_plain(xm.double(), mean_lst, std_lst))],
         reps=10, plain_reps=10, tol=1e-5, burst=20,
         library=[lambda: torch.matmul(torch.matmul(m_mat, xm), mt_mat) + m_const])
@@ -632,11 +656,19 @@ def main(profile: bool = False) -> None:
     check("fused_psf_downscale_backward", [(
         lambda: torch.autograd.grad(y_kernel, xg, gm, retain_graph=True)[0],
         lambda: torch.autograd.grad(y_plain, xg, gm, retain_graph=True)[0],
-        sandwich_bytes, sandwich_ops_ms,
+        sandwich_bytes + 4 * (band_mt.coef.numel() + band_mt.lo.numel()), sandwich_ops_ms,
         lambda: torch.autograd.grad(y64, x64, gm.double(), retain_graph=True)[0])],
         reps=10, plain_reps=10, tol=1e-5, burst=20,
         library=[lambda: torch.matmul(torch.matmul(mt_mat, gm), m_mat)])
     del y_kernel, y_plain, y64, x64
+    # one PyTorch kernel that moves the same bytes each way: what a plain
+    # stream reaches here
+    log(f"stream references (bursts of 20): avg_pool2d 4x4 of (32,256,256) (the forward's "
+        f"bytes) {time_ms(torch, lambda: F.avg_pool2d(xm[:, None], 4), 10, 20):.4f} ms, "
+        f"nearest x4 of (32,64,64) (the backward's bytes) "
+        f"{time_ms(torch, lambda: F.interpolate(gm[:, None], scale_factor=4), 10, 20):.4f} ms, "
+        f"avg_pool2d 4x4 of (32,64,64) "
+        f"{time_ms(torch, lambda: F.avg_pool2d(gm[:, None], 4), 10, 20):.4f} ms")
 
     # value and gradient of huber(fused_psf_downscale(x), t) through autograd
     from sifsr_tpu_torch.losses.losses import huber

@@ -6,32 +6,49 @@
 // fused_psf_downscale's forward (A = M, the (64, 256) collapsed
 // pad/PSF/bicubic/crop matrix, C the renormalisation constant) and its
 // backward (A = Mᵀ, no constant). It is one entry point with runtime
-// dimensions (n, in, out), as the JAX package reuses _sandwich.
+// dimensions (n, in, out, width), as the JAX package reuses _sandwich.
 //
-// The TPU kernel holds one whole 256x256 float32 image (256 KB) in VMEM per
-// grid step; an SM has at most 227 KB of shared memory, so the block
-// structure is not carried over. Here a block computes kRows output rows of
-// one image:
-//   step 1  T = A[r0:r0+kRows, :]·X       (kRows, in)   into shared memory,
-//           one thread per column of X (coalesced reads of X rows), the A
-//           tile transposed in shared memory so that one 128-bit broadcast
-//           load feeds four multiply-adds;
-//   step 2  Y[r0:r0+kRows, :] = T·Aᵀ + C  (kRows, out), one thread per
-//           (four rows, one output column); Aᵀ is passed as its own
-//           row-major array so that these reads are coalesced too.
-// n·ceil(out/kRows) blocks: 128 for the forward at batch 32, 512 for the
-// backward. Every output element is summed by one thread in ascending
-// index order, so the result is deterministic (no atomics).
+// A is banded: row r of M has at most 2·factor + 4 nonzeros, one contiguous
+// run (12 of 256 at factor 4), and a row of Mᵀ at most 4. The TPU kernel
+// multiplies it densely on the MXU; here A comes as a band, row r's
+// `width` coefficients from column lo[r] (built on the host, zeros where a
+// row is shorter, lo[r] + width <= in), and every sum runs over the band
+// alone: 21 times fewer operations than the dense product at factor 4.
 //
-// Arithmetic is float32 throughout with explicit fused multiply-adds
-// (__fmaf_rn: one rounding per term, not two), whatever -fmad flag the
-// source is built with; the JAX kernel asks for Precision.HIGHEST, so no
-// TF32 and no tensor-core down-conversion. A is dense here as on the TPU,
-// although M is banded.
+// Bound on the H100, at batch 32: the forward reads X (8.4 MB) and writes
+// Y (0.5 MB), the backward reads g (0.5 MB) and writes dx (8.4 MB): 8.9 MB,
+// 2.7 us at 3.35 TB/s, against 15.6 MFLOP (0.23 us at 67 TFLOP/s). So bytes
+// bind, and at this size so does the latency of one block's chain (launch,
+// stage, two steps, store): every block of the grid is resident at once,
+// and the kernel takes about as long as one block does. A block takes one
+// image and `rows` consecutive output rows (8 forward, 256 blocks; 32
+// backward, 256 blocks):
+//   stage  the rows of X its bands cover (40 rows of 1 KB for 8 forward rows
+//          at factor 4; the host passes each tile's range by value) and the
+//          tile's band into shared memory with cp.async, every copy issued
+//          before any is waited for; meanwhile each thread loads its step-2
+//          columns' band into registers;
+//   step 1 T = A[r0:r0+rows, :]·X (rows, in) into shared memory, a thread a
+//          row and four consecutive columns (128-bit shared loads);
+//   step 2 Y[r0:r0+rows, :] = T·Aᵀ + C, a thread one group of columns over
+//          every few rows: forward, where neighbouring outputs read columns
+//          `factor` apart, one column (a warp's stores 128 contiguous
+//          bytes; T keeps column j at j + j/32, so those reads hit distinct
+//          banks); backward, where they read the same columns of T, four
+//          consecutive columns stored as one 16-byte word.
+// Rows of X that two tiles share (8 of 40 forward) are read twice, the
+// second time from L2. The host takes the tiling as fixed and refuses a
+// shape whose tiles do not fit (more than kMaxTiles, or a stage past the
+// shared memory): no caller comes near either.
 //
-// Bound on the H100: at batch 32 the forward moves 8.9 MB (3 us at
-// 3.35 TB/s) and does 0.34 GFLOP (5 us at 67 TFLOP/s): bound by
-// operations, and at this size launch latency is of the same order.
+// Arithmetic is float32 with one __fmaf_rn a term (one rounding, whatever
+// -fmad flag the source is built with), every sum from 0 in ascending
+// column order, and C added by its own __fadd_rn: the roundings of the JAX
+// kernel's two Precision.HIGHEST products (no TF32, no tensor cores). The
+// terms the band leaves out are exact zeros, and fma(0, x, s) == s for a
+// finite x, so on finite inputs the outputs equal a dense product's in the
+// same order bit for bit. A non-finite input spoils only the outputs whose
+// band covers it (the dense product spoils the whole image).
 //
 // norm_l4_kernel replaces sifsr_tpu/pallas/fused_ops.py::fused_norm_l4 (the
 // pl.pallas_call at fused_ops.py:146): y = (mean over each f x f block of
@@ -39,85 +56,172 @@
 // the block mean as two matmuls with an averaging matrix because Mosaic
 // cannot reshape the block; here one thread sums its block directly, rows
 // then columns. Bound by bytes (each input read once: 8.4 MB at
-// (32, 256, 256), 2.7 us); with f = 4 a thread reads one aligned 16-byte
-// word per block row, so a warp reads 512 consecutive bytes.
+// (32, 256, 256), 2.7 us) or, at the (32, 64, 64) of the scale-invariance
+// recipe (0.56 MB), by the card's floor for one launch; with f = 4 a thread
+// reads one aligned 16-byte word per block row, so a warp reads 512
+// consecutive bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 16;      // output rows per block
 constexpr int kThreads = 256;
+constexpr int kMaxBand = 32;   // the widest band the sandwich takes (factor 8: 20)
+constexpr int kMaxTiles = 128; // row tiles of one image the sandwich takes
 
-__global__ void __launch_bounds__(kThreads)
-sandwich_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                const float* __restrict__ at, const float* __restrict__ cst,
-                float* __restrict__ y, int in, int out, int tiles) {
+// Each tile's first and last-plus-one row of X, passed by value: the kernel
+// reads it from the launch's constant bank, with no memory round trip.
+struct TileRows {
+  int2 k[kMaxTiles];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// T's row keeps column j at j + j/32: outputs `factor` columns apart (any
+// power of two up to 32) then read distinct banks.
+__host__ __device__ inline int tcol(int j) { return j + (j >> 5); }
+
+// Shared memory of a block, in floats: the tile's rows of the band (rows x
+// width coefficients, rows starts), padded to 16 bytes, then T (rows x
+// tpitch), then the staged rows of X (span x pitch); pitch is `in` rounded
+// up to a multiple of 4.
+__host__ __device__ inline int band_words(int rows, int width) {
+  return (rows * (width + 1) + 3) & ~3;
+}
+__host__ __device__ inline int x_pitch(int in) { return (in + 3) & ~3; }
+__host__ __device__ inline int t_pitch(int in) { return (tcol(x_pitch(in)) + 3) & ~3; }
+
+// kVec: outputs a thread computes in step 2 (1, or 4 consecutive columns
+// stored as one float4: out % 4 == 0); kMaxW: the widest band it takes,
+// whose coefficients a thread holds in registers. tile_in.k[tile]: the
+// first and the last-plus-one row of X the tile's bands cover.
+template <int kVec, int kMaxW>
+__global__ void __launch_bounds__(kThreads, kVec == 4 ? 4 : 2)
+sandwich_kernel(const float* __restrict__ x, const int* __restrict__ lo,
+                const float* __restrict__ coef, const __grid_constant__ TileRows tile_in,
+                const float* __restrict__ cst, float* __restrict__ y, int in, int out,
+                int width, int rows, int tiles) {
   extern __shared__ float4 smem4[];
-  float* s_a = reinterpret_cast<float*>(smem4);  // [in][kRows]: the A tile, transposed
-  float* s_t = s_a + (size_t)in * kRows;         // [in][kRows]: T, transposed
-  const int n = blockIdx.x / tiles;
-  const int r0 = (blockIdx.x - n * tiles) * kRows;
-  const float* xn = x + (size_t)n * in * in;
+  const int pitch = x_pitch(in), tp = t_pitch(in);
+  const int n = blockIdx.x / tiles, tile = blockIdx.x - n * tiles;
+  const int r0 = tile * rows;
+  const int nr = min(rows, out - r0);
+  float* s_c = reinterpret_cast<float*>(smem4);            // [nr][width]
+  int* s_lo = reinterpret_cast<int*>(s_c + nr * width);    // [nr]
+  float* s_t = s_c + band_words(rows, width);              // [rows][tp]
+  float* s_x = s_t + rows * tp;                            // [k1 - k0][pitch]
 
-  // consecutive threads read consecutive k of one row of A; rows past
-  // `out` (a ragged last tile) are zero
-  for (int i = threadIdx.x; i < kRows * in; i += kThreads) {
-    const int tr = i / in, k = i - tr * in;
-    s_a[k * kRows + tr] = (r0 + tr < out) ? __ldg(a + (size_t)(r0 + tr) * in + k) : 0.f;
-  }
-  __syncthreads();
-
-  // step 1: T[:, j] = sum_k A[r0 + :, k] * X[k, j]
-  for (int j = threadIdx.x; j < in; j += kThreads) {
-    float acc[kRows];
-#pragma unroll
-    for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < in; ++k) {
-      const float xv = __ldg(xn + (size_t)k * in + j);
-      const float4* ak = reinterpret_cast<const float4*>(s_a + k * kRows);
-#pragma unroll
-      for (int q = 0; q < kRows / 4; ++q) {
-        const float4 m = ak[q];
-        acc[4 * q + 0] = __fmaf_rn(m.x, xv, acc[4 * q + 0]);
-        acc[4 * q + 1] = __fmaf_rn(m.y, xv, acc[4 * q + 1]);
-        acc[4 * q + 2] = __fmaf_rn(m.z, xv, acc[4 * q + 2]);
-        acc[4 * q + 3] = __fmaf_rn(m.w, xv, acc[4 * q + 3]);
-      }
+  // stage the rows of X the tile's bands cover, and the tile's band
+  const int2 kr = tile_in.k[tile];
+  const int k0 = kr.x, nk = kr.y - kr.x;
+  const float* xk = x + ((size_t)n * in + k0) * in;
+  if ((in & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const int q = in >> 2;
+    for (int i = threadIdx.x; i < nk * q; i += kThreads) {
+      const int k = i / q, j = i - k * q;
+      cp_async16(s_x + k * pitch + 4 * j, xk + (size_t)k * in + 4 * j);
     }
-    float4* tj = reinterpret_cast<float4*>(s_t + j * kRows);
-#pragma unroll
-    for (int q = 0; q < kRows / 4; ++q)
-      tj[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  } else {
+    // the pitch's padding columns stay unwritten: the T columns they give
+    // are never read, since lo + width <= in
+    for (int i = threadIdx.x; i < nk * in; i += kThreads) {
+      const int k = i / in, j = i - k * in;
+      cp_async4(s_x + k * pitch + j, xk + (size_t)k * in + j);
+    }
   }
+  for (int i = threadIdx.x; i < nr * width; i += kThreads)
+    cp_async4(s_c + i, coef + (size_t)r0 * width + i);
+  for (int i = threadIdx.x; i < nr; i += kThreads) cp_async4(s_lo + i, lo + r0 + i);
+
+  // meanwhile, step 2's operands: a thread keeps one group of kVec columns
+  // (their starts and coefficients in registers) over every row_par-th row
+  const int groups = out / kVec;
+  const int per_row = min(groups, kThreads);
+  const int row_par = kThreads / per_row;
+  const int t_first = threadIdx.x / per_row;
+  int g = threadIdx.x % per_row;
+  int l[kVec];
+  float a[kVec][kMaxW];
+  auto load_group = [&]() {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      l[e] = __ldg(lo + g * kVec + e);
+#pragma unroll
+      for (int w = 0; w < kMaxW; ++w)
+        a[e][w] = w < width ? __ldg(coef + (g * kVec + e) * width + w) : 0.f;
+    }
+  };
+  load_group();
+  cp_async_wait_all();
   __syncthreads();
 
-  // step 2: Y[r0 + 4g + (0..3), o] = sum_j T[4g + (0..3), j] * At[j, o] + C
-  const int items = (kRows / 4) * out;
-  for (int i = threadIdx.x; i < items; i += kThreads) {
-    const int g = i / out, o = i - g * out;
+  // step 1: T[t][j..j+3] = sum_w A[r0+t][lo+w] * X[lo+w][j..j+3]
+  const int q4 = pitch >> 2;
+  for (int i = threadIdx.x; i < nr * q4; i += kThreads) {
+    const int t = i / q4, j4 = i - t * q4;
+    const float* at = s_c + t * width;
+    const float4* xr = reinterpret_cast<const float4*>(s_x + (s_lo[t] - k0) * pitch) + j4;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int j = 0; j < in; ++j) {
-      const float m = __ldg(at + (size_t)j * out + o);
-      const float4 t = *reinterpret_cast<const float4*>(s_t + j * kRows + 4 * g);
-      acc.x = __fmaf_rn(t.x, m, acc.x);
-      acc.y = __fmaf_rn(t.y, m, acc.y);
-      acc.z = __fmaf_rn(t.z, m, acc.z);
-      acc.w = __fmaf_rn(t.w, m, acc.w);
+#pragma unroll 4
+    for (int w = 0; w < width; ++w) {
+      const float m = at[w];
+      const float4 v = xr[w * q4];
+      acc.x = __fmaf_rn(m, v.x, acc.x);
+      acc.y = __fmaf_rn(m, v.y, acc.y);
+      acc.z = __fmaf_rn(m, v.z, acc.z);
+      acc.w = __fmaf_rn(m, v.w, acc.w);
     }
-    const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+    float* tr = s_t + t * tp + tcol(4 * j4);   // four columns within one 32-column run
+    tr[0] = acc.x;
+    tr[1] = acc.y;
+    tr[2] = acc.z;
+    tr[3] = acc.w;
+  }
+  __syncthreads();
+
+  // step 2: Y[r0+t][c] = sum_w T[t][lo[c]+w] * A[c][lo[c]+w] (+ C[r0+t][c])
+  float* yn = y + (size_t)n * out * out;
+  while (t_first < row_par && g < groups) {
+    for (int t = t_first; t < nr; t += row_par) {
+      const float* tr = s_t + t * tp;
+      float v[kVec];
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      const int r = r0 + 4 * g + d;
-      if (r < out) {
-        const size_t at_ro = (size_t)r * out + o;
-        y[(size_t)n * out * out + at_ro] =
-            cst ? __fadd_rn(v[d], __ldg(cst + at_ro)) : v[d];
+      for (int e = 0; e < kVec; ++e) {
+        float acc = 0.f;
+#pragma unroll
+        for (int w = 0; w < kMaxW; ++w) {
+          if (w >= width) break;
+          acc = __fmaf_rn(tr[tcol(l[e] + w)], a[e][w], acc);
+        }
+        v[e] = acc;
       }
+      const size_t at = (size_t)(r0 + t) * out + g * kVec;
+      if (cst) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[e] = __fadd_rn(v[e], __ldg(cst + at + e));
+      }
+      if (kVec == 4)
+        *reinterpret_cast<float4*>(yn + at) = make_float4(v[0], v[1], v[2], v[3]);
+      else
+        yn[at] = v[0];
     }
+    g += per_row;
+    if (g < groups) load_group();
   }
 }
 
@@ -165,27 +269,47 @@ const char* sifsr_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// y (n, out, out) = a·x[i]·aᵀ + cst for each image: x (n, in, in), a (out, in)
-// and at = aᵀ (in, out), both row-major, cst (out, out) or null; all float32.
+// y (n, out, out) = A·x[i]·Aᵀ + cst for each image of x (n, in, in), with A
+// (out, in) given as a band: row r's `width` coefficients coef (out, width)
+// from column lo[r] (int32, lo[r] + width <= in); cst (out, out) or null;
+// all float32 and contiguous on the device. A block takes `rows` output
+// rows, tile t the rows of x from tile_in[2t] to tile_in[2t+1] (int32, in
+// host memory, at most kMaxTiles tiles), at most `span` rows.
 // Returns cudaGetLastError() after the launch.
-int sifsr_sandwich(const void* x, const void* a, const void* at, const void* cst, void* y,
-                   int n, int in, int out, void* stream) {
-  if (n < 0 || in < 1 || out < 1) return (int)cudaErrorInvalidValue;
+int sifsr_sandwich(const void* x, const void* lo, const void* coef, const int* tile_in,
+                   const void* cst, void* y, int n, int in, int out, int width, int rows,
+                   int span, void* stream) {
+  if (n < 0 || in < 1 || out < 1 || width < 1 || width > kMaxBand || width > in || rows < 1 ||
+      span < width || span > in)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int tiles = (out + kRows - 1) / kRows;
-  if ((long long)n * tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)in * kRows * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sandwich_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const int tiles = (out + rows - 1) / rows;
+  if (tiles > kMaxTiles || (long long)n * tiles > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  TileRows tr;
+  for (int t = 0; t < tiles; ++t) {
+    tr.k[t] = make_int2(tile_in[2 * t], tile_in[2 * t + 1]);
+    if (tr.k[t].x < 0 || tr.k[t].y > in || tr.k[t].y - tr.k[t].x > span)
+      return (int)cudaErrorInvalidValue;
   }
-  sandwich_kernel<<<n * tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(at), static_cast<const float*>(cst),
-      static_cast<float*>(y), in, out, tiles);
-  return (int)cudaGetLastError();
+  const size_t smem = ((size_t)band_words(rows, width) + (size_t)rows * t_pitch(in) +
+                       (size_t)span * x_pitch(in)) * sizeof(float);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool quads = out % 4 == 0 && out > in && width <= 4;
+  auto launch = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<n * tiles, kThreads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const int*>(lo),
+        static_cast<const float*>(coef), tr,
+        static_cast<const float*>(cst), static_cast<float*>(y), in, out, width, rows, tiles);
+    return (int)cudaGetLastError();
+  };
+  return quads ? launch(sandwich_kernel<4, 4>) : launch(sandwich_kernel<1, kMaxBand>);
 }
 
 // y (n, h/f, w/f) from x (n, h, w), float32; h and w are multiples of f.

@@ -13,7 +13,10 @@ fold into a constant surface,
 so the kernel computes the two products and adds the constant in one pass.
 The op is linear in X, so its gradient is the transposed sandwich
 ``Mᵀ g M``: ``fused_psf_downscale`` is a ``torch.autograd.Function`` whose
-backward launches the same kernel with ``Mᵀ`` and no constant.
+backward launches the same kernel with ``Mᵀ`` and no constant. The kernel
+takes its matrix as a band (``_band``: each row's first column and a fixed
+number of coefficients from there), since a row of ``M`` holds at most
+``2·factor + 4`` nonzeros in one run and a row of ``Mᵀ`` at most 4.
 
 ``fused_norm_l4`` (kernel N) fuses un-normalise -> x⁴ block mean -> ⁴√ ->
 optional re-normalise. No path of the JAX package calls its kernel; here
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,16 +48,107 @@ __all__ = ["fused_psf_downscale", "fused_psf_downscale_plain", "fused_norm_l4",
 
 
 @functools.lru_cache(maxsize=32)
+def _matrix(in_size: int, factor: int, mtf: float) -> np.ndarray:
+    """M in float64 (``ops.psf.downscale_matrix``): the one source of the
+    kernel's bands, its constant and the dense float32 M."""
+    return downscale_matrix(in_size, factor, mtf, None, "bic", True)
+
+
+@functools.lru_cache(maxsize=32)
+def _renorm_constant(in_size: int, factor: int, mtf: float, mean_lst: float, std_lst: float,
+                     device: torch.device) -> torch.Tensor:
+    """The forward's constant as a float32 tensor on ``device``, formed in
+    float64 and then cast, as ``sifsr_tpu/pallas/fused_ops.py:66-69``."""
+    row = _matrix(in_size, factor, mtf).sum(axis=1)
+    const = (mean_lst * (np.outer(row, row) - 1.0) / std_lst).astype(np.float32)
+    return torch.as_tensor(const, device=device)
+
+
 def _sandwich_constants(in_size: int, factor: int, mtf: float, mean_lst: float,
                         std_lst: float, device: torch.device):
-    """(M, Mᵀ, const) as float32 tensors on ``device``, from the float64
-    matrix; the constant is formed in float64 and then cast, as
-    ``sifsr_tpu/pallas/fused_ops.py:66-69``."""
-    m_np = downscale_matrix(in_size, factor, mtf, None, "bic", True)
-    row = m_np.sum(axis=1)
-    const_np = (mean_lst * (np.outer(row, row) - 1.0) / std_lst).astype(np.float32)
-    m = torch.as_tensor(m_np, dtype=torch.float32, device=device)
-    return m, m.T.contiguous(), torch.as_tensor(const_np, device=device)
+    """(M, Mᵀ, const) as float32 tensors on ``device``: the dense operands of
+    the PyTorch chain that computes what the kernel does (two matmuls and
+    an add)."""
+    m = torch.as_tensor(_matrix(in_size, factor, mtf), dtype=torch.float32, device=device)
+    return m, m.T.contiguous(), _renorm_constant(in_size, factor, mtf, mean_lst, std_lst, device)
+
+
+# what the kernel takes (csrc/fused_ops.cu): the widest band (kMaxBand;
+# factor 8 needs 20), row tiles of one image (kMaxTiles), shared memory a block
+_MAX_BAND = 32
+_MAX_TILES = 128
+_SMEM_BYTES = 227 * 1024
+# output rows a block takes: forward (M's band), backward (Mᵀ's)
+_BLOCK_ROWS = (8, 32)
+
+
+def _band(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(lo, coef) of a float32 matrix (rows, cols) whose nonzeros form one
+    contiguous run in every row: row r is ``coef[r]`` (``width`` values, the
+    longest run) from column ``lo[r]``, zeros elsewhere. Where a run ends
+    within ``width`` of the last column, lo moves left and the row's
+    coefficients start with zeros, so that ``lo + width <= cols`` always."""
+    a = np.asarray(a, np.float32)
+    rows, cols = a.shape
+    first, last = np.zeros(rows, np.int64), np.zeros(rows, np.int64)
+    for r in range(rows):
+        nz = np.flatnonzero(a[r])
+        if nz.size and nz.size != nz[-1] - nz[0] + 1:
+            raise ValueError(f"row {r}: its nonzeros are not one contiguous run")
+        if nz.size:
+            first[r], last[r] = nz[0], nz[-1]
+    width = int((last - first).max()) + 1
+    lo = np.minimum(first, cols - width).astype(np.int32)
+    coef = np.stack([a[r, lo[r]:lo[r] + width] for r in range(rows)]).astype(np.float32)
+    return lo, coef
+
+
+class _Band(NamedTuple):
+    """A band on the device with the tiling it is launched at: a block takes
+    ``rows`` output rows, tile t the input rows ``tile_in[t, 0]`` to
+    ``tile_in[t, 1]`` (a host array the launch passes by value), at most
+    ``span`` of them."""
+
+    lo: torch.Tensor       # (rows of A,) int32
+    coef: torch.Tensor     # (rows of A, width) float32
+    tile_in: np.ndarray    # (tiles, 2) int32
+    rows: int
+    span: int
+
+
+@functools.lru_cache(maxsize=32)
+def _sandwich_bands(in_size: int, factor: int, mtf: float,
+                    device: torch.device) -> tuple[_Band, _Band]:
+    """The bands of M (the forward's matrix) and of Mᵀ (the backward's), read
+    off the float32 M, at ``_BLOCK_ROWS`` output rows a block."""
+    m = _matrix(in_size, factor, mtf).astype(np.float32)
+    bands = []
+    for a, rows in ((m, _BLOCK_ROWS[0]), (m.T, _BLOCK_ROWS[1])):
+        lo, coef = _band(a)
+        tile_in = np.array([(lo[r:r + rows].min(), lo[r:r + rows].max() + coef.shape[1])
+                            for r in range(0, len(lo), rows)], np.int32)
+        bands.append(_Band(torch.as_tensor(lo, device=device),
+                           torch.as_tensor(coef, device=device), tile_in, rows,
+                           int((tile_in[:, 1] - tile_in[:, 0]).max())))
+    return bands[0], bands[1]
+
+
+def _check_band(size: int, band: _Band) -> None:
+    """Raise ValueError where the kernel would refuse ``band`` on a
+    (size, size) input: a band wider than it takes, more row tiles, or more
+    shared memory a block (the band's rows, T and the staged rows of the
+    input, as csrc/fused_ops.cu lays them out)."""
+    width, tiles = band.coef.shape[1], len(band.tile_in)
+    if width > _MAX_BAND:
+        raise ValueError(f"a band of {width} coefficients a row; the kernel takes at most "
+                         f"{_MAX_BAND}")
+    pitch = -(-size // 4) * 4
+    smem = 4 * (-(-band.rows * (width + 1) // 4) * 4
+                + band.rows * -(-(pitch + pitch // 32) // 4) * 4 + band.span * pitch)
+    if tiles > _MAX_TILES or smem > _SMEM_BYTES:
+        raise ValueError(f"{size}x{size} in {tiles} tiles of {band.rows} rows, {smem} bytes of "
+                         f"shared memory a block; the kernel takes at most {_MAX_TILES} tiles "
+                         f"and {_SMEM_BYTES} bytes")
 
 
 def fused_psf_downscale_plain(x: torch.Tensor, mean_lst: float, std_lst: float,
@@ -64,20 +159,23 @@ def fused_psf_downscale_plain(x: torch.Tensor, mean_lst: float, std_lst: float,
     return (down - mean_lst) / std_lst
 
 
-def _sandwich(x: torch.Tensor, a: torch.Tensor, at: torch.Tensor,
-              const: torch.Tensor | None) -> torch.Tensor:
-    """Launch ``a @ x[i] @ aᵀ + const`` for a contiguous CUDA float32
-    (n, in, in) batch; the device and the current stream are taken here, at
-    the call, since autograd runs a backward on a thread of its own."""
+def _sandwich(x: torch.Tensor, band: _Band, const: torch.Tensor | None) -> torch.Tensor:
+    """Launch ``A @ x[i] @ Aᵀ + const`` for a contiguous CUDA float32
+    (n, in, in) batch, A given as its band; the device and the current
+    stream are taken here, at the call, since autograd runs a backward on a
+    thread of its own."""
     n, size, _ = x.shape
-    out = a.shape[0]
+    _check_band(size, band)
+    out, width = band.coef.shape
     y = torch.empty((n, out, out), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.sifsr_sandwich(x.data_ptr(), a.data_ptr(), at.data_ptr(),
+        code = lib.sifsr_sandwich(x.data_ptr(), band.lo.data_ptr(), band.coef.data_ptr(),
+                                  band.tile_in.ctypes.data,
                                   None if const is None else const.data_ptr(),
-                                  y.data_ptr(), n, size, out, stream)
+                                  y.data_ptr(), n, size, out, width, band.rows, band.span,
+                                  stream)
     _build.check(lib, code, "fused_psf_downscale")
     return y
 
@@ -85,19 +183,17 @@ def _sandwich(x: torch.Tensor, a: torch.Tensor, at: torch.Tensor,
 class _FusedPsfDownscale(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mean_lst, std_lst, factor, mtf):
-        m, mt, const = _sandwich_constants(x.shape[-1], factor, mtf, mean_lst, std_lst,
-                                           x.device)
-        ctx.matrices = (m, mt)
-        y = _sandwich(x.contiguous(), m, mt, const)
+        const = _renorm_constant(x.shape[-1], factor, mtf, mean_lst, std_lst, x.device)
+        band_m, ctx.band_mt = _sandwich_bands(x.shape[-1], factor, mtf, x.device)
+        y = _sandwich(x.contiguous(), band_m, const)
         fused_psf_downscale.launches += 1
         return y
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        m, mt = ctx.matrices
         # the incoming gradient may be an expanded or strided view
-        dx = _sandwich(g.contiguous(), mt, m, None)
+        dx = _sandwich(g.contiguous(), ctx.band_mt, None)
         fused_psf_downscale.backward_launches += 1
         return dx, None, None, None, None
 
@@ -165,7 +261,7 @@ fused_norm_l4.launches = 0
 def _lib():
     lib = _build.load("fused_ops")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sifsr_sandwich.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.sifsr_sandwich.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
     lib.sifsr_sandwich.restype = i
     lib.sifsr_norm_l4.argtypes = [vp, vp, i, i, i, i, f, f, i, vp]
     lib.sifsr_norm_l4.restype = i

@@ -554,6 +554,96 @@ def test_fused_norm_l4_cuda(rng, cuda, h, w, factor, renorm):
     assert torch.equal(got1, fused_ops.fused_norm_l4(x.to(cuda), MEAN, STD, factor, renorm))
 
 
+@pytest.mark.parametrize("n", [1, 3, 32])
+@pytest.mark.parametrize("size", [64, 128, 256])
+@pytest.mark.parametrize("factor", [2, 4, 8])
+def test_fused_psf_downscale_band_cuda(rng, cuda, n, size, factor):
+    """Kernel M on bands of 8, 12 and 20 coefficients forward (factor 2, 4,
+    8) and of 4, 3 and 3 backward: forward, backward and the expanded
+    gradient within 1e-5 of the plain version in float64; one launch each
+    way a call."""
+    out = size // factor
+    x = _f32(rng.standard_normal((n, size, size)))
+    g = _f32(rng.standard_normal((n, out, out)))
+    xd = x.to(cuda).requires_grad_()
+    fused_ops.fused_psf_downscale.launches = fused_ops.fused_psf_downscale.backward_launches = 0
+    y = fused_ops.fused_psf_downscale(xd, MEAN, STD, factor)
+    (dx,) = torch.autograd.grad(y, xd, g.to(cuda))
+    (dx1,) = torch.autograd.grad(fused_ops.fused_psf_downscale(xd, MEAN, STD, factor), xd,
+                                 torch.ones((), device=cuda).expand(n, out, out))
+    torch.cuda.synchronize()
+    assert (fused_ops.fused_psf_downscale.launches,
+            fused_ops.fused_psf_downscale.backward_launches) == (2, 2)
+    x64 = x.double().requires_grad_()
+    want = fused_ops.fused_psf_downscale_plain(x64, MEAN, STD, factor)
+    (want_dx,) = torch.autograd.grad(want, x64, g.double(), retain_graph=True)
+    (want_dx1,) = torch.autograd.grad(want, x64, torch.ones_like(want))
+    assert y.shape == (n, out, out) and dx.shape == dx1.shape == x.shape
+    assert float((y.detach().cpu().double() - want.detach()).abs().max()) <= 1e-5
+    assert float((dx.cpu().double() - want_dx).abs().max()) <= 1e-5
+    assert float((dx1.cpu().double() - want_dx1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("size,factor", [(36, 4), (40, 4), (42, 2), (1024, 4)])
+def test_fused_psf_downscale_odd_sizes_cuda(rng, cuda, size, factor):
+    """Kernel M where a row of the image is no whole number of 16-byte words
+    (36, 42: 4-byte copies), the output no multiple of 4 columns (9, 21: one
+    column a thread backward too), on a batch that starts 4 bytes past a
+    16-byte boundary, and at 1024² (the forward's stage of 48 rows of 4 KB,
+    near the shared memory's end): forward and backward within 1e-5 of
+    float64."""
+    out = size // factor
+    x = _f32(rng.standard_normal((3, size, size)))
+    g = _f32(rng.standard_normal((3, out, out)))
+    x64 = x.double().requires_grad_()
+    want = fused_ops.fused_psf_downscale_plain(x64, MEAN, STD, factor)
+    (want_dx,) = torch.autograd.grad(want, x64, g.double())
+    for xd in (x.to(cuda), torch.cat([torch.zeros(1), x.reshape(-1)]).to(cuda)[1:].view(x.shape)):
+        xd.requires_grad_()
+        y = fused_ops.fused_psf_downscale(xd, MEAN, STD, factor)
+        (dx,) = torch.autograd.grad(y, xd, g.to(cuda))
+        torch.cuda.synchronize()
+        assert float((y.detach().cpu().double() - want.detach()).abs().max()) <= 1e-5
+        assert float((dx.cpu().double() - want_dx).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 3, 32])
+@pytest.mark.parametrize("h,w", [(64, 64), (64, 256), (256, 64), (256, 256)])
+@pytest.mark.parametrize("factor", [4, 2])
+@pytest.mark.parametrize("renorm", [False, True])
+def test_fused_norm_l4_shapes_cuda(rng, cuda, n, h, w, factor, renorm):
+    """Kernel N at the shapes of both callers: within 1e-6 relative of the
+    float64 plain version (on the un-normalised value with renorm), one
+    launch a call."""
+    x = _f32(rng.standard_normal((n, h, w))).to(cuda)
+    fused_ops.fused_norm_l4.launches = 0
+    got = fused_ops.fused_norm_l4(x, MEAN, STD, factor, renorm)
+    assert fused_ops.fused_norm_l4.launches == 1
+    want = fused_ops.fused_norm_l4_plain(x.cpu().double(), MEAN, STD, factor, renorm)
+    got64 = got.cpu().double()
+    if renorm:
+        got64, want = got64 * STD + MEAN, want * STD + MEAN
+    assert got.shape == (n, h // factor, w // factor)
+    assert float(((got64 - want).abs() / want.abs()).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("shape,factor", [((3, 8, 44), 4), ((2, 12, 20), 4), ((3, 42, 30), 2),
+                                          ((1, 9, 27), 3)])
+def test_fused_norm_l4_scalar_path_cuda(rng, cuda, shape, factor):
+    """Kernel N's scalar path (factors other than 4, a misaligned input) and
+    its float4 path at widths of an odd number of blocks:
+    relative 1e-6 against float64, and a misaligned copy gives the aligned
+    input's bits."""
+    x = _f32(rng.standard_normal(shape))
+    got = fused_ops.fused_norm_l4(x.to(cuda), MEAN, STD, factor)
+    want = fused_ops.fused_norm_l4_plain(x.double(), MEAN, STD, factor)
+    assert float(((got.cpu().double() - want).abs() / want.abs()).max()) <= 1e-6
+    # the same values, contiguous, 4 bytes past a 16-byte boundary
+    x1 = torch.cat([torch.zeros(1), x.reshape(-1)]).to(cuda)[1:].reshape(shape)
+    assert x1.is_contiguous() and x1.data_ptr() % 16 == 4
+    assert torch.equal(fused_ops.fused_norm_l4(x1, MEAN, STD, factor), got)
+
+
 def test_degrade_batch_runs_norm_l4_kernel_cuda(rng, cuda):
     """The scale-invariance batch degradation launches kernel N once on the
     card and agrees with the CPU route (the kernel's plain version) to the

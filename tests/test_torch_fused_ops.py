@@ -146,3 +146,166 @@ def test_launch_counters_registered():
     K.fused_norm_l4(x.detach())
     assert (K.fused_psf_downscale.launches, K.fused_psf_downscale.backward_launches,
             K.fused_norm_l4.launches) == (0, 0, 0)
+
+
+def _unband(lo, coef, cols):
+    a = np.zeros((len(lo), cols), np.float32)
+    for r, (l, c) in enumerate(zip(lo, coef)):
+        a[r, l:l + len(c)] = c
+    return a
+
+
+@pytest.mark.parametrize("size", [64, 128, 256])
+@pytest.mark.parametrize("mtf", [0.1, 0.25, 0.5])
+@pytest.mark.parametrize("factor", [2, 4, 8])
+def test_band_rebuilds_m_and_mt_bitwise(factor, mtf, size):
+    """Kernel M's bands of M (2·factor + 4 coefficients a row) and of Mᵀ (at
+    most 4) give back the float32 matrices of _sandwich_constants, and
+    JAX's, bit for bit; every row's band lies inside the matrix."""
+    want_m = np.asarray(jnp.asarray(jax_downscale_matrix(size, factor, mtf, None, "bic", True),
+                                    jnp.float32))
+    m, mt, _ = fused_ops._sandwich_constants(size, factor, mtf, MEAN, STD, torch.device("cpu"))
+    np.testing.assert_array_equal(m.numpy(), want_m)
+    widths = []
+    for a in (m.numpy(), mt.numpy()):
+        lo, coef = fused_ops._band(a)
+        assert lo.dtype == np.int32 and coef.dtype == np.float32
+        assert lo.shape == (a.shape[0],) and coef.shape[0] == a.shape[0]
+        assert lo.min() >= 0 and lo.max() + coef.shape[1] <= a.shape[1]
+        np.testing.assert_array_equal(_unband(lo, coef, a.shape[1]), a)
+        widths.append(coef.shape[1])
+    assert widths[0] == 2 * factor + 4 and widths[1] <= 4
+    bands = fused_ops._sandwich_bands(size, factor, mtf, torch.device("cpu"))
+    for band, a in zip(bands, (m, mt)):
+        np.testing.assert_array_equal(_unband(band.lo.numpy(), band.coef.numpy(), a.shape[1]),
+                                      a.numpy())
+
+
+@pytest.mark.parametrize("size", [64, 128, 256])
+@pytest.mark.parametrize("factor", [2, 4, 8])
+def test_band_tiles_cover_every_block(factor, size):
+    """A launch gives tile t the input rows [min lo, max lo + width) of its
+    output rows (8 a block forward, 32 backward), and a span that holds the
+    most of them, for M and Mᵀ."""
+    bands = fused_ops._sandwich_bands(size, factor, 0.1, torch.device("cpu"))
+    for band, rows, cols in zip(bands, (8, 32), (size, size // factor)):
+        lo, width = band.lo.numpy(), band.coef.shape[1]
+        want = [(lo[r:r + rows].min(), lo[r:r + rows].max() + width)
+                for r in range(0, len(lo), rows)]
+        assert band.tile_in.dtype == np.int32 and band.tile_in.flags.c_contiguous
+        np.testing.assert_array_equal(band.tile_in, np.array(want))
+        assert band.rows == rows
+        assert band.span == max(k1 - k0 for k0, k1 in want) <= cols
+
+
+@pytest.mark.parametrize("size,factor,fits", [(256, 8, True), (1024, 4, True),
+                                              (1024, 8, False), (2048, 2, False)])
+def test_band_tiles_fit_shared_memory(size, factor, fits):
+    """The wrapper takes a shape whose tiles stage within the 227 KB of
+    shared memory a block, both ways, and refuses the rest before any
+    launch (the forward at 1024² and factor 8 stages 84 rows of 4 KB; at
+    2048² and factor 2, 30 rows of 8 KB)."""
+    band_m, band_mt = fused_ops._sandwich_bands(size, factor, 0.1, torch.device("cpu"))
+    fused_ops._check_band(size // factor, band_mt)
+    if fits:
+        fused_ops._check_band(size, band_m)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_ops._check_band(size, band_m)
+
+
+def test_band_refuses_more_tiles_than_the_kernel_takes():
+    """The kernel takes at most 128 row tiles of an image: one more is
+    refused before any launch."""
+    band = fused_ops._Band(torch.zeros(129, dtype=torch.int32), torch.ones(129, 1),
+                           np.zeros((129, 2), np.int32) + [0, 1], 1, 1)
+    fused_ops._check_band(129, band._replace(tile_in=band.tile_in[:128]))
+    with pytest.raises(ValueError, match="at most 128 tiles"):
+        fused_ops._check_band(129, band)
+
+
+def test_sandwich_passes_the_band_to_the_entry(monkeypatch):
+    """The host side of kernel M's launch, with the library and the CUDA
+    stream stood in for: the entry gets the band's pointers, its tile table
+    and (n, in, out, width, rows, span) as csrc/fused_ops.cu declares them,
+    forward with the constant and backward without."""
+    import contextlib
+
+    calls = []
+
+    class Lib:
+        def sifsr_sandwich(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(fused_ops, "_lib", Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 7})())
+    cpu = torch.device("cpu")
+    band_m, band_mt = fused_ops._sandwich_bands(256, 4, 0.1, cpu)
+    const = fused_ops._renorm_constant(256, 4, 0.1, MEAN, STD, cpu)
+    x, g = torch.zeros(3, 256, 256), torch.zeros(3, 64, 64)
+    y = fused_ops._sandwich(x, band_m, const)
+    dx = fused_ops._sandwich(g, band_mt, None)
+    assert y.shape == (3, 64, 64) and dx.shape == (3, 256, 256)
+    (fwd, bwd) = calls
+    assert fwd[:3] == (x.data_ptr(), band_m.lo.data_ptr(), band_m.coef.data_ptr())
+    assert fwd[3] == band_m.tile_in.ctypes.data and fwd[4] == const.data_ptr()
+    assert fwd[6:] == (3, 256, 64, 12, 8, band_m.span, 7)
+    assert bwd[4] is None and bwd[6:] == (3, 64, 256, 3, 32, band_mt.span, 7)
+    assert len(fwd) == len(bwd) == 13   # the entry's ctypes signature
+
+
+def test_band_refuses_what_the_kernel_does_not_take():
+    """A row whose nonzeros are not one run has no band; a band wider than
+    the kernel's 32 coefficients (factor 16: 36) is refused before any
+    launch."""
+    a = np.zeros((3, 8), np.float32)
+    a[0, 1:4] = 1.0
+    a[1, [2, 5]] = 1.0
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ops._band(a)
+    wide, _ = fused_ops._sandwich_bands(256, 16, 0.1, torch.device("cpu"))
+    assert wide.coef.shape[1] == 36
+    with pytest.raises(ValueError, match="at most 32"):
+        fused_ops._sandwich(torch.zeros(1, 256, 256), wide, None)
+
+
+def _banded_sandwich64(x, lo, coef, const=None):
+    """A @ x[i] @ Aᵀ (+ const) in float64 from A's band, as the kernel sums:
+    T = A·X with each sum ascending over the row's band, then T·Aᵀ the
+    same way."""
+    x, coef = x.double(), coef.double()
+    cols = lo[:, None].long() + torch.arange(coef.shape[1])
+    t = torch.zeros(x.shape[0], coef.shape[0], x.shape[2], dtype=torch.float64)
+    for w in range(coef.shape[1]):
+        t = t + coef[:, w, None] * x[:, cols[:, w], :]
+    y = torch.zeros(x.shape[0], coef.shape[0], coef.shape[0], dtype=torch.float64)
+    for w in range(coef.shape[1]):
+        y = y + t[:, :, cols[:, w]] * coef[:, w]
+    return y if const is None else y + const.double()
+
+
+@pytest.mark.parametrize("size", [64, 128])
+@pytest.mark.parametrize("factor", [2, 4, 8])
+def test_banded_sandwich_matches_pallas(rng, factor, size):
+    """The band's arithmetic against the JAX package's kernel (interpret
+    mode), within 1e-5: the forward with M's band and the constant, and
+    _psf_downscale_bwd with Mᵀ's band."""
+    from sifsr_tpu.pallas.fused_ops import _psf_downscale_bwd
+    from sifsr_tpu.pallas.fused_ops import fused_psf_downscale as jax_fused
+
+    x = rng.normal(size=(2, size, size)).astype(np.float32)
+    g = rng.normal(size=(2, size // factor, size // factor)).astype(np.float32)
+    cpu = torch.device("cpu")
+    band_m, band_mt = fused_ops._sandwich_bands(size, factor, 0.1, cpu)
+    const = fused_ops._sandwich_constants(size, factor, 0.1, MEAN, STD, cpu)[2]
+    got = _banded_sandwich64(torch.from_numpy(x), band_m.lo, band_m.coef, const)
+    want = np.asarray(jax_fused(jnp.asarray(x), MEAN, STD, factor=factor, mtf=0.1))
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-5
+    (want_dx,) = _psf_downscale_bwd(size, MEAN, STD, factor, 0.1, None, jnp.asarray(g))
+    got_dx = _banded_sandwich64(torch.from_numpy(g), band_mt.lo, band_mt.coef)
+    assert got_dx.shape == (2, size, size)
+    assert np.abs(got_dx.numpy() - np.asarray(want_dx)).max() <= 1e-5
