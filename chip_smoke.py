@@ -19,7 +19,9 @@ Phases, each of which raises on failure (no result line is printed then):
    in_scale on the conv's int8 output; CUDA-event times of kernel and plain
    version, the least time the card could take (bytes or operations), and,
    for kernel A, of the PyTorch interpolate calls that compute its float
-   function; for every int8 conv (B-L and the generic conv) the time of
+   function (and each of A's two calls on its own: kernel ms, bytes bound,
+   share of the bytes rate, library ms, in the entry's ``per_call``); for
+   every int8 conv (B-L and the generic conv) the time of
    ``torch._int_mm`` over the im2col'd product at the same shapes (the
    product alone: M = N*H*W, K = 9*C, N = C_out, once per input for C, J
    and L; K and N zero-padded to _int_mm's multiples of 8 where a shape
@@ -39,7 +41,10 @@ Phases, each of which raises on failure (no result line is printed then):
    (two matmuls and an add; pow/avg_pool2d/pow), and M beside one PyTorch
    kernel that moves the same bytes (avg_pool2d, nearest x4); value (1e-5)
    and gradient (rtol 1e-4 / atol 1e-6) of huber(fused_psf_downscale(x), t)
-   through autograd against the plain chain;
+   through autograd against the plain chain; then M past the recipes' shapes
+   (factor 16 at (4,256,256), factor 8 at (2,1024,1024), factor 2 at
+   (1,2048,2048)) through the wrapper: value and gradient within 1e-5 of
+   float64, one launch each way;
 4. float anchor: ModelB2 in float32 (TF32 off) vs the reference torch
    outputs in golden/ at rtol 1e-4 / atol 5e-5;
 5. whole granule: a seeded synthetic 1200² LST / 4800² NDVI granule through
@@ -94,8 +99,8 @@ Phases, each of which raises on failure (no result line is printed then):
    finite losses, exact launch counts per recipe (predef_filters and
    gradftm: fused_psf_downscale 6 forward (4 train + 2 validation batches)
    and 4 backward; scale_invariance: none of those, fused_norm_l4 6, once
-   per batch degradation), and ``save_final`` read back
-   equal by ``cli.predict.load_variables``. Then the median device time of
+   per batch degradation), and ``save_final`` read back equal by
+   ``cli.predict.load_variables``. Then the median device time of
    one train step at batch 32 with and without step metrics, samples/s and
    peak memory. ``--profile`` adds a torch.profiler table of three steps and
    the time of the step under TF32, under bf16 autocast and with remat.
@@ -107,6 +112,7 @@ without one, or without the repository beside it.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -125,6 +131,12 @@ F32_OPS_PER_S = 67e12        # float32 outside the tensor cores
 
 def log(*a):
     print(*a, flush=True)
+
+
+def digest(a) -> str:
+    """A short sha256 of an array's bytes: two runs' mosaics and rasters are
+    identical exactly where their digests are."""
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
 
 def time_ms(torch, fn, reps: int, burst: int = 1) -> float:
@@ -195,6 +207,7 @@ def main(profile: bool = False) -> None:
     import torch.nn.functional as F
 
     from sifsr_tpu_torch.kernels import _build, conv_i8, conv_px, fused_ops, resize_phases
+    from sifsr_tpu_torch.ops import psf
     from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
     from sifsr_tpu_torch.cli import predict as cli_predict, serve as cli_serve
     from sifsr_tpu_torch.geo.hdf4 import write_hdf4_sds
@@ -226,6 +239,13 @@ def main(profile: bool = False) -> None:
             f"{r['smem_static']} B static shared memory")
     if len(ptxas) != 22:
         raise AssertionError(f"ptxas reported {len(ptxas)} tensor-core kernels, expected 22")
+    # kernel A's two serving instances: int8 out, the phase form at 5 taps
+    # (cubic x4, one channel) and the pixel form at 3 (the x2, 16 channels)
+    for r in _build.ptxas_report("resize_phases"):
+        if any(k in r["kernel"] for k in ("upsample_phases_kernelILb1ELi2ELi5E",
+                                          "upsample_phases_kernelILb1ELi1ELi3E")):
+            log(f"ptxas resize_phases {demangle(r['kernel'])}: {r['registers']} registers, "
+                f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
 
     # 3. kernels vs plain versions at serving shapes
     rng = np.random.default_rng(0)
@@ -263,7 +283,7 @@ def main(profile: bool = False) -> None:
         return ops / INT8_OPS_PER_S * 1e3
 
     def check(name, calls, reps=10, plain_reps=2, library=None, tol=None, relative=False,
-              burst=1, library_is=None, launch=None):
+              burst=1, library_is=None, launch=None, per_call=False):
         """calls: [(kernel_fn, plain_fn, nbytes, ops_ms[, reference_fn])] -- the
         kernel's work in one batch, ops_ms its operations over the card's peak
         rate for their type. The kernel's output must be identical to
@@ -272,8 +292,11 @@ def main(profile: bool = False) -> None:
         value) where a tolerance is given. library: PyTorch calls computing
         the same function (timed only). burst: see time_ms; kernel, plain
         version and library are timed the same way, and the time of a single
-        call through the wrapper, host overhead included, is logged beside."""
+        call through the wrapper, host overhead included, is logged beside.
+        per_call: library[i] computes calls[i]'s function; the entry then
+        also holds each call's own numbers (``per_call``)."""
         err, ms, plain_ms, b_ms, ops_ms = 0.0, 0.0, 0.0, 0.0, 0.0
+        calls_ms = []
         for kern, plain, nbytes, o_ms, *ref in calls:
             got, want = kern(), (ref[0] if ref else plain)()
             torch.cuda.synchronize()
@@ -289,6 +312,7 @@ def main(profile: bool = False) -> None:
             p_ms = time_ms(torch, plain, plain_reps, burst)
             ms += k_ms
             plain_ms += p_ms
+            calls_ms.append((k_ms, p_ms, nbytes / HBM_BYTES_PER_S * 1e3, o_ms))
             b_ms += nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms += o_ms
             small = "" if nbytes >= 1e6 else (
@@ -305,13 +329,25 @@ def main(profile: bool = False) -> None:
             raise AssertionError(f"{name}: kernel differs from its plain version, "
                                  f"{'relative' if relative else 'max|d|'} = {err} "
                                  f"(allowed {tol or 0.0})")
-        lib_ms = None if library is None else sum(time_ms(torch, f, reps, burst) for f in library)
+        lib_each = None if library is None else [time_ms(torch, f, reps, burst) for f in library]
+        lib_ms = None if library is None else sum(lib_each)
+        extra = {}
+        if per_call:
+            extra["per_call"] = [
+                dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(c_b, c_o),
+                     bound_by="bytes" if c_b >= c_o else "operations", bytes_bound_ms=c_b,
+                     library_ms=l_ms)
+                for (k_ms, p_ms, c_b, c_o), l_ms in zip(calls_ms, lib_each)]
+            for i, c in enumerate(extra["per_call"]):
+                log(f"  {name} call {i}: {c['ms']:.4f} ms, bytes bound {c['bytes_bound_ms']:.4f} ms "
+                    f"({c['bytes_bound_ms'] / c['ms']:.1%} of the bytes rate), library "
+                    f"{c['library_ms']:.4f} ms ({c['library_ms'] / c['ms']:.2f}x the kernel's time)")
         entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=max(b_ms, ops_ms),
                              bound_by="bytes" if b_ms >= ops_ms else "operations",
                              library_ms=lib_ms, calls=len(calls), floor_ms=floor_ms,
                              **({} if library_is is None else {"library_is": library_is}),
-                             **({} if launch is None else {"launch": launch}))
+                             **({} if launch is None else {"launch": launch}), **extra)
         log(f"kernel {name}: {len(calls)} call(s)/batch, "
             + ("identical to plain; " if tol is None else f"error {err:.3g} (allowed {tol:g}); ")
             + f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {max(b_ms, ops_ms):.4f} ms"
@@ -393,14 +429,24 @@ def main(profile: bool = False) -> None:
                 nbytes, ops / F32_OPS_PER_S * 1e3)
 
     # A's float function is F.interpolate's (checked on the CPU to float32
-    # rounding); the library time leaves out the int8 quantise
+    # rounding); the library time leaves out the int8 quantise. Each call is
+    # timed back to back in bursts of 20 (the cubic call moves 27 MB, a few
+    # microseconds of the card's time beside ~20 us of host work a call) and
+    # is also reported on its own, beside its own library call
     xa = mid_out.permute(0, 3, 1, 2)           # NCHW view of the NHWC tensor
+    for shape, factor in ((lst_n.shape, 4), (mid_out.shape, 2)):
+        rows, blocks, smem = resize_phases._launch_shape(*shape[1:], factor)
+        log(f"  upsample_phases launch at {tuple(shape)}: {rows} output rows a block, "
+            f"{N * blocks} blocks of {smem} B shared memory")
     check("upsample_phases", [up_call(lst_n, 4, "cubic", 0.02),
                               up_call(mid_out, 2, "linear_ac", 0.025)],
           library=[lambda: F.interpolate(lst_n.permute(0, 3, 1, 2), scale_factor=4,
                                          mode="bicubic", align_corners=False),
                    lambda: F.interpolate(xa, scale_factor=2, mode="bilinear",
-                                         align_corners=True)])
+                                         align_corners=True)],
+          burst=20, per_call=True,
+          library_is="F.interpolate bicubic x4 (NCHW view) + bilinear align-corners x2 "
+                     "(channels-last view), float32 out")
     del xa, mid_out
 
     mm_words = "torch._int_mm over the im2col'd conv, the product alone"
@@ -686,6 +732,39 @@ def main(profile: bool = False) -> None:
     torch.testing.assert_close(xa_k.grad, xa_p.grad, rtol=1e-4, atol=1e-6)
     del xg, xa_k, xa_p
 
+    # kernel M past the recipes' shapes: a band of 36 (factor 16 at 256²),
+    # rows of X staged in chunks of columns (1024² at factor 8, 2048² at
+    # factor 2), value and gradient against float64
+    for n_, size_, factor_ in ((4, 256, 16), (2, 1024, 8), (1, 2048, 2)):
+        xr = f32(rng.standard_normal((n_, size_, size_))).requires_grad_()
+        xr64 = xr.detach().double().requires_grad_()
+        gr = f32(rng.standard_normal((n_, size_ // factor_, size_ // factor_)))
+        K.reset_launches()
+        yr = fused_ops.fused_psf_downscale(xr, mean_lst, std_lst, factor=factor_)
+        (dxr,) = torch.autograd.grad(yr, xr, gr)
+        torch.cuda.synchronize()
+        counts = (K.fused_psf_downscale.launches, K.fused_psf_downscale.backward_launches)
+        yr64 = fused_ops.fused_psf_downscale_plain(xr64, mean_lst, std_lst, factor=factor_)
+        (dxr64,) = torch.autograd.grad(yr64, xr64, gr.double())
+        d_val = float((yr.double() - yr64).abs().max())
+        d_grad = float((dxr.double() - dxr64).abs().max())
+        band_m, band_mt = fused_ops._sandwich_bands(size_, factor_, 0.1, torch.device("cpu"))
+        log(f"fused_psf_downscale at factor {factor_} on {tuple(xr.shape)}: launches "
+            f"(forward, backward) {counts}; value max|d| {d_val:.3g} ({d_val / 1e-5:.1%} of "
+            f"1e-5), gradient max|d| {d_grad:.3g} ({d_grad / 1e-5:.1%}) vs float64; band "
+            f"{band_m.coef.shape[1]} / {band_mt.coef.shape[1]}, rows {band_m.rows} / "
+            f"{band_mt.rows}, chunks of {band_m.chunk} / {band_mt.chunk} columns, "
+            f"{len(band_m.tile_in)} / {len(band_mt.tile_in)} tiles")
+        if counts != (1, 1) or not (d_val <= 1e-5 and d_grad <= 1e-5):
+            raise AssertionError(f"kernel M at factor {factor_} on {size_}²: launches {counts}, "
+                                 f"value {d_val}, gradient {d_grad}")
+        del xr, xr64, gr, yr, dxr, yr64, dxr64
+    # their cached operands (the plain chain's float64 matrices, M's constant
+    # and bands) would otherwise stay on the card into phase 8's peak memory
+    psf._matrix_tensor.cache_clear()
+    fused_ops._renorm_constant.cache_clear()
+    fused_ops._sandwich_bands.cache_clear()
+
     # N: un-normalise, x^4 block mean, 4th root at (32,256,256) and (32,64,64);
     # five float32 operations an input element, bound by bytes
     norm_calls = []
@@ -775,7 +854,8 @@ def main(profile: bool = False) -> None:
         d = sr.astype(np.float64) - ref
         rmse, dmax = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
         log(f"granule: int8 ({mid}) vs f32 RMSE {rmse:.4f} K, max {dmax:.4f} K, "
-            f"int8 range {sr.min():.2f}..{sr.max():.2f} K; launches {launches[mid]}")
+            f"int8 range {sr.min():.2f}..{sr.max():.2f} K; launches {launches[mid]}; mosaic "
+            f"sha256 {digest(sr)}")
         if not (rmse < 0.3 and dmax < 1.0 and sr.min() > 250.0 and sr.max() < 350.0
                 and ref.min() > 250.0 and ref.max() < 350.0):
             raise AssertionError(f"int8 ({mid}) contract failed: rmse {rmse}, max {dmax}, "
@@ -813,7 +893,8 @@ def main(profile: bool = False) -> None:
         d = sr.astype(np.float64) - ref
         rmse, dmax = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
         log(f"granule: int8 ({name}) vs f32 RMSE {rmse:.4f} K, max {dmax:.4f} K, "
-            f"range {sr.min():.2f}..{sr.max():.2f} K; launches {launches[name]}")
+            f"range {sr.min():.2f}..{sr.max():.2f} K; launches {launches[name]}; mosaic "
+            f"sha256 {digest(sr)}")
         if not (sr.shape == mosaic and np.isfinite(sr).all() and rmse < 0.3 and dmax < 1.0
                 and sr.min() > 250.0 and sr.max() < 350.0):
             raise AssertionError(f"int8 ({name}) contract failed: rmse {rmse}, max {dmax}")
@@ -984,7 +1065,8 @@ def main(profile: bool = False) -> None:
                 raise AssertionError(f"predict {flags}: geotransform {g.geotransform} vs {gt_ndvi}")
             log(f"predict {' '.join(flags) or '(default bf16, fused pads)'} from "
                 f"{'HDF' if inputs is hdf else 'GeoTIFF'}: {wall_s:.2f} s wall, "
-                f"{g.array.min():.2f}..{g.array.max():.2f} K ({smi.splitlines()[0]})")
+                f"{g.array.min():.2f}..{g.array.max():.2f} K, raster sha256 {digest(g.array)} "
+                f"({smi.splitlines()[0]})")
             return g.array
 
         def direct(**kw):
@@ -1318,6 +1400,7 @@ def main(profile: bool = False) -> None:
          "launches": main_launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
          "library_ms": e["library_ms"], "calls_per_batch": e["calls"],
+         **({"per_call": e["per_call"]} if "per_call" in e else {}),
          # the [vpu] entries share their wrapper's counter with the integer
          # chain: only the vpu granule's count is theirs
          "launches_by_path": {path: c.get(counter(name), 0) for path, c in by_path.items()

@@ -37,9 +37,19 @@
 //          banks); backward, where they read the same columns of T, four
 //          consecutive columns stored as one 16-byte word.
 // Rows of X that two tiles share (8 of 40 forward) are read twice, the
-// second time from L2. The host takes the tiling as fixed and refuses a
-// shape whose tiles do not fit (more than kMaxTiles, or a stage past the
-// shared memory): no caller comes near either.
+// second time from L2.
+//
+// Larger images: where the staged rows of X would not fit beside T, the
+// block stages them `chunk` columns at a time (a multiple of 4) and runs
+// step 1 on each chunk in turn, T staying whole; where T itself would not
+// fit, the host halves `rows` (kernels/fused_ops.py::_tiling, the one rule).
+// 1024² at factor 8 stages 76 rows of X in two chunks of 512 columns,
+// 2048² at factor 2 22 rows in two of 1,024; every sum keeps its order, so
+// at the shapes the one-chunk kernel took the outputs are its bits. A
+// launch takes at most kMaxTiles row tiles (their ranges ride in the
+// parameters); the entry launches a larger image's tiles in turns of
+// kMaxTiles. The band is at most kMaxBand wide (factor 16: 36; factor 30:
+// 64), the coefficients a step-2 thread holds in registers.
 //
 // Arithmetic is float32 with one __fmaf_rn a term (one rounding, whatever
 // -fmad flag the source is built with), every sum from 0 in ascending
@@ -67,8 +77,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBand = 32;   // the widest band the sandwich takes (factor 8: 20)
-constexpr int kMaxTiles = 128; // row tiles of one image the sandwich takes
+constexpr int kMaxBand = 64;   // the widest band the sandwich takes (factor 16: 36)
+constexpr int kMaxTiles = 128; // row tiles of one image a launch takes
 
 // Each tile's first and last-plus-one row of X, passed by value: the kernel
 // reads it from the launch's constant bank, with no memory round trip.
@@ -98,8 +108,8 @@ __host__ __device__ inline int tcol(int j) { return j + (j >> 5); }
 
 // Shared memory of a block, in floats: the tile's rows of the band (rows x
 // width coefficients, rows starts), padded to 16 bytes, then T (rows x
-// tpitch), then the staged rows of X (span x pitch); pitch is `in` rounded
-// up to a multiple of 4.
+// tpitch), then the staged rows of X (span x x_pitch(min(chunk, in))); a
+// pitch is a column count rounded up to a multiple of 4.
 __host__ __device__ inline int band_words(int rows, int width) {
   return (rows * (width + 1) + 3) & ~3;
 }
@@ -108,48 +118,28 @@ __host__ __device__ inline int t_pitch(int in) { return (tcol(x_pitch(in)) + 3) 
 
 // kVec: outputs a thread computes in step 2 (1, or 4 consecutive columns
 // stored as one float4: out % 4 == 0); kMaxW: the widest band it takes,
-// whose coefficients a thread holds in registers. tile_in.k[tile]: the
-// first and the last-plus-one row of X the tile's bands cover.
+// whose coefficients a thread holds in registers. The launch takes `tiles`
+// row tiles from tile0 on; tile_in.k[t]: the first and the last-plus-one
+// row of X the bands of tile tile0 + t cover. chunk: the columns of X staged
+// at once (a multiple of 4, or at least `in`).
 template <int kVec, int kMaxW>
-__global__ void __launch_bounds__(kThreads, kVec == 4 ? 4 : 2)
+__global__ void __launch_bounds__(kThreads, kVec == 4 ? 4 : kMaxW > 32 ? 1 : 2)
 sandwich_kernel(const float* __restrict__ x, const int* __restrict__ lo,
                 const float* __restrict__ coef, const __grid_constant__ TileRows tile_in,
                 const float* __restrict__ cst, float* __restrict__ y, int in, int out,
-                int width, int rows, int tiles) {
+                int width, int rows, int tiles, int tile0, int chunk) {
   extern __shared__ float4 smem4[];
-  const int pitch = x_pitch(in), tp = t_pitch(in);
+  const int tp = t_pitch(in), pitch = x_pitch(min(chunk, in));
   const int n = blockIdx.x / tiles, tile = blockIdx.x - n * tiles;
-  const int r0 = tile * rows;
+  const int r0 = (tile0 + tile) * rows;
   const int nr = min(rows, out - r0);
   float* s_c = reinterpret_cast<float*>(smem4);            // [nr][width]
   int* s_lo = reinterpret_cast<int*>(s_c + nr * width);    // [nr]
   float* s_t = s_c + band_words(rows, width);              // [rows][tp]
   float* s_x = s_t + rows * tp;                            // [k1 - k0][pitch]
 
-  // stage the rows of X the tile's bands cover, and the tile's band
-  const int2 kr = tile_in.k[tile];
-  const int k0 = kr.x, nk = kr.y - kr.x;
-  const float* xk = x + ((size_t)n * in + k0) * in;
-  if ((in & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    const int q = in >> 2;
-    for (int i = threadIdx.x; i < nk * q; i += kThreads) {
-      const int k = i / q, j = i - k * q;
-      cp_async16(s_x + k * pitch + 4 * j, xk + (size_t)k * in + 4 * j);
-    }
-  } else {
-    // the pitch's padding columns stay unwritten: the T columns they give
-    // are never read, since lo + width <= in
-    for (int i = threadIdx.x; i < nk * in; i += kThreads) {
-      const int k = i / in, j = i - k * in;
-      cp_async4(s_x + k * pitch + j, xk + (size_t)k * in + j);
-    }
-  }
-  for (int i = threadIdx.x; i < nr * width; i += kThreads)
-    cp_async4(s_c + i, coef + (size_t)r0 * width + i);
-  for (int i = threadIdx.x; i < nr; i += kThreads) cp_async4(s_lo + i, lo + r0 + i);
-
-  // meanwhile, step 2's operands: a thread keeps one group of kVec columns
-  // (their starts and coefficients in registers) over every row_par-th row
+  // step 2's operands: a thread keeps one group of kVec columns (their
+  // starts and coefficients in registers) over every row_par-th row
   const int groups = out / kVec;
   const int per_row = min(groups, kThreads);
   const int row_par = kThreads / per_row;
@@ -166,33 +156,62 @@ sandwich_kernel(const float* __restrict__ x, const int* __restrict__ lo,
         a[e][w] = w < width ? __ldg(coef + (g * kVec + e) * width + w) : 0.f;
     }
   };
-  load_group();
-  cp_async_wait_all();
-  __syncthreads();
 
-  // step 1: T[t][j..j+3] = sum_w A[r0+t][lo+w] * X[lo+w][j..j+3]
-  const int q4 = pitch >> 2;
-  for (int i = threadIdx.x; i < nr * q4; i += kThreads) {
-    const int t = i / q4, j4 = i - t * q4;
-    const float* at = s_c + t * width;
-    const float4* xr = reinterpret_cast<const float4*>(s_x + (s_lo[t] - k0) * pitch) + j4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int w = 0; w < width; ++w) {
-      const float m = at[w];
-      const float4 v = xr[w * q4];
-      acc.x = __fmaf_rn(m, v.x, acc.x);
-      acc.y = __fmaf_rn(m, v.y, acc.y);
-      acc.z = __fmaf_rn(m, v.z, acc.z);
-      acc.w = __fmaf_rn(m, v.w, acc.w);
+  // stage the rows of X the tile's bands cover, a chunk of columns at a
+  // time, and the tile's band
+  const int2 kr = tile_in.k[tile];
+  const int k0 = kr.x, nk = kr.y - kr.x;
+  const float* xk = x + ((size_t)n * in + k0) * in;
+  const bool vec = (in & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  for (int j0 = 0; j0 < in; j0 += chunk) {
+    const int nj = min(chunk, in - j0);
+    if (vec) {
+      const int q = nj >> 2;
+      for (int i = threadIdx.x; i < nk * q; i += kThreads) {
+        const int k = i / q, j = i - k * q;
+        cp_async16(s_x + k * pitch + 4 * j, xk + (size_t)k * in + j0 + 4 * j);
+      }
+    } else {
+      // the pitch's padding columns stay unwritten: the T columns they give
+      // are never read, since lo + width <= in
+      for (int i = threadIdx.x; i < nk * nj; i += kThreads) {
+        const int k = i / nj, j = i - k * nj;
+        cp_async4(s_x + k * pitch + j, xk + (size_t)k * in + j0 + j);
+      }
     }
-    float* tr = s_t + t * tp + tcol(4 * j4);   // four columns within one 32-column run
-    tr[0] = acc.x;
-    tr[1] = acc.y;
-    tr[2] = acc.z;
-    tr[3] = acc.w;
+    if (j0 == 0) {
+      for (int i = threadIdx.x; i < nr * width; i += kThreads)
+        cp_async4(s_c + i, coef + (size_t)r0 * width + i);
+      for (int i = threadIdx.x; i < nr; i += kThreads) cp_async4(s_lo + i, lo + r0 + i);
+      load_group();   // while the copies land
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // step 1: T[t][j..j+3] = sum_w A[r0+t][lo+w] * X[lo+w][j..j+3]
+    const int q4 = x_pitch(nj) >> 2, xq = pitch >> 2;
+    for (int i = threadIdx.x; i < nr * q4; i += kThreads) {
+      const int t = i / q4, j4 = i - t * q4;
+      const float* at = s_c + t * width;
+      const float4* xr = reinterpret_cast<const float4*>(s_x + (s_lo[t] - k0) * pitch) + j4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int w = 0; w < width; ++w) {
+        const float m = at[w];
+        const float4 v = xr[w * xq];
+        acc.x = __fmaf_rn(m, v.x, acc.x);
+        acc.y = __fmaf_rn(m, v.y, acc.y);
+        acc.z = __fmaf_rn(m, v.z, acc.z);
+        acc.w = __fmaf_rn(m, v.w, acc.w);
+      }
+      float* tr = s_t + t * tp + tcol(j0 + 4 * j4);   // four columns within one 32-column run
+      tr[0] = acc.x;
+      tr[1] = acc.y;
+      tr[2] = acc.z;
+      tr[3] = acc.w;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // step 2: Y[r0+t][c] = sum_w T[t][lo[c]+w] * A[c][lo[c]+w] (+ C[r0+t][c])
   float* yn = y + (size_t)n * out * out;
@@ -274,27 +293,24 @@ const char* sifsr_error_string(int code) {
 // from column lo[r] (int32, lo[r] + width <= in); cst (out, out) or null;
 // all float32 and contiguous on the device. A block takes `rows` output
 // rows, tile t the rows of x from tile_in[2t] to tile_in[2t+1] (int32, in
-// host memory, at most kMaxTiles tiles), at most `span` rows.
-// Returns cudaGetLastError() after the launch.
+// host memory), at most `span` rows, staged `chunk` columns at a time.
+// Returns cudaGetLastError() after the last launch.
 int sifsr_sandwich(const void* x, const void* lo, const void* coef, const int* tile_in,
                    const void* cst, void* y, int n, int in, int out, int width, int rows,
-                   int span, void* stream) {
+                   int span, int chunk, void* stream) {
   if (n < 0 || in < 1 || out < 1 || width < 1 || width > kMaxBand || width > in || rows < 1 ||
-      span < width || span > in)
+      span < width || span > in || chunk < 1 || (chunk < in && chunk % 4))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int tiles = (out + rows - 1) / rows;
-  if (tiles > kMaxTiles || (long long)n * tiles > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  TileRows tr;
-  for (int t = 0; t < tiles; ++t) {
-    tr.k[t] = make_int2(tile_in[2 * t], tile_in[2 * t + 1]);
-    if (tr.k[t].x < 0 || tr.k[t].y > in || tr.k[t].y - tr.k[t].x > span)
+  for (int t = 0; t < tiles; ++t)
+    if (tile_in[2 * t] < 0 || tile_in[2 * t + 1] > in ||
+        tile_in[2 * t + 1] - tile_in[2 * t] > span)
       return (int)cudaErrorInvalidValue;
-  }
   const size_t smem = ((size_t)band_words(rows, width) + (size_t)rows * t_pitch(in) +
-                       (size_t)span * x_pitch(in)) * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+                       (size_t)span * x_pitch(chunk < in ? chunk : in)) * sizeof(float);
+  if (smem > 227 * 1024 || (long long)n * (tiles < kMaxTiles ? tiles : kMaxTiles) > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool quads = out % 4 == 0 && out > in && width <= 4;
   auto launch = [&](auto kernel) {
@@ -303,13 +319,22 @@ int sifsr_sandwich(const void* x, const void* lo, const void* coef, const int* t
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    kernel<<<n * tiles, kThreads, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(lo),
-        static_cast<const float*>(coef), tr,
-        static_cast<const float*>(cst), static_cast<float*>(y), in, out, width, rows, tiles);
-    return (int)cudaGetLastError();
+    for (int t0 = 0; t0 < tiles; t0 += kMaxTiles) {
+      const int nt = tiles - t0 < kMaxTiles ? tiles - t0 : kMaxTiles;
+      TileRows tr;
+      for (int t = 0; t < nt; ++t)
+        tr.k[t] = make_int2(tile_in[2 * (t0 + t)], tile_in[2 * (t0 + t) + 1]);
+      kernel<<<n * nt, kThreads, smem, s>>>(
+          static_cast<const float*>(x), static_cast<const int*>(lo),
+          static_cast<const float*>(coef), tr, static_cast<const float*>(cst),
+          static_cast<float*>(y), in, out, width, rows, nt, t0, chunk);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    return (int)cudaSuccess;
   };
-  return quads ? launch(sandwich_kernel<4, 4>) : launch(sandwich_kernel<1, kMaxBand>);
+  if (quads) return launch(sandwich_kernel<4, 4>);
+  return width <= 32 ? launch(sandwich_kernel<1, 32>) : launch(sandwich_kernel<1, kMaxBand>);
 }
 
 // y (n, h/f, w/f) from x (n, h, w), float32; h and w are multiples of f.

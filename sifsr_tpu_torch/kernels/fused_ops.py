@@ -74,12 +74,46 @@ def _sandwich_constants(in_size: int, factor: int, mtf: float, mean_lst: float,
 
 
 # what the kernel takes (csrc/fused_ops.cu): the widest band (kMaxBand;
-# factor 8 needs 20), row tiles of one image (kMaxTiles), shared memory a block
-_MAX_BAND = 32
-_MAX_TILES = 128
+# factor 16 needs 36), shared memory a block
+_MAX_BAND = 64
 _SMEM_BYTES = 227 * 1024
-# output rows a block takes: forward (M's band), backward (Mᵀ's)
+# output rows a block takes where they fit: forward (M's band), backward (Mᵀ's)
 _BLOCK_ROWS = (8, 32)
+
+
+def _pitch(cols: int) -> int:
+    """A row of ``cols`` floats in shared memory, rounded up to 4 floats."""
+    return -(-cols // 4) * 4
+
+
+def _stage_bytes(rows: int, width: int, cols: int, span: int, chunk: int) -> int:
+    """Shared memory of a block as csrc/fused_ops.cu lays it out: the tile's
+    band (rows x width coefficients and rows starts, padded to 16 bytes), T
+    (rows x cols, column j at j + j/32) and ``span`` staged rows of X,
+    ``chunk`` columns at a time."""
+    return 4 * (_pitch(rows * (width + 1)) + rows * _pitch(_pitch(cols) + _pitch(cols) // 32)
+                + span * _pitch(min(chunk, cols)))
+
+
+def _tiling(lo: np.ndarray, width: int, cols: int, rows: int):
+    """(rows, chunk, tile_in, span) of a band's launch, the one rule: ``rows``
+    output rows a block, halved while T and a 4-column stage of the rows of
+    X the tile covers would not fit in the 227 KB of shared memory a block;
+    then the fewest even chunks of columns (multiples of 4) whose staged
+    rows fit beside T (one chunk, all ``cols``, where they do). Tile t
+    covers the input rows ``tile_in[t, 0]`` to ``tile_in[t, 1]``, at most
+    ``span`` of them. A shape that fits no way keeps one row and chunks of
+    4 columns, and ``_band_refusal`` refuses it."""
+    while True:
+        tile_in = np.array([(lo[r:r + rows].min(), lo[r:r + rows].max() + width)
+                            for r in range(0, len(lo), rows)], np.int32)
+        span = int((tile_in[:, 1] - tile_in[:, 0]).max())
+        room = (_SMEM_BYTES - _stage_bytes(rows, width, cols, 0, cols)) // (16 * span) * 4
+        if room >= 4 or rows == 1:
+            break
+        rows //= 2
+    chunks = -(-cols // max(room, 4))
+    return rows, _pitch(-(-cols // chunks)), tile_in, span
 
 
 def _band(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -104,51 +138,71 @@ def _band(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 class _Band(NamedTuple):
-    """A band on the device with the tiling it is launched at: a block takes
-    ``rows`` output rows, tile t the input rows ``tile_in[t, 0]`` to
-    ``tile_in[t, 1]`` (a host array the launch passes by value), at most
-    ``span`` of them."""
+    """A band on the device with the tiling it is launched at (``_tiling``):
+    a block takes ``rows`` output rows, tile t the input rows
+    ``tile_in[t, 0]`` to ``tile_in[t, 1]`` (a host array the launch passes
+    by value), at most ``span`` of them, staged ``chunk`` columns at a
+    time."""
 
     lo: torch.Tensor       # (rows of A,) int32
     coef: torch.Tensor     # (rows of A, width) float32
     tile_in: np.ndarray    # (tiles, 2) int32
     rows: int
     span: int
+    chunk: int
 
 
 @functools.lru_cache(maxsize=32)
 def _sandwich_bands(in_size: int, factor: int, mtf: float,
                     device: torch.device) -> tuple[_Band, _Band]:
     """The bands of M (the forward's matrix) and of Mᵀ (the backward's), read
-    off the float32 M, at ``_BLOCK_ROWS`` output rows a block."""
+    off the float32 M, each with its launch's tiling (``_tiling``, from
+    ``_BLOCK_ROWS`` output rows a block)."""
     m = _matrix(in_size, factor, mtf).astype(np.float32)
     bands = []
     for a, rows in ((m, _BLOCK_ROWS[0]), (m.T, _BLOCK_ROWS[1])):
         lo, coef = _band(a)
-        tile_in = np.array([(lo[r:r + rows].min(), lo[r:r + rows].max() + coef.shape[1])
-                            for r in range(0, len(lo), rows)], np.int32)
+        rows, chunk, tile_in, span = _tiling(lo, coef.shape[1], a.shape[1], rows)
         bands.append(_Band(torch.as_tensor(lo, device=device),
-                           torch.as_tensor(coef, device=device), tile_in, rows,
-                           int((tile_in[:, 1] - tile_in[:, 0]).max())))
+                           torch.as_tensor(coef, device=device), tile_in, rows, span, chunk))
     return bands[0], bands[1]
+
+
+def _band_refusal(size: int, band: _Band) -> str | None:
+    """Why the kernel would refuse ``band`` on a (size, size) input, or None:
+    a band wider than it takes, or a tiling whose block needs more shared
+    memory than the card has."""
+    width = band.coef.shape[1]
+    if width > _MAX_BAND:
+        return f"a band of {width} coefficients a row; the kernel takes at most {_MAX_BAND}"
+    smem = _stage_bytes(band.rows, width, size, band.span, band.chunk)
+    if smem > _SMEM_BYTES:
+        return (f"{size}x{size} in tiles of {band.rows} rows and chunks of {band.chunk} "
+                f"columns, {smem} bytes of shared memory a block; the kernel takes at most "
+                f"{_SMEM_BYTES} bytes")
+    return None
 
 
 def _check_band(size: int, band: _Band) -> None:
     """Raise ValueError where the kernel would refuse ``band`` on a
-    (size, size) input: a band wider than it takes, more row tiles, or more
-    shared memory a block (the band's rows, T and the staged rows of the
-    input, as csrc/fused_ops.cu lays them out)."""
-    width, tiles = band.coef.shape[1], len(band.tile_in)
-    if width > _MAX_BAND:
-        raise ValueError(f"a band of {width} coefficients a row; the kernel takes at most "
-                         f"{_MAX_BAND}")
-    pitch = -(-size // 4) * 4
-    smem = 4 * (-(-band.rows * (width + 1) // 4) * 4
-                + band.rows * -(-(pitch + pitch // 32) // 4) * 4 + band.span * pitch)
-    if tiles > _MAX_TILES or smem > _SMEM_BYTES:
-        raise ValueError(f"{size}x{size} in {tiles} tiles of {band.rows} rows, {smem} bytes of "
-                         f"shared memory a block; the kernel takes at most {_MAX_TILES} tiles "
-                         f"and {_SMEM_BYTES} bytes")
+    (size, size) input (``_band_refusal``)."""
+    why = _band_refusal(size, band)
+    if why is not None:
+        raise ValueError(why)
+
+
+@functools.lru_cache(maxsize=32)
+def _shape_refusal(size: int, factor: int, mtf: float) -> str | None:
+    """Why kernel M does not take a (size, size) input at this factor and
+    mtf, or None: M or Mᵀ has no band, or the kernel refuses one of them.
+    Decided on the host, for both directions, before any launch. No shape
+    of the recipes comes near; a band past 64 coefficients (factor 31 and
+    up) is refused."""
+    try:
+        band_m, band_mt = _sandwich_bands(size, factor, mtf, torch.device("cpu"))
+    except ValueError as e:   # a row of M or Mᵀ whose nonzeros are not one run
+        return str(e)
+    return _band_refusal(size, band_m) or _band_refusal(size // factor, band_mt)
 
 
 def fused_psf_downscale_plain(x: torch.Tensor, mean_lst: float, std_lst: float,
@@ -175,7 +229,7 @@ def _sandwich(x: torch.Tensor, band: _Band, const: torch.Tensor | None) -> torch
                                   band.tile_in.ctypes.data,
                                   None if const is None else const.data_ptr(),
                                   y.data_ptr(), n, size, out, width, band.rows, band.span,
-                                  stream)
+                                  band.chunk, stream)
     _build.check(lib, code, "fused_psf_downscale")
     return y
 
@@ -198,6 +252,17 @@ class _FusedPsfDownscale(torch.autograd.Function):
         return dx, None, None, None, None
 
 
+def _on_card(x: torch.Tensor, mean_lst: float, std_lst: float, factor: int,
+             mtf: float) -> torch.Tensor:
+    """The route of a CUDA tensor: the kernel forward and backward, or
+    ValueError before any launch where it does not take the shape
+    (``_shape_refusal``)."""
+    why = _shape_refusal(x.shape[-1], factor, mtf)
+    if why is not None:
+        raise ValueError(f"fused_psf_downscale at {x.shape[-1]}² and factor {factor}: {why}")
+    return _FusedPsfDownscale.apply(x, mean_lst, std_lst, factor, mtf)
+
+
 def fused_psf_downscale(x: torch.Tensor, mean_lst: float, std_lst: float,
                         factor: int = 4, mtf: float = 0.1) -> torch.Tensor:
     """renorm(downscale(unnorm(x))) for a normalised (N, H, H) float32 batch
@@ -213,7 +278,7 @@ def fused_psf_downscale(x: torch.Tensor, mean_lst: float, std_lst: float,
         return fused_psf_downscale_plain(x, mean_lst, std_lst, factor, mtf)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _FusedPsfDownscale.apply(x, mean_lst, std_lst, factor, mtf)
+    return _on_card(x, mean_lst, std_lst, factor, mtf)
 
 
 fused_psf_downscale.launches = 0
@@ -261,7 +326,7 @@ fused_norm_l4.launches = 0
 def _lib():
     lib = _build.load("fused_ops")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sifsr_sandwich.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+    lib.sifsr_sandwich.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.sifsr_sandwich.restype = i
     lib.sifsr_norm_l4.argtypes = [vp, vp, i, i, i, i, f, f, i, vp]
     lib.sifsr_norm_l4.restype = i

@@ -76,6 +76,24 @@ def _inv_scale(scale) -> float:
     return float(np.float32(1.0) / np.float32(scale))
 
 
+# kernel A's launch (csrc/resize_phases.cu): a block of 256 threads takes R
+# consecutive output rows of one image, the R rows of the row pass in shared
+# memory; R is the largest power of two <= 32 whose rows fit in 32 KB, else 1
+# (one row of W*C floats, as the one-row-a-block kernel before it took)
+_MAX_ROWS = 32
+_ROW_BYTES = 32 * 1024
+
+
+def _launch_shape(h: int, w: int, c: int, factor: int) -> tuple[int, int, int]:
+    """(R, blocks an image, shared memory bytes a block) of kernel A's launch
+    on an (N, h, w, c) input: the one rule for R, which the wrapper passes
+    to the entry."""
+    rows = _MAX_ROWS
+    while rows > 1 and rows * w * c * 4 > _ROW_BYTES:
+        rows //= 2
+    return rows, -(-factor * h // rows), rows * w * c * 4
+
+
 def phase_passes(x: torch.Tensor, deltas, rc: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
     """Row pass then column pass over float32 x (N,H,W,C) with the tables rc
     (f, n_deltas, H), cc (f, n_deltas, W): the taps in ascending delta order,
@@ -130,7 +148,12 @@ def upsample_phases(x: torch.Tensor, factor: int, kind: str, scale=None,
         return upsample_phases_plain(x, factor, kind, scale, in_scale)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    x = x.to(torch.float32)
+    return _on_card(x.to(torch.float32), factor, kind, scale, in_scale)
+
+
+def _on_card(x: torch.Tensor, factor: int, kind: str, scale, in_scale) -> torch.Tensor:
+    """Launch kernel A on float32 x, R from ``_launch_shape``; the stream is
+    the device's current one."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     n, h, w, c = x.shape
@@ -142,8 +165,8 @@ def upsample_phases(x: torch.Tensor, factor: int, kind: str, scale=None,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.sifsr_upsample_phases(
         x.data_ptr(), rc.data_ptr(), cc.data_ptr(), (ctypes.c_int * len(deltas))(*deltas),
-        len(deltas), factor, n, h, w, c, _inv_scale(scale) if out_int8 else 1.0,
-        int(out_int8), out.data_ptr(), stream)
+        len(deltas), factor, n, h, w, c, _launch_shape(h, w, c, factor)[0],
+        _inv_scale(scale) if out_int8 else 1.0, int(out_int8), out.data_ptr(), stream)
     _build.check(lib, code, "upsample_phases")
     upsample_phases.launches += 1
     return out
@@ -156,7 +179,7 @@ upsample_phases.launches = 0
 def _lib():
     lib = _build.load("resize_phases")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.sifsr_upsample_phases.argtypes = [vp, vp, vp, ctypes.POINTER(i), i, i, i, i, i, i,
+    lib.sifsr_upsample_phases.argtypes = [vp, vp, vp, ctypes.POINTER(i), i, i, i, i, i, i, i,
                                           ctypes.c_float, i, vp, vp]
     lib.sifsr_upsample_phases.restype = i
     return lib

@@ -46,6 +46,111 @@ def test_upsample_phases_cuda(rng, cuda, factor, kind, size, c, scale):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("n", [1, 3, 13])
+@pytest.mark.parametrize("factor,kind,size,c", [(4, "cubic", 64, 1), (2, "linear_ac", 128, 16)])
+@pytest.mark.parametrize("scale", [None, 0.02])
+def test_upsample_phases_serving_shapes_cuda(rng, cuda, n, factor, kind, size, c, scale):
+    """Kernel A at the serving calls' shapes (R = 32 rows a block for the
+    cubic x4 of 64² x 1, R = 4 for the x2 of 128² x 16) on batches 1, 3 and
+    13: identical to the plain version, int8 and float32 out."""
+    x = _f32(3.0 * rng.standard_normal((n, size, size, c))).to(cuda)
+    got = resize_phases.upsample_phases(x, factor, kind, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, resize_phases.upsample_phases_plain(x, factor, kind, scale))
+
+
+@pytest.mark.parametrize("h,w,c,factor,kind", [
+    (40, 36, 3, 4, "cubic"), (40, 36, 3, 2, "linear_ac"), (40, 37, 16, 2, "linear_ac"),
+    (40, 36, 16, 4, "cubic"), (40, 36, 1, 2, "cubic"), (9, 7, 5, 3, "cubic"),
+    (3, 908, 64, 2, "linear_ac"), (2, 4001, 14, 2, "linear_ac")])
+@pytest.mark.parametrize("scale", [None, 0.02])
+def test_upsample_phases_odd_shapes_cuda(rng, cuda, h, w, c, factor, kind, scale):
+    """Kernel A's generic form (3 and 5 channels, factor 2 and 3 at one
+    channel), odd widths at 16 channels, and the widest rows the
+    one-row-a-block kernel took (908 x 64 and 4001 x 14 floats: 227 KB and
+    just under, R = 1); then the same input 4 bytes past a 16-byte boundary
+    (the scalar row pass). Identical to the plain version."""
+    x = _f32(3.0 * rng.standard_normal((2, h, w, c)))
+    want = resize_phases.upsample_phases_plain(x.to(cuda), factor, kind, scale)
+    got = resize_phases.upsample_phases(x.to(cuda), factor, kind, scale)
+    x1 = torch.cat([torch.zeros(1), x.reshape(-1)]).to(cuda)[1:].reshape(x.shape)
+    got1 = resize_phases.upsample_phases(x1, factor, kind, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got1, want)
+
+
+@pytest.mark.parametrize("h,w,c,factor,kind", [(9, 7, 5, 3, "cubic"), (9, 12, 1, 3, "cubic"),
+                                               (9, 12, 4, 3, "cubic"), (16, 16, 1, 4, "cubic"),
+                                               (16, 16, 16, 2, "linear_ac")])
+@pytest.mark.parametrize("scale", [1.0, 0.5, 2.0])
+def test_upsample_phases_ties_and_saturation_cuda(rng, cuda, h, w, c, factor, kind, scale):
+    """The int8 epilogue on half-integer values (factor 3 keeps every third
+    row and column as it is, so x = k + 0.5 at scale 1 rounds half to even
+    there) and on values far past +-127: identical to the plain version."""
+    x = _f32(rng.integers(-200, 200, (2, h, w, c)) + 0.5)
+    x[0, 0, 0, 0], x[0, 1, 1, 0] = 1e30, -1e30
+    x = x.to(cuda)
+    got = resize_phases.upsample_phases(x, factor, kind, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, resize_phases.upsample_phases_plain(x, factor, kind, scale))
+
+
+@pytest.mark.parametrize("c,factor,kind", [(1, 4, "cubic"), (16, 2, "linear_ac"),
+                                           (3, 4, "cubic")])
+@pytest.mark.parametrize("out_int8", [True, False])
+def test_upsample_phases_misaligned_output_cuda(rng, cuda, c, factor, kind, out_int8):
+    """The entry called with an output that starts one element past a
+    16-byte boundary (the wrapper always allocates its own; the entry takes
+    any pointer): the generic form, scalar stores, identical to the plain
+    version."""
+    import ctypes
+
+    x = _f32(3.0 * rng.standard_normal((3, 40, 36, c))).to(cuda)
+    scale = 0.02 if out_int8 else None
+    want = resize_phases.upsample_phases_plain(x, factor, kind, scale)
+    deltas, rc, cc = resize_phases._device_tables(40, 36, factor, kind, x.device)
+    buf = torch.zeros(want.numel() + 1, dtype=want.dtype, device=cuda)
+    out = buf[1:].view(want.shape)
+    lib = resize_phases._lib()
+    code = lib.sifsr_upsample_phases(
+        x.data_ptr(), rc.data_ptr(), cc.data_ptr(), (ctypes.c_int * len(deltas))(*deltas),
+        len(deltas), factor, 3, 40, 36, c, resize_phases._launch_shape(40, 36, c, factor)[0],
+        resize_phases._inv_scale(scale) if out_int8 else 1.0, int(out_int8), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    assert torch.equal(out, want) and int(buf[0]) == 0
+
+
+@pytest.mark.parametrize("rows", [0, 2])
+def test_upsample_phases_entry_refuses_rows_past_shared_memory_cuda(cuda, rows):
+    """The entry checks the R it is given: none, or 2 rows of the widest row
+    (908 x 64 floats, 227 KB each), is refused with cudaErrorInvalidValue
+    before any launch; the output stays untouched."""
+    import ctypes
+
+    x = torch.zeros((1, 3, 908, 64), device=cuda)
+    deltas, rc, cc = resize_phases._device_tables(3, 908, 2, "linear_ac", x.device)
+    out = torch.full((1, 6, 1816, 64), 5.0, device=cuda)
+    code = resize_phases._lib().sifsr_upsample_phases(
+        x.data_ptr(), rc.data_ptr(), cc.data_ptr(), (ctypes.c_int * len(deltas))(*deltas),
+        len(deltas), 2, 1, 3, 908, 64, rows, 1.0, 0, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 1 and bool((out == 5.0).all())
+
+
+@pytest.mark.parametrize("h,w,c,factor,kind", [(40, 36, 3, 4, "cubic"), (64, 64, 1, 4, "cubic")])
+def test_upsample_phases_int8_input_cuda(rng, cuda, h, w, c, factor, kind):
+    """The int8 input with in_scale (cast to float32 by the wrapper, the
+    scale folded into the row coefficients): identical to the plain
+    version."""
+    x = _i8(rng, (2, h, w, c)).to(cuda)
+    got = resize_phases.upsample_phases(x, factor, kind, scale=0.02, in_scale=0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(got, resize_phases.upsample_phases_plain(x, factor, kind, 0.02, 0.05))
+
+
 @pytest.mark.parametrize("h,w", [(64, 64), (40, 36)])
 @pytest.mark.parametrize("pm", [None, 0.17])
 def test_conv_i8_exact_cuda(rng, cuda, h, w, pm):
@@ -582,6 +687,43 @@ def test_fused_psf_downscale_band_cuda(rng, cuda, n, size, factor):
     assert float((y.detach().cpu().double() - want.detach()).abs().max()) <= 1e-5
     assert float((dx.cpu().double() - want_dx).abs().max()) <= 1e-5
     assert float((dx1.cpu().double() - want_dx1).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n,size,factor", [(2, 256, 16), (2, 1024, 8), (1, 2048, 2),
+                                            (1, 2050, 2), (1, 4096, 2), (1, 2048, 16)])
+def test_fused_psf_downscale_large_shapes_cuda(rng, cuda, n, size, factor):
+    """Kernel M past the recipes' shapes: a band of 36 (factor 16), staged
+    rows of X in chunks of columns (1024² at factor 8, 2048² at factor 2;
+    2050² also with rows no whole number of 16-byte words), 129 and 256 row
+    tiles launched in turns of 128 (2050², 4096²), 16 rows a block
+    backward (4096²): value and gradient within 1e-5 of float64, one launch
+    each way."""
+    out = size // factor
+    x = _f32(rng.standard_normal((n, size, size)))
+    g = _f32(rng.standard_normal((n, out, out)))
+    f = fused_ops.fused_psf_downscale
+    f.launches = f.backward_launches = 0
+    xd = x.to(cuda).requires_grad_()
+    y = f(xd, MEAN, STD, factor)
+    (dx,) = torch.autograd.grad(y, xd, g.to(cuda))
+    torch.cuda.synchronize()
+    assert (f.launches, f.backward_launches) == (1, 1)
+    x64 = x.double().to(cuda).requires_grad_()
+    want = fused_ops.fused_psf_downscale_plain(x64, MEAN, STD, factor)
+    (want_dx,) = torch.autograd.grad(want, x64, g.double().to(cuda))
+    assert y.shape == (n, out, out) and dx.shape == x.shape
+    assert float((y.detach().double() - want.detach()).abs().max()) <= 1e-5
+    assert float((dx.double() - want_dx).abs().max()) <= 1e-5
+
+
+def test_fused_psf_downscale_refuses_what_its_kernel_does_not_take_cuda(cuda):
+    """Factor 32 (a band of 68 coefficients, past the kernel's 64) raises
+    ValueError on the card before any launch."""
+    f = fused_ops.fused_psf_downscale
+    f.launches = 0
+    with pytest.raises(ValueError, match="a band of 68"):
+        f(torch.zeros((1, 256, 256), device=cuda), MEAN, STD, 32)
+    assert f.launches == 0
 
 
 @pytest.mark.parametrize("size,factor", [(36, 4), (40, 4), (42, 2), (1024, 4)])

@@ -198,37 +198,57 @@ def test_band_tiles_cover_every_block(factor, size):
         assert band.span == max(k1 - k0 for k0, k1 in want) <= cols
 
 
-@pytest.mark.parametrize("size,factor,fits", [(256, 8, True), (1024, 4, True),
-                                              (1024, 8, False), (2048, 2, False)])
-def test_band_tiles_fit_shared_memory(size, factor, fits):
-    """The wrapper takes a shape whose tiles stage within the 227 KB of
-    shared memory a block, both ways, and refuses the rest before any
-    launch (the forward at 1024² and factor 8 stages 84 rows of 4 KB; at
-    2048² and factor 2, 30 rows of 8 KB)."""
-    band_m, band_mt = fused_ops._sandwich_bands(size, factor, 0.1, torch.device("cpu"))
-    fused_ops._check_band(size // factor, band_mt)
-    if fits:
-        fused_ops._check_band(size, band_m)
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            fused_ops._check_band(size, band_m)
+# (size, factor): (forward rows, chunk; backward rows, chunk) of _tiling
+_TILINGS = {(256, 8): (8, 256, 32, 32), (1024, 4): (8, 1024, 32, 256),
+            (1024, 8): (8, 512, 32, 128), (2048, 2): (8, 1024, 32, 1024),
+            (256, 16): (8, 256, 32, 16), (2048, 16): (8, 256, 32, 128),
+            (4096, 2): (8, 1024, 16, 1024)}
 
 
-def test_band_refuses_more_tiles_than_the_kernel_takes():
-    """The kernel takes at most 128 row tiles of an image: one more is
-    refused before any launch."""
-    band = fused_ops._Band(torch.zeros(129, dtype=torch.int32), torch.ones(129, 1),
-                           np.zeros((129, 2), np.int32) + [0, 1], 1, 1)
-    fused_ops._check_band(129, band._replace(tile_in=band.tile_in[:128]))
-    with pytest.raises(ValueError, match="at most 128 tiles"):
-        fused_ops._check_band(129, band)
+@pytest.mark.parametrize("size,factor", list(_TILINGS))
+def test_band_tiles_fit_shared_memory(size, factor):
+    """Every tiling the host chooses stages within the 227 KB of shared
+    memory a block, both ways, and the wrapper takes it: at the recipes'
+    sizes in one chunk of columns and 8 / 32 output rows a block; 1024² at
+    factor 8 (76 staged rows of 4 KB) and 2048² at factor 2 (22 of 8 KB) in
+    two chunks; 4096² at factor 2 also with 16 rows a block backward (T's 32
+    rows of 2,048 floats would not fit), in 256 tiles, which the entry
+    launches in two turns of 128."""
+    bands = fused_ops._sandwich_bands(size, factor, 0.1, torch.device("cpu"))
+    got = []
+    for band, cols in zip(bands, (size, size // factor)):
+        width = band.coef.shape[1]
+        fused_ops._check_band(cols, band)
+        assert fused_ops._stage_bytes(band.rows, width, cols, band.span,
+                                      band.chunk) <= 227 * 1024
+        assert band.chunk % 4 == 0 and band.chunk >= 4
+        chunks = -(-cols // band.chunk)
+        # the fewest chunks: one fewer would not fit; one chunk takes every column
+        assert chunks == 1 or fused_ops._stage_bytes(
+            band.rows, width, cols, band.span, -(-cols // (chunks - 1))) > 227 * 1024
+        assert len(band.tile_in) == -(-len(band.lo) // band.rows)
+        got += [band.rows, band.chunk]
+    assert tuple(got) == _TILINGS[size, factor]
+    assert fused_ops._shape_refusal(size, factor, 0.1) is None
+
+
+def test_band_refuses_a_stage_past_shared_memory():
+    """A band whose block would not fit even at one output row and chunks of
+    4 columns (T's one row of 60,000 floats alone is 242 KB) is refused
+    before any launch."""
+    lo = np.zeros(4, np.int32)
+    rows, chunk, tile_in, span = fused_ops._tiling(lo, 3, 60_000, 8)
+    assert (rows, chunk, span) == (1, 4, 3)
+    band = fused_ops._Band(torch.as_tensor(lo), torch.ones(4, 3), tile_in, rows, span, chunk)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_ops._check_band(60_000, band)
 
 
 def test_sandwich_passes_the_band_to_the_entry(monkeypatch):
     """The host side of kernel M's launch, with the library and the CUDA
     stream stood in for: the entry gets the band's pointers, its tile table
-    and (n, in, out, width, rows, span) as csrc/fused_ops.cu declares them,
-    forward with the constant and backward without."""
+    and (n, in, out, width, rows, span, chunk) as csrc/fused_ops.cu declares
+    them, forward with the constant and backward without."""
     import contextlib
 
     calls = []
@@ -252,23 +272,23 @@ def test_sandwich_passes_the_band_to_the_entry(monkeypatch):
     (fwd, bwd) = calls
     assert fwd[:3] == (x.data_ptr(), band_m.lo.data_ptr(), band_m.coef.data_ptr())
     assert fwd[3] == band_m.tile_in.ctypes.data and fwd[4] == const.data_ptr()
-    assert fwd[6:] == (3, 256, 64, 12, 8, band_m.span, 7)
-    assert bwd[4] is None and bwd[6:] == (3, 64, 256, 3, 32, band_mt.span, 7)
-    assert len(fwd) == len(bwd) == 13   # the entry's ctypes signature
+    assert fwd[6:] == (3, 256, 64, 12, 8, band_m.span, 256, 7)
+    assert bwd[4] is None and bwd[6:] == (3, 64, 256, 3, 32, band_mt.span, 64, 7)
+    assert len(fwd) == len(bwd) == 14   # the entry's ctypes signature
 
 
 def test_band_refuses_what_the_kernel_does_not_take():
     """A row whose nonzeros are not one run has no band; a band wider than
-    the kernel's 32 coefficients (factor 16: 36) is refused before any
+    the kernel's 64 coefficients (factor 32: 68) is refused before any
     launch."""
     a = np.zeros((3, 8), np.float32)
     a[0, 1:4] = 1.0
     a[1, [2, 5]] = 1.0
     with pytest.raises(ValueError, match="contiguous"):
         fused_ops._band(a)
-    wide, _ = fused_ops._sandwich_bands(256, 16, 0.1, torch.device("cpu"))
-    assert wide.coef.shape[1] == 36
-    with pytest.raises(ValueError, match="at most 32"):
+    wide, _ = fused_ops._sandwich_bands(256, 32, 0.1, torch.device("cpu"))
+    assert wide.coef.shape[1] == 68
+    with pytest.raises(ValueError, match="at most 64"):
         fused_ops._sandwich(torch.zeros(1, 256, 256), wide, None)
 
 
@@ -309,3 +329,81 @@ def test_banded_sandwich_matches_pallas(rng, factor, size):
     got_dx = _banded_sandwich64(torch.from_numpy(g), band_mt.lo, band_mt.coef)
     assert got_dx.shape == (2, size, size)
     assert np.abs(got_dx.numpy() - np.asarray(want_dx)).max() <= 1e-5
+
+
+@pytest.mark.parametrize("size,factor,mtf,takes", [
+    (256, 4, 0.1, True), (256, 4, 0.25, True), (1024, 4, 0.1, True),
+    (256, 16, 0.1, True), (1024, 8, 0.1, True), (2048, 2, 0.1, True), (256, 32, 0.1, False)])
+def test_kernel_takes(size, factor, mtf, takes):
+    """The host's decision before kernel M's launch: the kernel takes the
+    recipes' shapes (256² at factor 4, mtf 0.1 and 0.25), 1024² at factor 4,
+    and factor 16 at 256² (a band of 36), 1024² at factor 8 and 2048² at
+    factor 2 (staged in chunks of columns); not factor 32 (a band of 68),
+    exactly where _check_band raises on M's or Mᵀ's band."""
+    assert (fused_ops._shape_refusal(size, factor, mtf) is None) is takes
+    band_m, band_mt = fused_ops._sandwich_bands(size, factor, mtf, torch.device("cpu"))
+    refused = [fused_ops._band_refusal(size, band_m),
+               fused_ops._band_refusal(size // factor, band_mt)]
+    assert (refused == [None, None]) is takes
+
+
+def test_card_route_skips_the_kernel_where_it_refuses(monkeypatch):
+    """The CUDA route with the library stood in for: a shape the kernel does
+    not take (factor 32 at 256²) raises ValueError and never reaches
+    sifsr_sandwich; factor 16 and factor 4 at 256² reach it, forward and
+    backward, one launch each way."""
+    import contextlib
+
+    calls = []
+
+    class Lib:
+        def sifsr_sandwich(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(fused_ops, "_lib", Lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 7})())
+    f = fused_ops.fused_psf_downscale
+    monkeypatch.setattr(f, "launches", 0)
+    monkeypatch.setattr(f, "backward_launches", 0)
+    x = torch.zeros(2, 256, 256, requires_grad=True)
+    with pytest.raises(ValueError, match="a band of 68"):
+        fused_ops._on_card(x, MEAN, STD, 32, 0.1)
+    assert (calls, f.launches, f.backward_launches) == ([], 0, 0)
+    for factor, n_calls in ((16, 2), (4, 4)):
+        fused_ops._on_card(x, MEAN, STD, factor, 0.1).sum().backward()
+        assert (len(calls), f.launches, f.backward_launches) == (n_calls, n_calls // 2,
+                                                                 n_calls // 2)
+    assert [c[9] for c in calls] == [36, 3, 12, 3]   # band widths: M's, Mᵀ's
+
+
+def test_band_at_factor_16_matches_the_jax_chain(rng):
+    """Factor 16 at 256², the band of 36 the kernel now takes: the band's
+    float64 arithmetic (the forward with M's band and the constant, the
+    gradient as Mᵀ's band applied to huber's gradient) equals JAX's off-TPU
+    ds_loss matmul chain (use_pallas=False) on the same seeded arrays within
+    1e-5: the degraded batch, the loss and its gradient."""
+    from sifsr_tpu.losses.losses import ds_loss as jax_ds_loss
+    from sifsr_tpu.ops.psf import downscale_lst_sr_to_lr as jax_downscale
+
+    x = rng.normal(size=(2, 256, 256)).astype(np.float32)
+    t = rng.normal(size=(2, 16, 16, 1)).astype(np.float32)
+    want_y = (np.asarray(jax_downscale(jnp.asarray(x * STD + MEAN)[:, None], factor=16,
+                                       mtf=0.1))[:, 0] - MEAN) / STD
+    v_j, g_j = jax.value_and_grad(
+        lambda a: jax_ds_loss(a, jnp.asarray(t), MEAN, STD, factor=16, mtf=0.1,
+                              use_pallas=False))(jnp.asarray(x[..., None]))
+    cpu = torch.device("cpu")
+    band_m, band_mt = fused_ops._sandwich_bands(256, 16, 0.1, cpu)
+    const = fused_ops._renorm_constant(256, 16, 0.1, MEAN, STD, cpu)
+    y = _banded_sandwich64(torch.from_numpy(x), band_m.lo, band_m.coef,
+                           const).requires_grad_()
+    assert y.shape == (2, 16, 16)
+    assert np.abs(y.detach().numpy() - want_y).max() <= 1e-5
+    v_t = huber(y[..., None], torch.from_numpy(t).double())
+    v_t.backward()
+    dx = _banded_sandwich64(y.grad, band_mt.lo, band_mt.coef)
+    assert abs(float(v_t.detach()) - float(v_j)) <= 1e-5
+    assert np.abs(dx.numpy() - np.asarray(g_j)[..., 0]).max() <= 1e-5

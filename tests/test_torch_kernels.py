@@ -22,6 +22,7 @@ from sifsr_tpu.pallas import conv_i8 as pallas_conv
 from sifsr_tpu.pallas.resize_phases import phases_to_nhwc
 from sifsr_tpu.pallas.resize_phases import upsample_phases as pallas_upsample
 
+from sifsr_tpu_torch.kernels import resize_phases
 from sifsr_tpu_torch.kernels import (
     conv_i8_exact,
     conv_i8_exact_dual,
@@ -49,23 +50,97 @@ def _scales(rng, k=16):
             rng.normal(size=k).astype(np.float32))
 
 
-@pytest.mark.parametrize("factor,kind,size,c", [(4, "cubic", 32, 1), (2, "linear_ac", 64, 16)])
+@pytest.mark.parametrize("factor,kind,size,c", [
+    (4, "cubic", 32, 1), (2, "linear_ac", 64, 16),
+    pytest.param(4, "cubic", (40, 36), 3, id="4-cubic-40x36-3"),
+    pytest.param(2, "linear_ac", (40, 36), 3, id="2-linear_ac-40x36-3")])
 @pytest.mark.parametrize("quantise", [True, False])
 def test_upsample_phases_matches_pallas(rng, factor, kind, size, c, quantise):
     """Kernel A at the serving step's two call sites (LST cubic x4, ub3's
-    align-corners x2): int8 identical, float32 within the repo's atol."""
-    x = (3.0 * rng.standard_normal((N, size, size, c))).astype(np.float32)
+    align-corners x2), and at an odd shape (H != W, 3 channels): int8
+    identical, float32 within the repo's atol."""
+    h, w = size if isinstance(size, tuple) else (size, size)
+    x = (3.0 * rng.standard_normal((N, h, w, c))).astype(np.float32)
     scale = 0.025 if quantise else None
     want = np.asarray(phases_to_nhwc(pallas_upsample(
         jnp.asarray(x), factor, kind, out_dtype=jnp.int8 if quantise else jnp.float32,
         scale=scale, interpret=True)))
     got = upsample_phases(torch.from_numpy(x), factor, kind, scale=scale).numpy()
-    assert got.shape == (N, factor * size, factor * size, c)
+    assert got.shape == (N, factor * h, factor * w, c)
     if quantise:
         assert got.dtype == np.int8
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+# (H, W, C, factor, kind): the serving calls, odd shapes, the widest row the
+# one-row-a-block kernel took (W*C*4 = 227 KB) and rows around the 32 KB step
+_LAUNCH_SHAPES = [(64, 64, 1, 4, "cubic"), (128, 128, 16, 2, "linear_ac"),
+                  (40, 36, 3, 4, "cubic"), (40, 36, 3, 2, "linear_ac"),
+                  (40, 37, 16, 2, "linear_ac"), (9, 7, 5, 3, "cubic"), (1, 1, 1, 4, "cubic"),
+                  (2, 3632, 16, 2, "linear_ac"), (3, 908, 64, 2, "linear_ac"),
+                  (1, 58112, 1, 4, "cubic"), (16, 512, 16, 2, "linear_ac"),
+                  (16, 513, 16, 2, "linear_ac"), (8, 8192, 1, 4, "cubic"),
+                  (8, 8193, 1, 4, "cubic"), (256, 256, 16, 2, "linear_ac")]
+
+
+@pytest.mark.parametrize("h,w,c,factor,kind", _LAUNCH_SHAPES)
+def test_upsample_phases_launch_fits(h, w, c, factor, kind):
+    """Kernel A's launch (``_launch_shape``, whose R the wrapper passes to
+    csrc/resize_phases.cu): R >= 1 output rows a block, the blocks of an image cover its f*H rows, and a
+    block's shared memory (R rows of W*C floats) stays within the card's
+    227 KB for every row the one-row-a-block kernel took (W*C*4 <= 227 KB);
+    R > 1 only within 32 KB. At the serving calls: R = 32 (cubic x4 of 64²,
+    2,592 blocks at batch 324) and R = 4 (the x2 of 128² x 16, 20,736)."""
+    card_smem = 227 * 1024   # shared memory a block can use on the H100
+    rows, blocks, smem = resize_phases._launch_shape(h, w, c, factor)
+    assert rows >= 1 and rows & (rows - 1) == 0 and rows <= 32
+    assert (blocks - 1) * rows < factor * h <= blocks * rows
+    assert w * c * 4 <= card_smem   # the widest rows of the sweep
+    assert smem == rows * w * c * 4 <= card_smem
+    assert rows == 1 or smem <= 32 * 1024
+    assert rows == 32 or 2 * smem > 32 * 1024
+    if w <= 512:   # the tables of a narrow row: at most the kernel's 8 taps
+        deltas, rc, cc = resize_phases._tables(h, w, factor, kind)
+        assert 1 <= len(deltas) <= 8 and rc.shape[1] == cc.shape[1] == len(deltas)
+    serving = {(64, 64, 1): (32, 8), (128, 128, 16): (4, 64)}
+    if (h, w, c) in serving:
+        assert (rows, blocks) == serving[(h, w, c)]
+        assert 324 * blocks == {32: 2592, 4: 20736}[rows]
+
+
+@pytest.mark.parametrize("h,w,c,factor,kind,scale", [(64, 64, 1, 4, "cubic", 0.02),
+                                                     (32, 32, 16, 2, "linear_ac", None),
+                                                     (2, 3632, 16, 2, "linear_ac", 0.025)])
+def test_upsample_phases_passes_the_launch_rows_to_the_entry(rng, monkeypatch, h, w, c, factor,
+                                                             kind, scale):
+    """The host side of kernel A's launch, with the library and the CUDA
+    stream stood in for: the entry gets the tables, the shape, and as R the
+    rows of _launch_shape (the rule test_upsample_phases_launch_fits holds),
+    then the epilogue's 1/scale, the output type and the output."""
+    calls = []
+
+    class Lib:
+        def sifsr_upsample_phases(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(resize_phases, "_lib", Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 7})())
+    x = torch.from_numpy(rng.standard_normal((2, h, w, c)).astype(np.float32))
+    out = resize_phases._on_card(x, factor, kind, scale, None)
+    ((xp, rcp, ccp, deltas, n_taps, *shape, inv, out_int8, outp, stream),) = calls
+    want_deltas, rc, cc = resize_phases._device_tables(h, w, factor, kind, x.device)
+    assert xp == x.data_ptr() and outp == out.data_ptr() and stream == 7
+    assert list(deltas[:n_taps]) == list(want_deltas)
+    assert shape == [factor, 2, h, w, c, resize_phases._launch_shape(h, w, c, factor)[0]]
+    assert out.shape == (2, factor * h, factor * w, c)
+    assert (out.dtype, out_int8, inv) == ((torch.int8, 1, resize_phases._inv_scale(scale))
+                                          if scale else (torch.float32, 0, 1.0))
+    with pytest.raises(ValueError, match="contiguous"):
+        resize_phases._on_card(x.transpose(1, 2), factor, kind, scale, None)
 
 
 def _b_operands(rng, sat):
