@@ -43,8 +43,9 @@ Phases, each of which raises on failure (no result line is printed then):
    and gradient (rtol 1e-4 / atol 1e-6) of huber(fused_psf_downscale(x), t)
    through autograd against the plain chain; then M past the recipes' shapes
    (factor 16 at (4,256,256), factor 8 at (2,1024,1024), factor 2 at
-   (1,2048,2048)) through the wrapper: value and gradient within 1e-5 of
-   float64, one launch each way;
+   (1,2048,2048), and the bands past 64 coefficients: factor 32 and 64 at
+   (4,256,256), 128 at (2,256,256), 64 at (2,1024,1024)) through the
+   wrapper: value and gradient within 1e-5 of float64, one launch each way;
 4. float anchor: ModelB2 in float32 (TF32 off) vs the reference torch
    outputs in golden/ at rtol 1e-4 / atol 5e-5;
 5. whole granule: a seeded synthetic 1200² LST / 4800² NDVI granule through
@@ -103,7 +104,23 @@ Phases, each of which raises on failure (no result line is printed then):
    ``cli.predict.load_variables``. Then the median device time of
    one train step at batch 32 with and without step metrics, samples/s and
    peak memory. ``--profile`` adds a torch.profiler table of three steps and
-   the time of the step under TF32, under bf16 autocast and with remat.
+   the time of the step under TF32, under bf16 autocast and with remat;
+9. eval (``eval_phase``): 40 synthetic ASTER pairs in the harness's format
+   (``write_aster_pairs``, cut from phase 5's granule) and seeded full-width
+   VGG16/LPIPS weights (``write_lpips_weights``) in a temporary directory;
+   ``cli.model_perf.main`` with ``--serving f32``, ``--serving prow
+   --device-metrics --save-pairs``, ``--serving bf16``, ``--serving pallas``
+   and ``--sr-type bicubic``: each performances.csv in the reference's
+   layout with finite LPIPS; the prow and pallas runs launch exactly phase
+   5's prow and xla counts once per pair, the others none; the device
+   metric block within rtol 2e-4 / atol 2e-4 of the host path on the prow
+   run's crops (and both timed over the 40 pairs); LPIPS on the card within
+   1e-5 relative of the CPU on three crops; attenuation_spectrum within
+   1e-5 dB of attenuation_spectrum_np; each serving path's sr_fn on every
+   pair, as each run called it (ms a pair): f32 within rtol 1e-4 / atol
+   5e-5 of the CPU on two pairs, on outputs normalised by the statistics
+   (phase 4's bound), bf16 within RMSE 0.1 K / max 0.5 K of f32, prow and
+   pallas within 0.3 K / 1 K; every pair scored; wall seconds per run.
 
 The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero
@@ -115,6 +132,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -124,6 +142,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N = 324                      # predict's batch: one 1200² granule = 18x18 blocks
 TRAIN_BATCH = 32             # paramsB.json
+N_EVAL_PAIRS = 40            # synthetic ASTER pairs of the eval phase
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12        # float32 outside the tensor cores
@@ -219,6 +238,7 @@ def main(profile: bool = False) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -734,8 +754,12 @@ def main(profile: bool = False) -> None:
 
     # kernel M past the recipes' shapes: a band of 36 (factor 16 at 256²),
     # rows of X staged in chunks of columns (1024² at factor 8, 2048² at
-    # factor 2), value and gradient against float64
-    for n_, size_, factor_ in ((4, 256, 16), (2, 1024, 8), (1, 2048, 2)):
+    # factor 2), and the bands past 64 coefficients, whose step 2 reads them
+    # from memory (factor 32 and 64 at 256²: 68 and 132; factor 128 at 256²:
+    # 194, a 2x2 output; factor 64 at 1024²: 132), value and gradient
+    # against float64, one launch each way
+    for n_, size_, factor_ in ((4, 256, 16), (2, 1024, 8), (1, 2048, 2), (4, 256, 32),
+                               (4, 256, 64), (2, 256, 128), (2, 1024, 64)):
         xr = f32(rng.standard_normal((n_, size_, size_))).requires_grad_()
         xr64 = xr.detach().double().requires_grad_()
         gr = f32(rng.standard_normal((n_, size_ // factor_, size_ // factor_)))
@@ -754,7 +778,8 @@ def main(profile: bool = False) -> None:
             f"1e-5), gradient max|d| {d_grad:.3g} ({d_grad / 1e-5:.1%}) vs float64; band "
             f"{band_m.coef.shape[1]} / {band_mt.coef.shape[1]}, rows {band_m.rows} / "
             f"{band_mt.rows}, chunks of {band_m.chunk} / {band_mt.chunk} columns, "
-            f"{len(band_m.tile_in)} / {len(band_mt.tile_in)} tiles")
+            f"{len(band_m.tile_in)} / {len(band_mt.tile_in)} tiles; forward "
+            f"{time_ms(torch, lambda: fused_ops.fused_psf_downscale(xr.detach(), mean_lst, std_lst, factor=factor_), 5):.4f} ms")
         if counts != (1, 1) or not (d_val <= 1e-5 and d_grad <= 1e-5):
             raise AssertionError(f"kernel M at factor {factor_} on {size_}²: launches {counts}, "
                                  f"value {d_val}, gradient {d_grad}")
@@ -1325,6 +1350,12 @@ def main(profile: bool = False) -> None:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     del smodel, sstate, sstep, batch32
 
+    # 9. eval: cli.model_perf over synthetic ASTER pairs (eval_phase)
+    t_eval = time.perf_counter()
+    eval_launches = eval_phase(torch, dev, (lst, ndvi), per_batch, smi.splitlines()[0])
+    log(f"wall s: phases 1-8 {t_eval - t_main:.1f}, phase 9 (eval) "
+        f"{time.perf_counter() - t_eval:.1f}")
+
     src = "sifsr_tpu_torch/csrc/"
     meta = {
         "upsample_phases": (src + "resize_phases.cu", "sifsr_tpu/pallas/resize_phases.py:93"),
@@ -1394,7 +1425,8 @@ def main(profile: bool = False) -> None:
     for name in ("fused_psf_downscale", "fused_psf_downscale_backward"):
         main_launches[name] = train_launches["predef_filters"][name]
     main_launches["fused_norm_l4"] = train_launches["scale_invariance"]["fused_norm_l4"]
-    by_path = dict(launches, **{"train_" + r: c for r, c in train_launches.items()})
+    by_path = dict(launches, **{"train_" + r: c for r, c in train_launches.items()},
+                   **{"eval_" + r: eval_launches[r] for r in ("prow", "pallas")})
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
          "launches": main_launches[name], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
@@ -1414,6 +1446,189 @@ def main(profile: bool = False) -> None:
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def eval_phase(torch, dev, granule, per_batch: dict, card: str,
+               n_pairs: int = N_EVAL_PAIRS) -> dict:
+    """Phase 9: ``cli.model_perf.main`` over ``n_pairs`` synthetic ASTER pairs
+    (``write_aster_pairs``, cut from ``granule``) in the harness's format,
+    ModelB_2 at full width through the f32, prow (with --device-metrics),
+    bf16 and pallas serving paths, one pair a call, and the bicubic floor,
+    LPIPS through a seeded full-width VGG16 (``write_lpips_weights``) on
+    ``dev``. Raises on any gate; returns each run's launch counts. ``card``:
+    the nvidia-smi line printed beside the times; ``per_batch``: phase 5's
+    launches a batch of the prow and xla steps, each pair's expected counts."""
+    import pandas as pd
+    import tempfile
+
+    import sifsr_tpu_torch.kernels as K
+    from sifsr_tpu_torch.cli import model_perf
+    from sifsr_tpu_torch.eval.device_metrics import COLUMNS, device_metric_rows
+    from sifsr_tpu_torch.data.statistics import Statistics
+    from sifsr_tpu_torch.eval.harness import METRIC_COLUMNS, compute_pair_metrics
+    from sifsr_tpu_torch.eval.lpips import LPIPS
+    from sifsr_tpu_torch.eval.spectra import attenuation_spectrum, attenuation_spectrum_np
+
+    summary_rows = ["mean", "std", "10%", "Q1", "mediane", "Q3", "90%"]
+    eval_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        write_aster_pairs(tmp, n_pairs, seed=1, granule=granule)
+        vgg_path, lp_path = write_lpips_weights(tmp)
+        log(f"eval: {n_pairs} ASTER pairs and the VGG16/LPIPS weights written in "
+            f"{time.perf_counter() - t:.1f} s")
+        base = ["--dataset", tmp, "--statistics", os.path.join(ROOT, "data",
+                                                              "statistics_testset.json"),
+                "--model-dir", os.path.join(ROOT, "weights", "modelB_1009"),
+                "--vgg16-weights", vgg_path, "--lpips-weights", lp_path, "--device", str(dev)]
+        runs = {"f32": ["--serving", "f32"], "prow": ["--serving", "prow", "--device-metrics",
+                                                     "--save-pairs"],
+                "bf16": ["--serving", "bf16"], "pallas": ["--serving", "pallas"],
+                "bicubic": ["--sr-type", "bicubic"]}
+        # each run's sr_fn, as main builds it, records its inputs, outputs
+        # and host time a call: the accuracy gates below hold the very calls
+        # whose launches were counted
+        make_sr_fn, calls = model_perf.make_sr_fn, {}
+
+        def recording_sr_fn(*args, **kwargs):
+            fn, log_ = make_sr_fn(*args, **kwargs), []
+            calls[kwargs.get("serving", "f32") if args[0] == "modelB" else args[0]] = log_
+
+            def sr_fn(lst, ndvi):
+                t0 = time.perf_counter()
+                y = fn(lst, ndvi)
+                log_.append((lst.copy(), ndvi.copy(), y, time.perf_counter() - t0))
+                return y
+            return sr_fn
+
+        frames, eval_wall = {}, {}
+        for name, flags in runs.items():
+            out = os.path.join(tmp, "results", name)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t = time.perf_counter()
+            model_perf.make_sr_fn = recording_sr_fn
+            try:
+                model_perf.main(base + flags + ["--out", out])
+            finally:
+                model_perf.make_sr_fn = make_sr_fn
+            torch.cuda.synchronize()
+            eval_wall[name] = time.perf_counter() - t
+            eval_launches[name] = {k.__name__: k.launches for k in K.KERNELS}
+            df = pd.read_csv(os.path.join(out, "performances.csv"), index_col=0)
+            pairs_df = df.drop(index=summary_rows)
+            if (list(df.columns) != list(METRIC_COLUMNS) or list(df.index[-7:]) != summary_rows
+                    or len(pairs_df) != n_pairs or len(calls[name]) != n_pairs
+                    or not np.isfinite(pairs_df["LPIPS"].to_numpy(float)).all()):
+                raise AssertionError(f"eval {name}: performances.csv off its layout, a pair not "
+                                     f"scored ({len(calls[name])} sr_fn calls) or LPIPS not "
+                                     f"finite:\n{df}")
+            frames[name] = df
+            mean = df.loc["mean"]
+            log(f"eval {name}: {eval_wall[name]:.1f} s wall for {len(pairs_df)} scored pairs of "
+                f"{n_pairs}; mean PSNR {mean['PSNR']:.3f} SSIM {mean['SSIM']:.4f} RMSE "
+                f"{mean['RMSE']:.4f} K GSSIM {mean['GSSIM']:.4f} LPIPS {mean['LPIPS']:.5f} "
+                f"RMSE_grad {mean['RMSE_grad']:.4f}")
+        # the int8 paths launch exactly phase 5's kernels, once per pair (the
+        # harness SRs every pair of the manifest before it crops)
+        for name, mid in (("prow", "prow"), ("pallas", "xla")):
+            want = {k.__name__: per_batch[mid].get(k.__name__, 0) * n_pairs for k in K.KERNELS}
+            if eval_launches[name] != want:
+                raise AssertionError(f"eval {name}: launches {eval_launches[name]}, expected {want}")
+        for name in ("f32", "bf16", "bicubic"):
+            if any(eval_launches[name].values()):
+                raise AssertionError(f"eval {name}: launched {eval_launches[name]}")
+        log(f"eval launches: prow {eval_launches['prow']}, pallas {eval_launches['pallas']}")
+
+        # the device metric block against the port's host path, on the crops
+        # the prow run pickled
+        crops = []
+        for idx in frames["prow"].drop(index=summary_rows).index:
+            with open(os.path.join(tmp, "results", "prow", f"{idx}_dict_pred.pkl"), "rb") as f:
+                c = pickle.load(f)
+            crops.append((idx, c["LST_SR"], c["LST_ASTER"]))
+        worst = 0.0
+        for idx, sr_c, as_c in crops:
+            host = compute_pair_metrics(sr_c, as_c)
+            for col in COLUMNS:
+                got_v, want_v = frames["prow"].loc[idx, col], host[col]
+                worst = max(worst, abs(got_v - want_v) / (2e-4 + 2e-4 * abs(want_v)))
+                if not np.isclose(got_v, want_v, rtol=2e-4, atol=2e-4):
+                    raise AssertionError(f"eval: device block {col} of pair {idx}: {got_v} vs host "
+                                         f"{want_v}")
+        pair_list = [(c[1], c[2]) for c in crops]
+        ms_dev = time_ms(torch, lambda: device_metric_rows(pair_list, dev), 5)
+        t = time.perf_counter()
+        for _, sr_c, as_c in crops:
+            compute_pair_metrics(sr_c, as_c)
+        ms_host = (time.perf_counter() - t) * 1e3
+        log(f"eval metric block: device {ms_dev:.2f} ms for {len(crops)} pairs (one call, crops "
+            f"{min(c[1].shape[0] for c in crops)}-{max(c[1].shape[0] for c in crops)} px) vs host "
+            f"numpy {ms_host:.2f} ms; every column within rtol 2e-4 / atol 2e-4 of the host path "
+            f"(worst at {worst:.1%} of its bound)")
+
+        # LPIPS on the card against the CPU, and its time a call
+        lp_card = LPIPS(vgg_path, lp_path, device=dev)
+        lp_host = LPIPS(vgg_path, lp_path, device="cpu")
+        for _, sr_c, as_c in crops[:3]:
+            lo, hi = min(sr_c.min(), as_c.min()), max(sr_c.max(), as_c.max())
+            a_, b_ = (sr_c - lo) / (hi - lo), (as_c - lo) / (hi - lo)
+            got_v, want_v = lp_card(a_, b_), lp_host(a_, b_)
+            if not abs(got_v - want_v) <= 1e-5 * abs(want_v):
+                raise AssertionError(f"eval: LPIPS on the card {got_v} vs CPU {want_v}")
+        ms_lpips = time_ms(torch, lambda: lp_card(a_, b_), 10)
+        log(f"eval LPIPS: card within 1e-5 relative of the CPU on 3 crops (last {got_v:.6f} vs "
+            f"{want_v:.6f}); {ms_lpips:.3f} ms a call at {a_.shape}")
+
+        # the spectra through cuFFT against the float64 numpy form
+        sp_err = 0.0
+        for _, _, as_c in crops[:3]:
+            got_sp = attenuation_spectrum(torch.from_numpy(as_c.astype(np.float32)).to(dev))
+            want_sp = attenuation_spectrum_np(as_c.astype(np.float32).astype(np.float64))
+            sp_err = max(sp_err, float(np.abs(got_sp.cpu().numpy() - want_sp).max()))
+        log(f"eval attenuation_spectrum: max |d| {sp_err:.3g} dB vs attenuation_spectrum_np")
+        if not sp_err <= 1e-5:
+            raise AssertionError(f"eval: attenuation_spectrum off by {sp_err} dB")
+
+        # the model on the card: the sr_fn outputs of the runs above, every
+        # pair of each serving path against f32's, and f32's against the same
+        # sr_fn on the CPU. All runs took the pairs in the manifest's order.
+        for name in ("bf16", "prow", "pallas"):
+            if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                       for a, b in zip(calls[name], calls["f32"])):
+                raise AssertionError(f"eval: the {name} run took other inputs than f32's")
+        sr_out = {name: [c[2] for c in calls[name]] for name in ("f32", "bf16", "prow", "pallas")}
+        # mean host ms a call over pairs 2..n (the first call builds)
+        sr_ms = {name: 1e3 * float(np.mean([c[3] for c in calls[name][1:]]))
+                 for name in sr_out}
+        stats_json = os.path.join(ROOT, "data", "statistics_testset.json")
+        stats = Statistics.from_json(stats_json)
+        f32_cpu = model_perf.make_sr_fn("modelB", os.path.join(ROOT, "weights", "modelB_1009"),
+                                        stats_json, device="cpu")
+        # phase 4's bound on the normalised outputs, (y - mean_lst) / std_lst:
+        # in Kelvin atol 5e-5 * std_lst
+        for lst, ndvi, y, _ in calls["f32"][:2]:
+            np.testing.assert_allclose((y - stats.mean_lst) / stats.std_lst,
+                                       (f32_cpu(lst, ndvi) - stats.mean_lst) / stats.std_lst,
+                                       rtol=1e-4, atol=5e-5)
+        for name, (b_rmse, b_max) in (("bf16", (0.1, 0.5)), ("prow", (0.3, 1.0)),
+                                      ("pallas", (0.3, 1.0))):
+            d = np.stack(sr_out[name]).astype(np.float64) - np.stack(sr_out["f32"])
+            rmses = np.sqrt((d ** 2).mean(axis=(1, 2)))
+            log(f"eval sr_fn {name} vs f32 over {n_pairs} pairs: worst RMSE "
+                f"{rmses.max():.4f} K, max {np.abs(d).max():.4f} K")
+            if not (rmses.max() < b_rmse and np.abs(d).max() < b_max):
+                raise AssertionError(f"eval: {name} sr_fn off f32: RMSE {rmses.max()}, max "
+                                     f"{np.abs(d).max()}")
+        log(card + ": eval sr_fn ms a pair (host clock, batch 1, inside the model_perf run, "
+            f"mean over pairs 2-{n_pairs}, input upload and output download included): " + ", ".join(f"{k} {v:.3f}" for k, v in sr_ms.items())
+            + "; wall s a model_perf run: " + ", ".join(f"{k} {v:.1f}"
+                                                         for k, v in eval_wall.items())
+            + f"; metric block over {len(crops)} pairs: device {ms_dev:.2f} ms, host numpy "
+            f"{ms_host:.2f} ms; LPIPS {ms_lpips:.3f} ms a call")
+        del sr_out, calls, lp_card, lp_host, f32_cpu
+    torch.cuda.empty_cache()
+    return eval_launches
 
 
 def demangle(name: str) -> str:
@@ -1450,6 +1665,159 @@ def synthetic_granule(rng):
     ndvi = 0.45 + 0.6 * field(4800, (9.1, 17.3, 33.9)) + rng.normal(0, 0.02, (4800, 4800))
     return (np.clip(lst, 290.0, 320.0).astype(np.float32),
             np.clip(ndvi, 0.1, 0.8).astype(np.float32))
+
+
+# the MODIS 250 m sinusoidal tile h18v04 (lon 0-15 E, lat 40-50 N): the
+# geotransform of the 4800² canvas the ASTER pairs' patches are cut from
+MODIS_TILE_GT = (0.0, 231.65635826395825, 0.0, 5559752.598333, 0.0, -231.65635826395825)
+
+
+def write_aster_pairs(directory: str, n_pairs: int, seed: int = 0, granule=None) -> list:
+    """Write ``n_pairs`` synthetic ASTER test pairs under ``directory`` in the
+    evaluation harness's format (``eval.harness.run_evaluation``):
+    ``dataset.csv`` and, in ``data/``, ``{i}_data_dict.pkl`` and
+    ``{i}_aster_250m.tif``. Returns the pairs' (row, col) centres.
+
+    Each pair is cut from the seeded synthetic granule (``granule``, else
+    ``synthetic_granule(default_rng(seed))``) on the h18v04 canvas: a 64²
+    LST in K (plus 0.25 K of seeded noise, which breaks the plateaus where
+    the granule is clipped: a flat SR has no gradient variance, and GSSIM
+    is then NaN) and the 256² NDVI under it, at a seeded 4-aligned centre. The
+    pickle holds them with ``center_ndvi``, ``to CRS`` (``EPSG:<n>``, the
+    UTM zone of the centre), ``transform affine SR`` (an ``affine.Affine``
+    pickled by stand-in classes registered under that module name only
+    while pickling, so that it loads as the real ones do: its six
+    arguments land in NEWOBJ's ``newargs``) and ``aster_angle``. The ASTER
+    GeoTIFF is a 250 m UTM raster in DN (K x 10, uint16) of a "truth" field
+    (the bicubic x4 of the LST, minus 12 K per unit NDVI above the patch
+    mean, plus a seeded smooth perturbation and 0.3 K of noise), valid over
+    a 40 km square rotated by ``aster_angle`` (3-9 degrees) and offset up to
+    2 km from the patch's centre, inside the patch's 59 km footprint as a
+    real scene lies in its MODIS patch, 0 (nodata) outside it; the common
+    area is then about 150-170 px a side."""
+    import pickle
+    import types
+
+    import torch
+
+    from sifsr_tpu_torch.geo import projection as prj
+    from sifsr_tpu_torch.geo.tiff import write_geotiff
+    from sifsr_tpu_torch.geo.warp import bilinear_sample
+    from sifsr_tpu_torch.ops.resize import upsample_bicubic
+
+    rng = np.random.default_rng(seed)
+    lst_g, ndvi_g = granule if granule is not None else synthetic_granule(
+        np.random.default_rng(seed))
+    data = os.path.join(directory, "data")
+    os.makedirs(data, exist_ok=True)
+    gt = MODIS_TILE_GT
+
+    class Affine(tuple):
+        __slots__ = ()
+        __module__ = "affine"
+        __qualname__ = "Affine"
+
+        def __new__(cls, *args):
+            return tuple.__new__(cls, args)
+
+        def __getnewargs__(self):
+            return tuple(self)
+
+    stand_in = types.ModuleType("affine")
+    stand_in.Affine = Affine
+    centres, rows = [], []
+    half = 192                                     # truth window: 384² around the patch
+    for i in range(n_pairs):
+        cy, cx = (int(v) * 4 for v in rng.integers(600 // 4, 4200 // 4, 2))
+        centres.append((cy, cx))
+        lst = (lst_g[(cy - 128) // 4:(cy + 128) // 4, (cx - 128) // 4:(cx + 128) // 4]
+               + rng.normal(0.0, 0.25, (64, 64)))
+        ndvi = ndvi_g[cy - 128:cy + 128, cx - 128:cx + 128]
+        lon, lat = prj.sinusoidal_to_lonlat(np.array([gt[0] + cx * gt[1]]),
+                                            np.array([gt[3] + cy * gt[5]]))
+        epsg = 32600 + int((float(lon[0]) + 180.0) // 6.0) + 1
+        angle = float(rng.uniform(3.0, 9.0))
+
+        # the truth on the 384² NDVI-resolution window around the patch
+        y0, x0 = cy - half, cx - half
+        lst_w = lst_g[y0 // 4:(cy + half) // 4, x0 // 4:(cx + half) // 4]
+        up = upsample_bicubic(torch.from_numpy(np.ascontiguousarray(lst_w, np.float32))[None],
+                              4)[0].numpy().astype(np.float64)
+        nd = ndvi_g[y0:cy + half, x0:cx + half].astype(np.float64)
+        yy, xx = np.mgrid[0:2 * half, 0:2 * half] / (2.0 * half)
+        bump = sum(rng.uniform(0.3, 1.0) * np.sin(2 * np.pi * (rng.uniform(1, 4) * yy
+                   + rng.uniform(1, 4) * xx) + rng.uniform(0, 2 * np.pi)) for _ in range(3))
+        truth = (up - 12.0 * (nd - ndvi.mean()) + bump
+                 + rng.normal(0.0, 0.3, up.shape))
+
+        # the ASTER raster: 250 m UTM pixels over 96 km around the centre
+        ue, un = prj.sinusoidal_to_utm(np.array([gt[0] + cx * gt[1]]),
+                                       np.array([gt[3] + cy * gt[5]]), epsg)
+        n_px, res = 384, 250.0
+        a_gt = (float(ue[0]) - n_px * res / 2, res, 0.0, float(un[0]) + n_px * res / 2, 0.0, -res)
+        jj, ii = np.meshgrid(np.arange(n_px), np.arange(n_px))
+        ux = a_gt[0] + (jj + 0.5) * res
+        uy = a_gt[3] - (ii + 0.5) * res
+        sx, sy = prj.utm_to_sinusoidal(ux, uy, epsg)
+        rr = (sy - gt[3]) / gt[5] - 0.5 - y0
+        cc = (sx - gt[0]) / gt[1] - 0.5 - x0
+        k = bilinear_sample(truth, rr, cc, fill=0.0)
+        # valid over a 40 km square rotated by the scene angle, offset from the patch
+        off = rng.uniform(-2000.0, 2000.0, 2)
+        t = np.deg2rad(angle)
+        du, dv = ux - float(ue[0]) - off[0], uy - float(un[0]) - off[1]
+        ru, rv = np.cos(t) * du + np.sin(t) * dv, -np.sin(t) * du + np.cos(t) * dv
+        inside = (np.abs(ru) < 20_000.0) & (np.abs(rv) < 20_000.0) & (k > 0)
+        dn = np.where(inside, np.round(k * 10.0), 0.0).astype(np.uint16)
+        aster_name = f"{i}_aster_250m.tif"
+        write_geotiff(os.path.join(data, aster_name), dn, geotransform=a_gt, epsg=epsg,
+                      nodata=0)
+
+        record = {
+            "LST": lst.astype(np.float32), "NDVI": ndvi.astype(np.float32),
+            "center_ndvi": (cy, cx), "to CRS": f"EPSG:{epsg}",
+            "transform affine SR": Affine(gt[1], gt[2], gt[0], gt[4], gt[5], gt[3]),
+            "aster_angle": angle,
+        }
+        before = sys.modules.get("affine")
+        sys.modules["affine"] = stand_in
+        try:
+            with open(os.path.join(data, f"{i}_data_dict.pkl"), "wb") as f:
+                pickle.dump(record, f, protocol=4)
+        finally:
+            if before is None:
+                del sys.modules["affine"]
+            else:
+                sys.modules["affine"] = before
+        rows.append(f"{i},./data/{aster_name},./data/{i}_data_dict.pkl")
+    with open(os.path.join(directory, "dataset.csv"), "w") as f:
+        f.write(",Aster 250m UTM,MODIS patch\n" + "\n".join(rows) + "\n")
+    return centres
+
+
+def write_lpips_weights(directory: str, seed: int = 7) -> tuple[str, str]:
+    """Seeded full-width VGG16 ``features`` weights in torchvision's layout
+    (13 convs, 14.7 M parameters, He-scaled so the activations keep their
+    range) and non-negative LPIPS layer weights, written as
+    ``vgg16_features.pt`` and ``lpips_weights.pt`` under ``directory``;
+    returns the two paths."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd, c_in = {}, 3
+    for idx, c in ((0, 64), (2, 64), (5, 128), (7, 128), (10, 256), (12, 256), (14, 256),
+                   (17, 512), (19, 512), (21, 512), (24, 512), (26, 512), (28, 512)):
+        std = np.sqrt(2.0 / (9 * c_in))
+        sd[f"features.{idx}.weight"] = torch.from_numpy(
+            rng.normal(0, std, (c, c_in, 3, 3)).astype(np.float32))
+        sd[f"features.{idx}.bias"] = torch.from_numpy(rng.normal(0, 0.01, c).astype(np.float32))
+        c_in = c
+    vgg, lp = os.path.join(directory, "vgg16_features.pt"), os.path.join(directory,
+                                                                         "lpips_weights.pt")
+    torch.save(sd, vgg)
+    torch.save([torch.from_numpy(rng.random((1, c, 1, 1)).astype(np.float32))
+                for c in (64, 128, 256, 512, 512)], lp)
+    return vgg, lp
 
 
 if __name__ == "__main__":

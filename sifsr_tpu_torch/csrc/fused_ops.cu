@@ -48,8 +48,13 @@
 // at the shapes the one-chunk kernel took the outputs are its bits. A
 // launch takes at most kMaxTiles row tiles (their ranges ride in the
 // parameters); the entry launches a larger image's tiles in turns of
-// kMaxTiles. The band is at most kMaxBand wide (factor 16: 36; factor 30:
-// 64), the coefficients a step-2 thread holds in registers.
+// kMaxTiles. A step-2 thread holds its columns' band in registers up to 32
+// coefficients (factor 14: 32). A wider band (factor 15 and up: 2·factor +
+// 4, at most `in`) takes the form sandwich_kernel<1, 0>: step 2 reads each
+// column's coefficients through the read-only cache as it goes, in the
+// same ascending order from 0, so every sum keeps its order and the
+// outputs are the bits a register-held band gives; step 1 and the stage
+// are those of the other forms.
 //
 // Arithmetic is float32 with one __fmaf_rn a term (one rounding, whatever
 // -fmad flag the source is built with), every sum from 0 in ascending
@@ -77,7 +82,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBand = 64;   // the widest band the sandwich takes (factor 16: 36)
 constexpr int kMaxTiles = 128; // row tiles of one image a launch takes
 
 // Each tile's first and last-plus-one row of X, passed by value: the kernel
@@ -118,12 +122,13 @@ __host__ __device__ inline int t_pitch(int in) { return (tcol(x_pitch(in)) + 3) 
 
 // kVec: outputs a thread computes in step 2 (1, or 4 consecutive columns
 // stored as one float4: out % 4 == 0); kMaxW: the widest band it takes,
-// whose coefficients a thread holds in registers. The launch takes `tiles`
+// whose coefficients a thread holds in registers, or 0 for any width, read
+// from memory in step 2. The launch takes `tiles`
 // row tiles from tile0 on; tile_in.k[t]: the first and the last-plus-one
 // row of X the bands of tile tile0 + t cover. chunk: the columns of X staged
 // at once (a multiple of 4, or at least `in`).
 template <int kVec, int kMaxW>
-__global__ void __launch_bounds__(kThreads, kVec == 4 ? 4 : kMaxW > 32 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, kVec == 4 ? 4 : 2)
 sandwich_kernel(const float* __restrict__ x, const int* __restrict__ lo,
                 const float* __restrict__ coef, const __grid_constant__ TileRows tile_in,
                 const float* __restrict__ cst, float* __restrict__ y, int in, int out,
@@ -146,7 +151,7 @@ sandwich_kernel(const float* __restrict__ x, const int* __restrict__ lo,
   const int t_first = threadIdx.x / per_row;
   int g = threadIdx.x % per_row;
   int l[kVec];
-  float a[kVec][kMaxW];
+  float a[kVec][kMaxW > 0 ? kMaxW : 1];
   auto load_group = [&]() {
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
@@ -222,10 +227,15 @@ sandwich_kernel(const float* __restrict__ x, const int* __restrict__ lo,
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         float acc = 0.f;
+        if constexpr (kMaxW == 0) {
+          const float* ac = coef + (size_t)(g * kVec + e) * width;
+          for (int w = 0; w < width; ++w) acc = __fmaf_rn(tr[tcol(l[e] + w)], __ldg(ac + w), acc);
+        } else {
 #pragma unroll
-        for (int w = 0; w < kMaxW; ++w) {
-          if (w >= width) break;
-          acc = __fmaf_rn(tr[tcol(l[e] + w)], a[e][w], acc);
+          for (int w = 0; w < kMaxW; ++w) {
+            if (w >= width) break;
+            acc = __fmaf_rn(tr[tcol(l[e] + w)], a[e][w], acc);
+          }
         }
         v[e] = acc;
       }
@@ -289,8 +299,8 @@ const char* sifsr_error_string(int code) {
 }
 
 // y (n, out, out) = A·x[i]·Aᵀ + cst for each image of x (n, in, in), with A
-// (out, in) given as a band: row r's `width` coefficients coef (out, width)
-// from column lo[r] (int32, lo[r] + width <= in); cst (out, out) or null;
+// (out, in) given as a band of any width: row r's `width` coefficients coef
+// (out, width) from column lo[r] (int32, lo[r] + width <= in); cst (out, out) or null;
 // all float32 and contiguous on the device. A block takes `rows` output
 // rows, tile t the rows of x from tile_in[2t] to tile_in[2t+1] (int32, in
 // host memory), at most `span` rows, staged `chunk` columns at a time.
@@ -298,7 +308,7 @@ const char* sifsr_error_string(int code) {
 int sifsr_sandwich(const void* x, const void* lo, const void* coef, const int* tile_in,
                    const void* cst, void* y, int n, int in, int out, int width, int rows,
                    int span, int chunk, void* stream) {
-  if (n < 0 || in < 1 || out < 1 || width < 1 || width > kMaxBand || width > in || rows < 1 ||
+  if (n < 0 || in < 1 || out < 1 || width < 1 || width > in || rows < 1 ||
       span < width || span > in || chunk < 1 || (chunk < in && chunk % 4))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
@@ -334,7 +344,7 @@ int sifsr_sandwich(const void* x, const void* lo, const void* coef, const int* t
     return (int)cudaSuccess;
   };
   if (quads) return launch(sandwich_kernel<4, 4>);
-  return width <= 32 ? launch(sandwich_kernel<1, 32>) : launch(sandwich_kernel<1, kMaxBand>);
+  return width <= 32 ? launch(sandwich_kernel<1, 32>) : launch(sandwich_kernel<1, 0>);
 }
 
 // y (n, h/f, w/f) from x (n, h, w), float32; h and w are multiples of f.

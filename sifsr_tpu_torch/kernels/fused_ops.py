@@ -73,9 +73,7 @@ def _sandwich_constants(in_size: int, factor: int, mtf: float, mean_lst: float,
     return m, m.T.contiguous(), _renorm_constant(in_size, factor, mtf, mean_lst, std_lst, device)
 
 
-# what the kernel takes (csrc/fused_ops.cu): the widest band (kMaxBand;
-# factor 16 needs 36), shared memory a block
-_MAX_BAND = 64
+# shared memory a block (csrc/fused_ops.cu takes a band of any width)
 _SMEM_BYTES = 227 * 1024
 # output rows a block takes where they fit: forward (M's band), backward (Mᵀ's)
 _BLOCK_ROWS = (8, 32)
@@ -170,12 +168,8 @@ def _sandwich_bands(in_size: int, factor: int, mtf: float,
 
 def _band_refusal(size: int, band: _Band) -> str | None:
     """Why the kernel would refuse ``band`` on a (size, size) input, or None:
-    a band wider than it takes, or a tiling whose block needs more shared
-    memory than the card has."""
-    width = band.coef.shape[1]
-    if width > _MAX_BAND:
-        return f"a band of {width} coefficients a row; the kernel takes at most {_MAX_BAND}"
-    smem = _stage_bytes(band.rows, width, size, band.span, band.chunk)
+    a tiling whose block needs more shared memory than the card has."""
+    smem = _stage_bytes(band.rows, band.coef.shape[1], size, band.span, band.chunk)
     if smem > _SMEM_BYTES:
         return (f"{size}x{size} in tiles of {band.rows} rows and chunks of {band.chunk} "
                 f"columns, {smem} bytes of shared memory a block; the kernel takes at most "
@@ -195,9 +189,9 @@ def _check_band(size: int, band: _Band) -> None:
 def _shape_refusal(size: int, factor: int, mtf: float) -> str | None:
     """Why kernel M does not take a (size, size) input at this factor and
     mtf, or None: M or Mᵀ has no band, or the kernel refuses one of them.
-    Decided on the host, for both directions, before any launch. No shape
-    of the recipes comes near; a band past 64 coefficients (factor 31 and
-    up) is refused."""
+    Decided on the host, for both directions, before any launch. The kernel
+    takes a band of any width (factor 128 at 256²: 194 coefficients); no
+    shape of the recipes comes near the shared memory's end."""
     try:
         band_m, band_mt = _sandwich_bands(size, factor, mtf, torch.device("cpu"))
     except ValueError as e:   # a row of M or Mᵀ whose nonzeros are not one run

@@ -13,6 +13,11 @@ running_mean/running_var``, under the reference torch model's key names, so
 the result loads into ``models.unet.ModelB2`` with ``strict=True`` (as does a
 reference ``modelB_state_dict.pt``). ``to_jax_variables`` is its inverse, so
 that trained parameters and BatchNorm statistics compare tree against tree.
+
+``from_jax_vgg16`` and ``to_jax_vgg16`` do the same for the LPIPS trunk: the
+flax ``VGG16Features`` tree (``conv1_1`` .. ``conv5_3``, HWIO kernels) and
+``models.vgg.VGG16Features``'s state dict (torchvision's
+``features.<idx>.*`` keys, OIHW).
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-__all__ = ["unpackb", "load_msgpack_variables", "from_jax_variables", "to_jax_variables"]
+__all__ = ["unpackb", "load_msgpack_variables", "from_jax_variables", "to_jax_variables",
+           "from_jax_vgg16", "to_jax_vgg16"]
 
 _NDARRAY_EXT = 1  # flax.serialization._MsgpackExtType.ndarray
 
@@ -213,3 +219,32 @@ def to_jax_variables(state_dict) -> dict:
         params[name]["lastbn"], stats[name]["lastbn"] = bn(f"{name}.lastconv.1")
     params["outlay"] = {"kernel": kernel("outlay.weight"), "bias": arr("outlay.bias")}
     return {"params": params, "batch_stats": stats}
+
+
+def _vgg_convs():
+    from sifsr_tpu_torch.models.vgg import _CFG
+
+    return [(name, idx) for name, _, idx in _CFG if idx is not None]
+
+
+def from_jax_vgg16(variables: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``VGG16Features`` ``{'params': {conv1_1: {kernel, bias}, ...}}``
+    (numpy leaves) -> the state dict of ``models.vgg.VGG16Features``."""
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name, idx in _vgg_convs():
+        leaf = variables["params"][name]
+        out[f"features.{idx}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(leaf["kernel"], np.float32).transpose(3, 2, 0, 1)))   # HWIO->OIHW
+        out[f"features.{idx}.bias"] = torch.from_numpy(np.asarray(leaf["bias"], np.float32))
+    return out
+
+
+def to_jax_vgg16(state_dict) -> dict:
+    """The inverse of ``from_jax_vgg16``: a ``VGG16Features`` state dict ->
+    ``{'params': ...}`` with float32 numpy leaves, HWIO kernels."""
+    def arr(key):
+        return np.ascontiguousarray(state_dict[key].detach().cpu().numpy(), np.float32)
+
+    return {"params": {name: {"kernel": np.ascontiguousarray(
+        arr(f"features.{idx}.weight").transpose(2, 3, 1, 0)), "bias": arr(f"features.{idx}.bias")}
+        for name, idx in _vgg_convs()}}

@@ -82,6 +82,7 @@ from sifsr_tpu_torch.models.packed import (
 )
 from sifsr_tpu_torch.models.quantized import _quantize_kernel
 from sifsr_tpu_torch.models.quantized_packed import _conv_i8_mid, _double_mid, _down, _quant
+from sifsr_tpu_torch.ops.quantile import quantile_linear
 
 __all__ = ["calibrate", "int8_serving_params", "build_int8_serving_params",
            "prow_mid_params", "make_int8_sr_step"]
@@ -110,7 +111,7 @@ def _f32_packed_mirror(pp: dict, sample_lst, sample_ndvi, stats, quantile=None,
     def _amax(x):
         if quantile is None:
             return float(x.abs().max())
-        return float(np.quantile(x.abs().cpu().numpy().ravel(), quantile))
+        return float(quantile_linear(x.abs().reshape(-1), quantile))
 
     def conv_mid(x, tree, path, relu=True):
         mid_rec[path] = _amax(x)

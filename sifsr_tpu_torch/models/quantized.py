@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from sifsr_tpu_torch.device import full_f32_convs, resolve_device
 from sifsr_tpu_torch.kernels.conv_i8 import conv_i8_generic
 from sifsr_tpu_torch.models.fused import fold_batchnorm, upsample_bilinear_x2_nhwc
+from sifsr_tpu_torch.ops.quantile import quantile_linear
 from sifsr_tpu_torch.ops.resize import upsample_bicubic
 
 __all__ = ["quantize_serving_params", "calibrate_activation_scales", "int8_forward",
@@ -170,7 +171,7 @@ def calibrate_activation_scales(variables: dict, qparams: dict, sample_lst, samp
         if calib_quantile is None:
             m = float(arr.abs().max())
         else:
-            m = float(np.quantile(arr.abs().cpu().numpy().ravel(), calib_quantile))
+            m = float(quantile_linear(arr.abs().reshape(-1), calib_quantile))
         scales[path] = m / 127.0 * headroom
 
     def conv_f32(xx, path, relu=True):

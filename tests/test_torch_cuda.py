@@ -716,14 +716,58 @@ def test_fused_psf_downscale_large_shapes_cuda(rng, cuda, n, size, factor):
     assert float((dx.double() - want_dx).abs().max()) <= 1e-5
 
 
-def test_fused_psf_downscale_refuses_what_its_kernel_does_not_take_cuda(cuda):
-    """Factor 32 (a band of 68 coefficients, past the kernel's 64) raises
-    ValueError on the card before any launch."""
+@pytest.mark.parametrize("n,size,factor", [(4, 256, 31), (4, 256, 32), (4, 256, 64),
+                                            (2, 256, 128), (2, 1024, 64), (1, 2048, 128)])
+def test_fused_psf_downscale_wide_bands_cuda(rng, cuda, n, size, factor):
+    """Kernel M on bands past 64 coefficients (factor 31: 66; 32: 68; 64:
+    132; 128 at 256²: 194, a 2x2 output; 128 at 2048²: 260), whose step 2
+    reads the coefficients from memory: value and gradient within 1e-5 of
+    float64, one launch each way."""
+    out = size // factor
+    x = _f32(rng.standard_normal((n, size, size)))
+    g = _f32(rng.standard_normal((n, out, out)))
     f = fused_ops.fused_psf_downscale
-    f.launches = 0
-    with pytest.raises(ValueError, match="a band of 68"):
-        f(torch.zeros((1, 256, 256), device=cuda), MEAN, STD, 32)
-    assert f.launches == 0
+    f.launches = f.backward_launches = 0
+    xd = x.to(cuda).requires_grad_()
+    y = f(xd, MEAN, STD, factor)
+    (dx,) = torch.autograd.grad(y, xd, g.to(cuda))
+    torch.cuda.synchronize()
+    assert (f.launches, f.backward_launches) == (1, 1)
+    x64 = x.double().to(cuda).requires_grad_()
+    want = fused_ops.fused_psf_downscale_plain(x64, MEAN, STD, factor)
+    (want_dx,) = torch.autograd.grad(want, x64, g.double().to(cuda))
+    assert y.shape == (n, out, out) and dx.shape == x.shape
+    assert float((y.detach().double() - want.detach()).abs().max()) <= 1e-5
+    assert float((dx.double() - want_dx).abs().max()) <= 1e-5
+
+
+# sha256 (first 16 hex digits) of y and dx, as produced by the kernel before
+# it took bands past 64 coefficients, on N(0, 1) inputs from
+# default_rng(1000 * size + factor): the wide form left these shapes' bits as
+# they were
+_M_DIGESTS = {(32, 256, 4): "f2528a0ffb8d4f3e", (3, 64, 4): "a81c3ff08c87204a",
+              (3, 128, 4): "d590d60640166f8d", (3, 256, 2): "e04bd3abb5f7b41d",
+              (2, 256, 8): "593b8e3f82330d96", (4, 256, 16): "79114d87b3224296",
+              (2, 1024, 8): "7fd2122e86ed1841", (1, 2048, 2): "44a70223289a8f1e",
+              (3, 36, 4): "3de59b68081e09f2", (3, 42, 2): "8807b4f7df78234e",
+              (1, 1024, 4): "c6e1b486be8b5a5e", (1, 2050, 2): "f55d02c64551c927"}
+
+
+@pytest.mark.parametrize("n,size,factor", list(_M_DIGESTS))
+def test_fused_psf_downscale_bits_unchanged_cuda(cuda, n, size, factor):
+    """Kernel M at every band of up to 64 coefficients it took before the
+    wide form: the forward's and the backward's bits are the earlier
+    kernel's."""
+    import hashlib
+
+    rng = np.random.default_rng(1000 * size + factor)
+    x = _f32(rng.standard_normal((n, size, size))).to(cuda).requires_grad_()
+    g = _f32(rng.standard_normal((n, size // factor, size // factor))).to(cuda)
+    y = fused_ops.fused_psf_downscale(x, MEAN, STD, factor)
+    (dx,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    h = hashlib.sha256(y.detach().cpu().numpy().tobytes() + dx.cpu().numpy().tobytes())
+    assert h.hexdigest()[:16] == _M_DIGESTS[n, size, factor]
 
 
 @pytest.mark.parametrize("size,factor", [(36, 4), (40, 4), (42, 2), (1024, 4)])
@@ -909,3 +953,52 @@ def test_conv_i8_in1_outlay_launch_cuda(cuda, kind, cin, cout):
     assert conv_px.tensor_core_launch(kind, 1, 8, 8, cin, cout)["tiles"] == 1
     with pytest.raises(ValueError):
         conv_px.tensor_core_launch(kind, 1, 8, 32, 16, 16)
+
+
+def test_lpips_cuda(cuda, tmp_path):
+    """LPIPS on the card (full float32: no TF32) within 1e-5 relative of the
+    same weights on the CPU, on three crops of odd sizes."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import write_lpips_weights
+    from sifsr_tpu_torch.eval.lpips import LPIPS
+
+    files = write_lpips_weights(str(tmp_path))
+    card, host = LPIPS(*files, device=cuda), LPIPS(*files, device="cpu")
+    rng = np.random.default_rng(3)
+    for h, w in [(151, 163), (200, 187), (97, 140)]:
+        a = rng.random((h, w)).astype(np.float32)
+        b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+        got, want = card(a, b), host(a, b)
+        assert np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want)
+
+
+def test_device_metric_rows_cuda(cuda):
+    """The batched metric block on the card against the same block on the
+    CPU (2e-4, the bound against the host path: a threshold that moves by
+    an ulp can move one pixel between strata)."""
+    from sifsr_tpu_torch.eval.device_metrics import COLUMNS, device_metric_rows
+
+    rng = np.random.default_rng(1)
+    pairs = []
+    for h, w in [(96, 128), (211, 97), (150, 151)]:
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = 300.0 + 8.0 * np.sin(yy / 17.0) + 6.0 * np.cos(xx / 23.0)
+        pairs.append((base + rng.normal(0, 0.8, (h, w)), base + rng.normal(0, 0.8, (h, w))))
+    got, want = device_metric_rows(pairs, device=cuda), device_metric_rows(pairs, device="cpu")
+    for g, w in zip(got, want):
+        for col in COLUMNS:
+            np.testing.assert_allclose(g[col], w[col], rtol=2e-4, atol=2e-4, err_msg=col)
+
+
+def test_attenuation_spectrum_cuda(cuda):
+    """The batched spectrum through cuFFT in float64 within 1e-5 dB of the
+    float64 numpy form."""
+    from sifsr_tpu_torch.eval.spectra import attenuation_spectrum, attenuation_spectrum_np
+
+    img = (300.0 + np.random.default_rng(2).normal(0, 2.0, (3, 150, 161))).astype(np.float32)
+    got = attenuation_spectrum(torch.from_numpy(img).to(cuda)).cpu().numpy()
+    want = np.stack([attenuation_spectrum_np(im.astype(np.float64)) for im in img])
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1e-5

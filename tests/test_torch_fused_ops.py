@@ -278,9 +278,9 @@ def test_sandwich_passes_the_band_to_the_entry(monkeypatch):
 
 
 def test_band_refuses_what_the_kernel_does_not_take():
-    """A row whose nonzeros are not one run has no band; a band wider than
-    the kernel's 64 coefficients (factor 32: 68) is refused before any
-    launch."""
+    """A row whose nonzeros are not one run has no band; a band of any width
+    is taken (factor 32: 68 coefficients, past the 64 a step-2 thread holds
+    in registers), so only a block past the shared memory is refused."""
     a = np.zeros((3, 8), np.float32)
     a[0, 1:4] = 1.0
     a[1, [2, 5]] = 1.0
@@ -288,8 +288,7 @@ def test_band_refuses_what_the_kernel_does_not_take():
         fused_ops._band(a)
     wide, _ = fused_ops._sandwich_bands(256, 32, 0.1, torch.device("cpu"))
     assert wide.coef.shape[1] == 68
-    with pytest.raises(ValueError, match="at most 64"):
-        fused_ops._sandwich(torch.zeros(1, 256, 256), wide, None)
+    assert fused_ops._band_refusal(256, wide) is None
 
 
 def _banded_sandwich64(x, lo, coef, const=None):
@@ -333,13 +332,17 @@ def test_banded_sandwich_matches_pallas(rng, factor, size):
 
 @pytest.mark.parametrize("size,factor,mtf,takes", [
     (256, 4, 0.1, True), (256, 4, 0.25, True), (1024, 4, 0.1, True),
-    (256, 16, 0.1, True), (1024, 8, 0.1, True), (2048, 2, 0.1, True), (256, 32, 0.1, False)])
+    (256, 16, 0.1, True), (1024, 8, 0.1, True), (2048, 2, 0.1, True), (256, 32, 0.1, True),
+    (256, 64, 0.1, True), (256, 128, 0.1, True), (1024, 64, 0.1, True),
+    (2048, 128, 0.1, True)])
 def test_kernel_takes(size, factor, mtf, takes):
     """The host's decision before kernel M's launch: the kernel takes the
     recipes' shapes (256² at factor 4, mtf 0.1 and 0.25), 1024² at factor 4,
     and factor 16 at 256² (a band of 36), 1024² at factor 8 and 2048² at
-    factor 2 (staged in chunks of columns); not factor 32 (a band of 68),
-    exactly where _check_band raises on M's or Mᵀ's band."""
+    factor 2 (staged in chunks of columns), and the bands past 64
+    coefficients (factor 32, 64 and 128 at 256²: 68, 132 and 194; factor 64
+    at 1024², factor 128 at 2048²: 132 and 260), exactly where _check_band
+    passes M's and Mᵀ's band."""
     assert (fused_ops._shape_refusal(size, factor, mtf) is None) is takes
     band_m, band_mt = fused_ops._sandwich_bands(size, factor, mtf, torch.device("cpu"))
     refused = [fused_ops._band_refusal(size, band_m),
@@ -349,9 +352,10 @@ def test_kernel_takes(size, factor, mtf, takes):
 
 def test_card_route_skips_the_kernel_where_it_refuses(monkeypatch):
     """The CUDA route with the library stood in for: a shape the kernel does
-    not take (factor 32 at 256²) raises ValueError and never reaches
-    sifsr_sandwich; factor 16 and factor 4 at 256² reach it, forward and
-    backward, one launch each way."""
+    not take (an M whose row has a gap, stood in for at an mtf no other test
+    uses) raises ValueError and never reaches sifsr_sandwich; factor 32,
+    16 and 4 at 256² reach it, forward and backward, one launch each way,
+    with the band's width as it is (68 past the 64 of the register form)."""
     import contextlib
 
     calls = []
@@ -368,42 +372,69 @@ def test_card_route_skips_the_kernel_where_it_refuses(monkeypatch):
     f = fused_ops.fused_psf_downscale
     monkeypatch.setattr(f, "launches", 0)
     monkeypatch.setattr(f, "backward_launches", 0)
+    real_matrix = fused_ops._matrix
+
+    def gapped(in_size, factor, mtf):
+        m = real_matrix(in_size, factor, 0.1).copy()
+        m[0, np.flatnonzero(m[0])[1]] = 0.0
+        return m
+
+    monkeypatch.setattr(fused_ops, "_matrix", gapped)
     x = torch.zeros(2, 256, 256, requires_grad=True)
-    with pytest.raises(ValueError, match="a band of 68"):
-        fused_ops._on_card(x, MEAN, STD, 32, 0.1)
+    try:
+        with pytest.raises(ValueError, match="not one contiguous run"):
+            fused_ops._on_card(x, MEAN, STD, 4, 0.3125)
+    finally:
+        fused_ops._sandwich_bands.cache_clear()
+        fused_ops._shape_refusal.cache_clear()
+    monkeypatch.setattr(fused_ops, "_matrix", real_matrix)
     assert (calls, f.launches, f.backward_launches) == ([], 0, 0)
-    for factor, n_calls in ((16, 2), (4, 4)):
+    for factor, n_calls in ((32, 2), (16, 4), (4, 6)):
         fused_ops._on_card(x, MEAN, STD, factor, 0.1).sum().backward()
         assert (len(calls), f.launches, f.backward_launches) == (n_calls, n_calls // 2,
                                                                  n_calls // 2)
-    assert [c[9] for c in calls] == [36, 3, 12, 3]   # band widths: M's, Mᵀ's
+    assert [c[9] for c in calls] == [68, 3, 36, 3, 12, 3]   # band widths: M's, Mᵀ's
 
 
-def test_band_at_factor_16_matches_the_jax_chain(rng):
-    """Factor 16 at 256², the band of 36 the kernel now takes: the band's
-    float64 arithmetic (the forward with M's band and the constant, the
-    gradient as Mᵀ's band applied to huber's gradient) equals JAX's off-TPU
-    ds_loss matmul chain (use_pallas=False) on the same seeded arrays within
-    1e-5: the degraded batch, the loss and its gradient."""
+def _band_against_jax_chain(rng, factor):
+    """The band's float64 arithmetic at ``factor`` on 256² (the forward with
+    M's band and the constant, the gradient as Mᵀ's band applied to huber's
+    gradient) against JAX's off-TPU ds_loss matmul chain (use_pallas=False)
+    on the same seeded arrays, within 1e-5: the degraded batch, the loss and
+    its gradient."""
     from sifsr_tpu.losses.losses import ds_loss as jax_ds_loss
     from sifsr_tpu.ops.psf import downscale_lst_sr_to_lr as jax_downscale
 
+    out = 256 // factor
     x = rng.normal(size=(2, 256, 256)).astype(np.float32)
-    t = rng.normal(size=(2, 16, 16, 1)).astype(np.float32)
-    want_y = (np.asarray(jax_downscale(jnp.asarray(x * STD + MEAN)[:, None], factor=16,
+    t = rng.normal(size=(2, out, out, 1)).astype(np.float32)
+    want_y = (np.asarray(jax_downscale(jnp.asarray(x * STD + MEAN)[:, None], factor=factor,
                                        mtf=0.1))[:, 0] - MEAN) / STD
     v_j, g_j = jax.value_and_grad(
-        lambda a: jax_ds_loss(a, jnp.asarray(t), MEAN, STD, factor=16, mtf=0.1,
+        lambda a: jax_ds_loss(a, jnp.asarray(t), MEAN, STD, factor=factor, mtf=0.1,
                               use_pallas=False))(jnp.asarray(x[..., None]))
     cpu = torch.device("cpu")
-    band_m, band_mt = fused_ops._sandwich_bands(256, 16, 0.1, cpu)
-    const = fused_ops._renorm_constant(256, 16, 0.1, MEAN, STD, cpu)
+    band_m, band_mt = fused_ops._sandwich_bands(256, factor, 0.1, cpu)
+    const = fused_ops._renorm_constant(256, factor, 0.1, MEAN, STD, cpu)
     y = _banded_sandwich64(torch.from_numpy(x), band_m.lo, band_m.coef,
                            const).requires_grad_()
-    assert y.shape == (2, 16, 16)
+    assert y.shape == (2, out, out)
     assert np.abs(y.detach().numpy() - want_y).max() <= 1e-5
     v_t = huber(y[..., None], torch.from_numpy(t).double())
     v_t.backward()
     dx = _banded_sandwich64(y.grad, band_mt.lo, band_mt.coef)
     assert abs(float(v_t.detach()) - float(v_j)) <= 1e-5
     assert np.abs(dx.numpy() - np.asarray(g_j)[..., 0]).max() <= 1e-5
+
+
+def test_band_at_factor_16_matches_the_jax_chain(rng):
+    """Factor 16 at 256², a band of 36 (``_band_against_jax_chain``)."""
+    _band_against_jax_chain(rng, 16)
+
+
+@pytest.mark.parametrize("factor", [32, 64, 128])
+def test_wide_band_matches_the_jax_chain(rng, factor):
+    """Bands past 64 coefficients: factor 32, 64
+    and 128 at 256² (68, 132 and 194 coefficients; 128 gives a 2x2 output)
+    against JAX's off-TPU chain (``_band_against_jax_chain``)."""
+    _band_against_jax_chain(rng, factor)

@@ -98,3 +98,50 @@ def test_kernel_wrappers_refuse_other_devices():
     x = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         conv_i8_exact(x, x, x, x)
+
+
+def test_eval_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """LPIPS, the batched metric block, run_evaluation, make_sr_fn and
+    cli.model_perf.main run on the card unless the caller asks for the CPU;
+    asked for it, they run there."""
+    from sifsr_tpu_torch.cli import model_perf
+    from sifsr_tpu_torch.eval.device_metrics import device_metric_rows
+    from sifsr_tpu_torch.eval.harness import run_evaluation
+    from sifsr_tpu_torch.eval.lpips import LPIPS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    pairs = [(300 + rng.random((48, 52)), 300 + rng.random((48, 52)))]
+    for call in (lambda: LPIPS(),
+                 lambda: device_metric_rows(pairs),
+                 lambda: run_evaluation(str(tmp_path), lambda lst, ndvi: lst),
+                 lambda: model_perf.make_sr_fn("bicubic", "", ""),
+                 lambda: model_perf.main(["--sr-type", "bicubic", "--dataset", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    missing = str(tmp_path / "none.pt")
+    assert np.isnan(LPIPS(missing, missing, device="cpu")(pairs[0][0], pairs[0][1]))
+    row, = device_metric_rows(pairs, device="cpu")
+    assert np.isfinite(row["RMSE"])
+    assert model_perf.make_sr_fn("bicubic", "", "", device="cpu")(
+        np.full((64, 64), 300.0), None).shape == (256, 256)
+
+
+_SMOKE_WRITER = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.write_aster_pairs({out!r}, 1)
+print(sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "sifsr_tpu")))
+"""
+
+
+def test_chip_smoke_and_its_pair_writer_import_no_jax(tmp_path):
+    """chip_smoke.py, with the ASTER pair writer its eval phase and the
+    eval tests share, stands on the port alone."""
+    out = subprocess.run([sys.executable, "-c", _SMOKE_WRITER.format(root=ROOT, out=str(tmp_path))],
+                         cwd=str(tmp_path), capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert (tmp_path / "dataset.csv").exists() and (tmp_path / "data" / "0_data_dict.pkl").exists()
