@@ -120,7 +120,20 @@ Phases, each of which raises on failure (no result line is printed then):
    pair, as each run called it (ms a pair): f32 within rtol 1e-4 / atol
    5e-5 of the CPU on two pairs, on outputs normalised by the statistics
    (phase 4's bound), bf16 within RMSE 0.1 K / max 0.5 K of f32, prow and
-   pallas within 0.3 K / 1 K; every pair scored; wall seconds per run.
+   pallas within 0.3 K / 1 K; every pair scored; wall seconds per run;
+10. baselines (``baselines_phase``), over phase 9's pairs and results:
+   ``cli.model_perf.main`` with ``--sr-type`` bicubic, TsHARP, ATPRK, AATPRK
+   and DMS, each ``--save-pairs``: each performances.csv in the reference's
+   layout with every value finite, every pair scored and pickled, no
+   kernel launched; DMS's bagged trees grown and applied on the card, and
+   on two pairs refitted on the card (equal to the run's output) and on the
+   CPU: equal leaf counts and thresholds, the LST within 1e-4 K; ms a pair
+   on both. ``cli.compare_methods.main(["spectra", ...])`` over the four
+   baselines and phase 9's prow run on the card, then with ``--device
+   cpu``: the scores within 1e-6 relative. ``cli.process_modis`` and
+   ``cli.data_preparation`` on a 384² / 1536² HDF4 pair cut from the
+   granule: 36 pairs, the first LST patch the granule's, the statistics
+   JSON equal to ``compute_statistics`` on the written Train patches.
 
 The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero
@@ -135,6 +148,7 @@ import os
 import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1350,11 +1364,17 @@ def main(profile: bool = False) -> None:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     del smodel, sstate, sstep, batch32
 
-    # 9. eval: cli.model_perf over synthetic ASTER pairs (eval_phase)
+    # 9. eval: cli.model_perf over synthetic ASTER pairs (eval_phase); 10.
+    # the classical baselines, compare_methods and the data tooling over
+    # the same pairs and results (baselines_phase)
     t_eval = time.perf_counter()
-    eval_launches = eval_phase(torch, dev, (lst, ndvi), per_batch, smi.splitlines()[0])
-    log(f"wall s: phases 1-8 {t_eval - t_main:.1f}, phase 9 (eval) "
-        f"{time.perf_counter() - t_eval:.1f}")
+    with tempfile.TemporaryDirectory() as eval_dir:
+        eval_launches, lpips_files = eval_phase(torch, dev, (lst, ndvi), per_batch,
+                                                smi.splitlines()[0], eval_dir)
+        t_base = time.perf_counter()
+        baselines_phase(torch, dev, (lst, ndvi), smi.splitlines()[0], eval_dir, lpips_files)
+    log(f"wall s: phases 1-8 {t_eval - t_main:.1f}, phase 9 (eval) {t_base - t_eval:.1f}, "
+        f"phase 10 (baselines) {time.perf_counter() - t_base:.1f}")
 
     src = "sifsr_tpu_torch/csrc/"
     meta = {
@@ -1448,18 +1468,19 @@ def main(profile: bool = False) -> None:
                                            "count": torch.cuda.device_count()}}))
 
 
-def eval_phase(torch, dev, granule, per_batch: dict, card: str,
-               n_pairs: int = N_EVAL_PAIRS) -> dict:
+def eval_phase(torch, dev, granule, per_batch: dict, card: str, tmp: str,
+               n_pairs: int = N_EVAL_PAIRS) -> tuple:
     """Phase 9: ``cli.model_perf.main`` over ``n_pairs`` synthetic ASTER pairs
     (``write_aster_pairs``, cut from ``granule``) in the harness's format,
     ModelB_2 at full width through the f32, prow (with --device-metrics),
     bf16 and pallas serving paths, one pair a call, and the bicubic floor,
     LPIPS through a seeded full-width VGG16 (``write_lpips_weights``) on
-    ``dev``. Raises on any gate; returns each run's launch counts. ``card``:
-    the nvidia-smi line printed beside the times; ``per_batch``: phase 5's
-    launches a batch of the prow and xla steps, each pair's expected counts."""
+    ``dev``, all under ``tmp``, where phase 10 finds them. Raises on any
+    gate; returns each run's launch counts and the two weight files.
+    ``card``: the nvidia-smi line printed beside the times; ``per_batch``:
+    phase 5's launches a batch of the prow and xla steps, each pair's
+    expected counts."""
     import pandas as pd
-    import tempfile
 
     import sifsr_tpu_torch.kernels as K
     from sifsr_tpu_torch.cli import model_perf
@@ -1471,164 +1492,345 @@ def eval_phase(torch, dev, granule, per_batch: dict, card: str,
 
     summary_rows = ["mean", "std", "10%", "Q1", "mediane", "Q3", "90%"]
     eval_launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    t = time.perf_counter()
+    write_aster_pairs(tmp, n_pairs, seed=1, granule=granule)
+    vgg_path, lp_path = write_lpips_weights(tmp)
+    log(f"eval: {n_pairs} ASTER pairs and the VGG16/LPIPS weights written in "
+        f"{time.perf_counter() - t:.1f} s")
+    base = ["--dataset", tmp, "--statistics", os.path.join(ROOT, "data",
+                                                          "statistics_testset.json"),
+            "--model-dir", os.path.join(ROOT, "weights", "modelB_1009"),
+            "--vgg16-weights", vgg_path, "--lpips-weights", lp_path, "--device", str(dev)]
+    runs = {"f32": ["--serving", "f32"], "prow": ["--serving", "prow", "--device-metrics",
+                                                 "--save-pairs"],
+            "bf16": ["--serving", "bf16"], "pallas": ["--serving", "pallas"],
+            "bicubic": ["--sr-type", "bicubic"]}
+    # each run's sr_fn, as main builds it, records its inputs, outputs
+    # and host time a call: the accuracy gates below hold the very calls
+    # whose launches were counted
+    make_sr_fn, calls = model_perf.make_sr_fn, {}
+
+    def recording_sr_fn(*args, **kwargs):
+        fn, log_ = make_sr_fn(*args, **kwargs), []
+        calls[kwargs.get("serving", "f32") if args[0] == "modelB" else args[0]] = log_
+
+        def sr_fn(lst, ndvi):
+            t0 = time.perf_counter()
+            y = fn(lst, ndvi)
+            log_.append((lst.copy(), ndvi.copy(), y, time.perf_counter() - t0))
+            return y
+        return sr_fn
+
+    frames, eval_wall = {}, {}
+    for name, flags in runs.items():
+        out = os.path.join(tmp, "results", name)
+        torch.cuda.synchronize()
+        K.reset_launches()
         t = time.perf_counter()
-        write_aster_pairs(tmp, n_pairs, seed=1, granule=granule)
-        vgg_path, lp_path = write_lpips_weights(tmp)
-        log(f"eval: {n_pairs} ASTER pairs and the VGG16/LPIPS weights written in "
-            f"{time.perf_counter() - t:.1f} s")
-        base = ["--dataset", tmp, "--statistics", os.path.join(ROOT, "data",
-                                                              "statistics_testset.json"),
-                "--model-dir", os.path.join(ROOT, "weights", "modelB_1009"),
-                "--vgg16-weights", vgg_path, "--lpips-weights", lp_path, "--device", str(dev)]
-        runs = {"f32": ["--serving", "f32"], "prow": ["--serving", "prow", "--device-metrics",
-                                                     "--save-pairs"],
-                "bf16": ["--serving", "bf16"], "pallas": ["--serving", "pallas"],
-                "bicubic": ["--sr-type", "bicubic"]}
-        # each run's sr_fn, as main builds it, records its inputs, outputs
-        # and host time a call: the accuracy gates below hold the very calls
-        # whose launches were counted
-        make_sr_fn, calls = model_perf.make_sr_fn, {}
+        model_perf.make_sr_fn = recording_sr_fn
+        try:
+            model_perf.main(base + flags + ["--out", out])
+        finally:
+            model_perf.make_sr_fn = make_sr_fn
+        torch.cuda.synchronize()
+        eval_wall[name] = time.perf_counter() - t
+        eval_launches[name] = {k.__name__: k.launches for k in K.KERNELS}
+        df = pd.read_csv(os.path.join(out, "performances.csv"), index_col=0)
+        pairs_df = df.drop(index=summary_rows)
+        if (list(df.columns) != list(METRIC_COLUMNS) or list(df.index[-7:]) != summary_rows
+                or len(pairs_df) != n_pairs or len(calls[name]) != n_pairs
+                or not np.isfinite(pairs_df["LPIPS"].to_numpy(float)).all()):
+            raise AssertionError(f"eval {name}: performances.csv off its layout, a pair not "
+                                 f"scored ({len(calls[name])} sr_fn calls) or LPIPS not "
+                                 f"finite:\n{df}")
+        frames[name] = df
+        mean = df.loc["mean"]
+        log(f"eval {name}: {eval_wall[name]:.1f} s wall for {len(pairs_df)} scored pairs of "
+            f"{n_pairs}; mean PSNR {mean['PSNR']:.3f} SSIM {mean['SSIM']:.4f} RMSE "
+            f"{mean['RMSE']:.4f} K GSSIM {mean['GSSIM']:.4f} LPIPS {mean['LPIPS']:.5f} "
+            f"RMSE_grad {mean['RMSE_grad']:.4f}")
+    # the int8 paths launch exactly phase 5's kernels, once per pair (the
+    # harness SRs every pair of the manifest before it crops)
+    for name, mid in (("prow", "prow"), ("pallas", "xla")):
+        want = {k.__name__: per_batch[mid].get(k.__name__, 0) * n_pairs for k in K.KERNELS}
+        if eval_launches[name] != want:
+            raise AssertionError(f"eval {name}: launches {eval_launches[name]}, expected {want}")
+    for name in ("f32", "bf16", "bicubic"):
+        if any(eval_launches[name].values()):
+            raise AssertionError(f"eval {name}: launched {eval_launches[name]}")
+    log(f"eval launches: prow {eval_launches['prow']}, pallas {eval_launches['pallas']}")
 
-        def recording_sr_fn(*args, **kwargs):
-            fn, log_ = make_sr_fn(*args, **kwargs), []
-            calls[kwargs.get("serving", "f32") if args[0] == "modelB" else args[0]] = log_
+    # the device metric block against the port's host path, on the crops
+    # the prow run pickled
+    crops = []
+    for idx in frames["prow"].drop(index=summary_rows).index:
+        with open(os.path.join(tmp, "results", "prow", f"{idx}_dict_pred.pkl"), "rb") as f:
+            c = pickle.load(f)
+        crops.append((idx, c["LST_SR"], c["LST_ASTER"]))
+    worst = 0.0
+    for idx, sr_c, as_c in crops:
+        host = compute_pair_metrics(sr_c, as_c)
+        for col in COLUMNS:
+            got_v, want_v = frames["prow"].loc[idx, col], host[col]
+            worst = max(worst, abs(got_v - want_v) / (2e-4 + 2e-4 * abs(want_v)))
+            if not np.isclose(got_v, want_v, rtol=2e-4, atol=2e-4):
+                raise AssertionError(f"eval: device block {col} of pair {idx}: {got_v} vs host "
+                                     f"{want_v}")
+    pair_list = [(c[1], c[2]) for c in crops]
+    ms_dev = time_ms(torch, lambda: device_metric_rows(pair_list, dev), 5)
+    t = time.perf_counter()
+    for _, sr_c, as_c in crops:
+        compute_pair_metrics(sr_c, as_c)
+    ms_host = (time.perf_counter() - t) * 1e3
+    log(f"eval metric block: device {ms_dev:.2f} ms for {len(crops)} pairs (one call, crops "
+        f"{min(c[1].shape[0] for c in crops)}-{max(c[1].shape[0] for c in crops)} px) vs host "
+        f"numpy {ms_host:.2f} ms; every column within rtol 2e-4 / atol 2e-4 of the host path "
+        f"(worst at {worst:.1%} of its bound)")
 
-            def sr_fn(lst, ndvi):
-                t0 = time.perf_counter()
-                y = fn(lst, ndvi)
-                log_.append((lst.copy(), ndvi.copy(), y, time.perf_counter() - t0))
-                return y
-            return sr_fn
+    # LPIPS on the card against the CPU, and its time a call
+    lp_card = LPIPS(vgg_path, lp_path, device=dev)
+    lp_host = LPIPS(vgg_path, lp_path, device="cpu")
+    for _, sr_c, as_c in crops[:3]:
+        lo, hi = min(sr_c.min(), as_c.min()), max(sr_c.max(), as_c.max())
+        a_, b_ = (sr_c - lo) / (hi - lo), (as_c - lo) / (hi - lo)
+        got_v, want_v = lp_card(a_, b_), lp_host(a_, b_)
+        if not abs(got_v - want_v) <= 1e-5 * abs(want_v):
+            raise AssertionError(f"eval: LPIPS on the card {got_v} vs CPU {want_v}")
+    ms_lpips = time_ms(torch, lambda: lp_card(a_, b_), 10)
+    log(f"eval LPIPS: card within 1e-5 relative of the CPU on 3 crops (last {got_v:.6f} vs "
+        f"{want_v:.6f}); {ms_lpips:.3f} ms a call at {a_.shape}")
 
-        frames, eval_wall = {}, {}
-        for name, flags in runs.items():
-            out = os.path.join(tmp, "results", name)
-            torch.cuda.synchronize()
-            K.reset_launches()
-            t = time.perf_counter()
-            model_perf.make_sr_fn = recording_sr_fn
-            try:
-                model_perf.main(base + flags + ["--out", out])
-            finally:
-                model_perf.make_sr_fn = make_sr_fn
-            torch.cuda.synchronize()
-            eval_wall[name] = time.perf_counter() - t
-            eval_launches[name] = {k.__name__: k.launches for k in K.KERNELS}
-            df = pd.read_csv(os.path.join(out, "performances.csv"), index_col=0)
-            pairs_df = df.drop(index=summary_rows)
-            if (list(df.columns) != list(METRIC_COLUMNS) or list(df.index[-7:]) != summary_rows
-                    or len(pairs_df) != n_pairs or len(calls[name]) != n_pairs
-                    or not np.isfinite(pairs_df["LPIPS"].to_numpy(float)).all()):
-                raise AssertionError(f"eval {name}: performances.csv off its layout, a pair not "
-                                     f"scored ({len(calls[name])} sr_fn calls) or LPIPS not "
-                                     f"finite:\n{df}")
-            frames[name] = df
-            mean = df.loc["mean"]
-            log(f"eval {name}: {eval_wall[name]:.1f} s wall for {len(pairs_df)} scored pairs of "
-                f"{n_pairs}; mean PSNR {mean['PSNR']:.3f} SSIM {mean['SSIM']:.4f} RMSE "
-                f"{mean['RMSE']:.4f} K GSSIM {mean['GSSIM']:.4f} LPIPS {mean['LPIPS']:.5f} "
-                f"RMSE_grad {mean['RMSE_grad']:.4f}")
-        # the int8 paths launch exactly phase 5's kernels, once per pair (the
-        # harness SRs every pair of the manifest before it crops)
-        for name, mid in (("prow", "prow"), ("pallas", "xla")):
-            want = {k.__name__: per_batch[mid].get(k.__name__, 0) * n_pairs for k in K.KERNELS}
-            if eval_launches[name] != want:
-                raise AssertionError(f"eval {name}: launches {eval_launches[name]}, expected {want}")
-        for name in ("f32", "bf16", "bicubic"):
-            if any(eval_launches[name].values()):
-                raise AssertionError(f"eval {name}: launched {eval_launches[name]}")
-        log(f"eval launches: prow {eval_launches['prow']}, pallas {eval_launches['pallas']}")
+    # the spectra through cuFFT against the float64 numpy form
+    sp_err = 0.0
+    for _, _, as_c in crops[:3]:
+        got_sp = attenuation_spectrum(torch.from_numpy(as_c.astype(np.float32)).to(dev))
+        want_sp = attenuation_spectrum_np(as_c.astype(np.float32).astype(np.float64))
+        sp_err = max(sp_err, float(np.abs(got_sp.cpu().numpy() - want_sp).max()))
+    log(f"eval attenuation_spectrum: max |d| {sp_err:.3g} dB vs attenuation_spectrum_np")
+    if not sp_err <= 1e-5:
+        raise AssertionError(f"eval: attenuation_spectrum off by {sp_err} dB")
 
-        # the device metric block against the port's host path, on the crops
-        # the prow run pickled
-        crops = []
-        for idx in frames["prow"].drop(index=summary_rows).index:
-            with open(os.path.join(tmp, "results", "prow", f"{idx}_dict_pred.pkl"), "rb") as f:
-                c = pickle.load(f)
-            crops.append((idx, c["LST_SR"], c["LST_ASTER"]))
-        worst = 0.0
-        for idx, sr_c, as_c in crops:
-            host = compute_pair_metrics(sr_c, as_c)
-            for col in COLUMNS:
-                got_v, want_v = frames["prow"].loc[idx, col], host[col]
-                worst = max(worst, abs(got_v - want_v) / (2e-4 + 2e-4 * abs(want_v)))
-                if not np.isclose(got_v, want_v, rtol=2e-4, atol=2e-4):
-                    raise AssertionError(f"eval: device block {col} of pair {idx}: {got_v} vs host "
-                                         f"{want_v}")
-        pair_list = [(c[1], c[2]) for c in crops]
-        ms_dev = time_ms(torch, lambda: device_metric_rows(pair_list, dev), 5)
-        t = time.perf_counter()
-        for _, sr_c, as_c in crops:
-            compute_pair_metrics(sr_c, as_c)
-        ms_host = (time.perf_counter() - t) * 1e3
-        log(f"eval metric block: device {ms_dev:.2f} ms for {len(crops)} pairs (one call, crops "
-            f"{min(c[1].shape[0] for c in crops)}-{max(c[1].shape[0] for c in crops)} px) vs host "
-            f"numpy {ms_host:.2f} ms; every column within rtol 2e-4 / atol 2e-4 of the host path "
-            f"(worst at {worst:.1%} of its bound)")
-
-        # LPIPS on the card against the CPU, and its time a call
-        lp_card = LPIPS(vgg_path, lp_path, device=dev)
-        lp_host = LPIPS(vgg_path, lp_path, device="cpu")
-        for _, sr_c, as_c in crops[:3]:
-            lo, hi = min(sr_c.min(), as_c.min()), max(sr_c.max(), as_c.max())
-            a_, b_ = (sr_c - lo) / (hi - lo), (as_c - lo) / (hi - lo)
-            got_v, want_v = lp_card(a_, b_), lp_host(a_, b_)
-            if not abs(got_v - want_v) <= 1e-5 * abs(want_v):
-                raise AssertionError(f"eval: LPIPS on the card {got_v} vs CPU {want_v}")
-        ms_lpips = time_ms(torch, lambda: lp_card(a_, b_), 10)
-        log(f"eval LPIPS: card within 1e-5 relative of the CPU on 3 crops (last {got_v:.6f} vs "
-            f"{want_v:.6f}); {ms_lpips:.3f} ms a call at {a_.shape}")
-
-        # the spectra through cuFFT against the float64 numpy form
-        sp_err = 0.0
-        for _, _, as_c in crops[:3]:
-            got_sp = attenuation_spectrum(torch.from_numpy(as_c.astype(np.float32)).to(dev))
-            want_sp = attenuation_spectrum_np(as_c.astype(np.float32).astype(np.float64))
-            sp_err = max(sp_err, float(np.abs(got_sp.cpu().numpy() - want_sp).max()))
-        log(f"eval attenuation_spectrum: max |d| {sp_err:.3g} dB vs attenuation_spectrum_np")
-        if not sp_err <= 1e-5:
-            raise AssertionError(f"eval: attenuation_spectrum off by {sp_err} dB")
-
-        # the model on the card: the sr_fn outputs of the runs above, every
-        # pair of each serving path against f32's, and f32's against the same
-        # sr_fn on the CPU. All runs took the pairs in the manifest's order.
-        for name in ("bf16", "prow", "pallas"):
-            if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
-                       for a, b in zip(calls[name], calls["f32"])):
-                raise AssertionError(f"eval: the {name} run took other inputs than f32's")
-        sr_out = {name: [c[2] for c in calls[name]] for name in ("f32", "bf16", "prow", "pallas")}
-        # mean host ms a call over pairs 2..n (the first call builds)
-        sr_ms = {name: 1e3 * float(np.mean([c[3] for c in calls[name][1:]]))
-                 for name in sr_out}
-        stats_json = os.path.join(ROOT, "data", "statistics_testset.json")
-        stats = Statistics.from_json(stats_json)
-        f32_cpu = model_perf.make_sr_fn("modelB", os.path.join(ROOT, "weights", "modelB_1009"),
-                                        stats_json, device="cpu")
-        # phase 4's bound on the normalised outputs, (y - mean_lst) / std_lst:
-        # in Kelvin atol 5e-5 * std_lst
-        for lst, ndvi, y, _ in calls["f32"][:2]:
-            np.testing.assert_allclose((y - stats.mean_lst) / stats.std_lst,
-                                       (f32_cpu(lst, ndvi) - stats.mean_lst) / stats.std_lst,
-                                       rtol=1e-4, atol=5e-5)
-        for name, (b_rmse, b_max) in (("bf16", (0.1, 0.5)), ("prow", (0.3, 1.0)),
-                                      ("pallas", (0.3, 1.0))):
-            d = np.stack(sr_out[name]).astype(np.float64) - np.stack(sr_out["f32"])
-            rmses = np.sqrt((d ** 2).mean(axis=(1, 2)))
-            log(f"eval sr_fn {name} vs f32 over {n_pairs} pairs: worst RMSE "
-                f"{rmses.max():.4f} K, max {np.abs(d).max():.4f} K")
-            if not (rmses.max() < b_rmse and np.abs(d).max() < b_max):
-                raise AssertionError(f"eval: {name} sr_fn off f32: RMSE {rmses.max()}, max "
-                                     f"{np.abs(d).max()}")
-        log(card + ": eval sr_fn ms a pair (host clock, batch 1, inside the model_perf run, "
-            f"mean over pairs 2-{n_pairs}, input upload and output download included): " + ", ".join(f"{k} {v:.3f}" for k, v in sr_ms.items())
-            + "; wall s a model_perf run: " + ", ".join(f"{k} {v:.1f}"
-                                                         for k, v in eval_wall.items())
-            + f"; metric block over {len(crops)} pairs: device {ms_dev:.2f} ms, host numpy "
-            f"{ms_host:.2f} ms; LPIPS {ms_lpips:.3f} ms a call")
-        del sr_out, calls, lp_card, lp_host, f32_cpu
+    # the model on the card: the sr_fn outputs of the runs above, every
+    # pair of each serving path against f32's, and f32's against the same
+    # sr_fn on the CPU. All runs took the pairs in the manifest's order.
+    for name in ("bf16", "prow", "pallas"):
+        if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(calls[name], calls["f32"])):
+            raise AssertionError(f"eval: the {name} run took other inputs than f32's")
+    sr_out = {name: [c[2] for c in calls[name]] for name in ("f32", "bf16", "prow", "pallas")}
+    # mean host ms a call over pairs 2..n (the first call builds)
+    sr_ms = {name: 1e3 * float(np.mean([c[3] for c in calls[name][1:]]))
+             for name in sr_out}
+    stats_json = os.path.join(ROOT, "data", "statistics_testset.json")
+    stats = Statistics.from_json(stats_json)
+    f32_cpu = model_perf.make_sr_fn("modelB", os.path.join(ROOT, "weights", "modelB_1009"),
+                                    stats_json, device="cpu")
+    # phase 4's bound on the normalised outputs, (y - mean_lst) / std_lst:
+    # in Kelvin atol 5e-5 * std_lst
+    for lst, ndvi, y, _ in calls["f32"][:2]:
+        np.testing.assert_allclose((y - stats.mean_lst) / stats.std_lst,
+                                   (f32_cpu(lst, ndvi) - stats.mean_lst) / stats.std_lst,
+                                   rtol=1e-4, atol=5e-5)
+    for name, (b_rmse, b_max) in (("bf16", (0.1, 0.5)), ("prow", (0.3, 1.0)),
+                                  ("pallas", (0.3, 1.0))):
+        d = np.stack(sr_out[name]).astype(np.float64) - np.stack(sr_out["f32"])
+        rmses = np.sqrt((d ** 2).mean(axis=(1, 2)))
+        log(f"eval sr_fn {name} vs f32 over {n_pairs} pairs: worst RMSE "
+            f"{rmses.max():.4f} K, max {np.abs(d).max():.4f} K")
+        if not (rmses.max() < b_rmse and np.abs(d).max() < b_max):
+            raise AssertionError(f"eval: {name} sr_fn off f32: RMSE {rmses.max()}, max "
+                                 f"{np.abs(d).max()}")
+    log(card + ": eval sr_fn ms a pair (host clock, batch 1, inside the model_perf run, "
+        f"mean over pairs 2-{n_pairs}, input upload and output download included): " + ", ".join(f"{k} {v:.3f}" for k, v in sr_ms.items())
+        + "; wall s a model_perf run: " + ", ".join(f"{k} {v:.1f}"
+                                                     for k, v in eval_wall.items())
+        + f"; metric block over {len(crops)} pairs: device {ms_dev:.2f} ms, host numpy "
+        f"{ms_host:.2f} ms; LPIPS {ms_lpips:.3f} ms a call")
+    del sr_out, calls, lp_card, lp_host, f32_cpu
     torch.cuda.empty_cache()
-    return eval_launches
+    return eval_launches, (vgg_path, lp_path)
+
+
+def baselines_phase(torch, dev, granule, card: str, tmp: str, lpips_files: tuple,
+                    n_pairs: int = N_EVAL_PAIRS) -> None:
+    """Phase 10 over phase 9's pairs and results under ``tmp``:
+    ``cli.model_perf.main`` with ``--sr-type`` bicubic, TsHARP, ATPRK, AATPRK
+    and DMS (its trees on ``dev``), each ``--save-pairs``; DMS on the card
+    against the CPU on two pairs; ``cli.compare_methods.main(["spectra",
+    ...])`` on ``dev`` against ``--device cpu``; ``cli.process_modis`` and
+    ``cli.data_preparation`` on an HDF4 pair cut from ``granule``. Raises on
+    any gate."""
+    import shutil
+
+    import pandas as pd
+
+    import sifsr_tpu_torch.kernels as K
+    from sifsr_tpu_torch.baselines.dms import DecisionTreeSharpener
+    from sifsr_tpu_torch.cli import compare_methods, data_preparation, model_perf, process_modis
+    from sifsr_tpu_torch.data.statistics import Statistics, compute_statistics
+    from sifsr_tpu_torch.eval.harness import METRIC_COLUMNS
+    from sifsr_tpu_torch.geo.hdf4 import write_hdf4_sds
+    from sifsr_tpu_torch.geo.tiff import read_geotiff
+
+    summary_rows = ["mean", "std", "10%", "Q1", "mediane", "Q3", "90%"]
+    stats_json = os.path.join(ROOT, "data", "statistics_testset.json")
+    base = ["--dataset", tmp, "--statistics", stats_json, "--vgg16-weights", lpips_files[0],
+            "--lpips-weights", lpips_files[1], "--device", str(dev), "--save-pairs"]
+    make_sr_fn, calls, wall = model_perf.make_sr_fn, {}, {}
+
+    def recording_sr_fn(*args, **kwargs):
+        fn, log_ = make_sr_fn(*args, **kwargs), []
+        calls[args[0]] = log_
+
+        def sr_fn(lst, ndvi):
+            t0 = time.perf_counter()
+            y = fn(lst, ndvi)
+            log_.append((lst.copy(), ndvi.copy(), y, time.perf_counter() - t0))
+            return y
+        return sr_fn
+
+    sr_types = ("bicubic", "TsHARP", "ATPRK", "AATPRK", "DMS")
+    for sr_type in sr_types:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t = time.perf_counter()
+        model_perf.make_sr_fn = recording_sr_fn
+        try:
+            model_perf.main(base + ["--sr-type", sr_type])
+        finally:
+            model_perf.make_sr_fn = make_sr_fn
+        torch.cuda.synchronize()
+        wall[sr_type] = time.perf_counter() - t
+        launched = {k.__name__: k.launches for k in K.KERNELS if k.launches}
+        df = pd.read_csv(os.path.join(tmp, "results", sr_type, "performances.csv"), index_col=0)
+        pairs_df = df.drop(index=summary_rows)
+        pkls = [f for f in os.listdir(os.path.join(tmp, "results", sr_type))
+                if f.endswith("_dict_pred.pkl")]
+        if (list(df.columns) != list(METRIC_COLUMNS) or list(df.index[-7:]) != summary_rows
+                or len(pairs_df) != n_pairs or len(calls[sr_type]) != n_pairs
+                or len(pkls) != n_pairs or launched
+                or not np.isfinite(pairs_df.to_numpy(float)).all()):
+            raise AssertionError(f"baselines {sr_type}: performances.csv off its layout, a pair "
+                                 f"not scored ({len(calls[sr_type])} sr_fn calls, {len(pkls)} "
+                                 f"pickles), a value not finite or a kernel launched "
+                                 f"({launched}):\n{df}")
+        mean = df.loc["mean"]
+        log(f"baselines {sr_type}: {wall[sr_type]:.1f} s wall for {len(pairs_df)} scored pairs; "
+            f"mean PSNR {mean['PSNR']:.3f} SSIM {mean['SSIM']:.4f} RMSE {mean['RMSE']:.4f} K "
+            f"GSSIM {mean['GSSIM']:.4f} LPIPS {mean['LPIPS']:.5f}")
+
+    # DMS on the card against the CPU on two pairs: the same trees, the
+    # sharpened LST within 1e-4 K; the card's is the run's own output
+    worst, cpu_s = 0.0, []
+    for lst, ndvi, y, _ in calls["DMS"][:2]:
+        fitted = {}
+        for d in (dev, "cpu"):
+            t = time.perf_counter()
+            sh = DecisionTreeSharpener(factor=4, device=d).train(ndvi, lst)
+            fitted[str(d)] = (sh, sh.residual_correction(sh.apply(ndvi), lst))
+            if d == "cpu":
+                cpu_s.append(time.perf_counter() - t)
+        (card_sh, card_y), (cpu_sh, cpu_y) = fitted[str(dev)], fitted["cpu"]
+        leaves = card_sh.reg.n_leaves()
+        if leaves != cpu_sh.reg.n_leaves() or not all(
+                np.array_equal(card_sh.reg.thresholds(i), cpu_sh.reg.thresholds(i))
+                for i in range(card_sh.reg.n_estimators)):
+            raise AssertionError(f"baselines DMS: trees on the card {leaves} vs the CPU "
+                                 f"{cpu_sh.reg.n_leaves()}")
+        if not np.array_equal(card_y, y):
+            raise AssertionError("baselines DMS: a second card fit differs from the run's")
+        worst = max(worst, float(np.abs(card_y - cpu_y).max()))
+    if not worst <= 1e-4:
+        raise AssertionError(f"baselines DMS: card vs CPU {worst} K")
+    dms_ms = 1e3 * float(np.mean([c[3] for c in calls["DMS"][1:]]))
+    log(f"baselines DMS: card vs CPU on 2 pairs: equal leaf counts ({leaves} on the last) and "
+        f"thresholds, max |d| {worst:.3g} K (bound 1e-4)")
+    sr_ms = {k: 1e3 * float(np.mean([c[3] for c in v[1:]])) for k, v in calls.items()}
+
+    # compare_methods spectra on the card, then on the CPU, over the same pickles
+    models = ["TsHARP", "ATPRK", "AATPRK", "DMS", "prow"]
+    results = os.path.join(tmp, "results")
+    scores, spectra_s = {}, {}
+    for d in (str(dev), "cpu"):
+        t = time.perf_counter()
+        compare_methods.main(["spectra", "--results-dir", results, "--models", *models,
+                              "--device", d])
+        spectra_s[d] = time.perf_counter() - t
+        scores[d] = {m: pd.read_csv(os.path.join(results, m, "performances.csv"), index_col=0)
+                     .loc[:, ["PFR", "AFR", "FRR", "FRO", "FRU"]].drop(index=summary_rows)
+                     .to_numpy(float) for m in models}
+    worst = 0.0
+    for m in models:
+        got, want = scores[str(dev)][m], scores["cpu"][m]
+        if got.shape != (n_pairs, 5) or not np.isfinite(got).all():
+            raise AssertionError(f"compare_methods spectra {m}: scores {got.shape}, not all finite")
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+        worst = max(worst, float(np.where(got == want, 0.0, rel).max()))
+    if not worst <= 1e-6:
+        raise AssertionError(f"compare_methods spectra: card vs CPU {worst} relative")
+    log(f"compare_methods spectra over {len(models)} models x {n_pairs} pairs: card "
+        f"{spectra_s[str(dev)]:.2f} s, CPU {spectra_s['cpu']:.2f} s wall; scores within "
+        f"{worst:.3g} relative of the CPU (bound 1e-6)")
+
+    # the data tooling: an HDF4 pair cut from the granule, written as the
+    # files phase writes its pair, through process_modis and data_preparation
+    lst_g, ndvi_g = granule
+    work = os.path.join(tmp, "modis")
+    lst_dir, nir_dir = os.path.join(work, "MOD21A1D.061"), os.path.join(work, "MOD09GQ.061")
+    os.makedirs(lst_dir)
+    os.makedirs(nir_dir)
+    size = 384
+
+    def struct_meta(n, res):
+        return ("GROUP=GridStructure\n"
+                f"\tXDim={n}\n\tYDim={n}\n"
+                "\tUpperLeftPointMtrs=(0.000000,5559752.598333)\n"
+                f"\tLowerRightMtrs=({n * res:.6f},{5559752.598333 - n * res:.6f})\n"
+                "END_GROUP=GridStructure\n")
+
+    t = time.perf_counter()
+    nd = ndvi_g[:4 * size, :4 * size]
+    write_hdf4_sds(os.path.join(lst_dir, "MOD21A1D.A2017100.h18v04.061.hdf"),
+                   {"LST_Day_1KM": np.round(lst_g[:size, :size] / 0.02).astype(np.uint16),
+                    "QC_Day": np.zeros((size, size), np.uint8)},
+                   struct_metadata=struct_meta(size, 926.625433), deflate=True)
+    write_hdf4_sds(os.path.join(nir_dir, "MOD09GQ.A2017100.h18v04.061.hdf"),
+                   {"sur_refl_b01_1": np.full(nd.shape, 900, np.int16),
+                    "sur_refl_b02_1": np.round(900.0 * (1.0 + nd) / (1.0 - nd)).astype(np.int16)},
+                   struct_metadata=struct_meta(4 * size, 231.656358), deflate=True)
+    pairs_csv = os.path.join(work, "pairs_day.csv")
+    process_modis.main(["--lst-dir", lst_dir, "--nirred-dir", nir_dir,
+                        "--out-lst", os.path.join(work, "LST"),
+                        "--out-ndvi", os.path.join(work, "NDVI"), "--pairs-out", pairs_csv])
+    stats_out = os.path.join(work, "statistics.json")
+    data_preparation.main(["--pairs", pairs_csv, "--out", os.path.join(work, "ModisDatasetB.csv"),
+                           "--statistics-out", stats_out])
+    tooling_s = time.perf_counter() - t
+    pairs = pd.read_csv(pairs_csv, index_col=0)
+    manifest = pd.read_csv(os.path.join(work, "ModisDatasetB.csv"), index_col=0)
+    train = manifest[manifest["split"] == "Train"]
+    want = compute_statistics((read_geotiff(p).array for p in train["LST"]),
+                              (read_geotiff(p).array for p in train["NDVI"]))
+    got = Statistics.from_json(stats_out)
+    if len(pairs) != (size // 64) ** 2 or got != want:
+        raise AssertionError(f"process_modis/data_preparation: {len(pairs)} pairs, statistics "
+                             f"{got} vs {want}")
+    patch = read_geotiff(pairs["LST"].iloc[0]).array
+    if not np.array_equal(patch, (np.round(lst_g[:64, :64] / 0.02).astype(np.uint16)
+                                  .astype(np.float32) * np.float32(0.02))):
+        raise AssertionError("process_modis: the first LST patch is not the granule's")
+    shutil.rmtree(work)
+    log(f"data tooling: process_modis and data_preparation over a {size}² / {4 * size}² HDF4 "
+        f"pair in {tooling_s:.1f} s: {len(pairs)} pairs, {len(train)} train; the statistics "
+        f"JSON equal to compute_statistics on the written patches")
+    log(card + ": baselines wall s a model_perf run over " + f"{n_pairs} pairs: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
+        + "; sr_fn ms a pair (mean over pairs 2-" + f"{n_pairs}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sr_ms.items())
+        + f"; DMS ms a pair on the card {dms_ms:.3f}, on the host's CPU "
+        f"{1e3 * float(np.mean(cpu_s)):.3f} (2 pairs, fit, apply and residual correction)")
+    log("phase 10 ran: model_perf --sr-type " + ", ".join(sr_types)
+        + "; compare_methods spectra (card and CPU); process_modis; data_preparation")
 
 
 def demangle(name: str) -> str:

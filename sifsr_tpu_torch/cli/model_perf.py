@@ -16,8 +16,12 @@ off; ``--scale-invariance`` runs it on the 16 64² tiles of the pair),
 with ``mid='xla'`` and the default ``mid='prow'``, the hand-written
 kernels). The quantised paths calibrate their static scales on the first
 ``--calib-pairs`` usable pairs of the dataset. ``--sr-type bicubic`` is the
-floor method. TsHARP, ATPRK, AATPRK and DMS are not ported yet (ROADMAP.md
-§1 item 2) and raise ``NotImplementedError``.
+floor method. The classical baselines: ``TsHARP``, ``ATPRK`` and ``AATPRK``
+run on the host in numpy and scipy, on a coarse NDVI pooled by
+``ops.pooling.norm_l4_downsample`` on the CPU; ``DMS`` fits and applies its
+bagged regression trees and its residual correction's bicubic x4 on
+``--device`` (``baselines.forest``), the rest in numpy
+(``--dms-moving-window`` turns on its moving-window local regressors).
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ def _load_calibration_pairs(dataset: str, n: int = 32):
 
 
 def make_sr_fn(sr_type: str, model_dir: str, statistics: str, scale_invariance: bool = False,
-               serving: str = "f32",
+               dms_moving_window: int = 0, serving: str = "f32",
                dataset: str | None = None, calib_pairs: int = 32,
                calib_quantile: float | None = None, up2_impl: str = "mxu",
                device: str | torch.device = "cuda"):
@@ -85,10 +89,24 @@ def make_sr_fn(sr_type: str, model_dir: str, statistics: str, scale_invariance: 
         from sifsr_tpu_torch.baselines import bicubic_sr
 
         return lambda lst, ndvi: bicubic_sr(lst)
-    if sr_type != "modelB":
-        raise NotImplementedError(
-            f"--sr-type {sr_type} (the classical baselines) is not ported yet: see ROADMAP.md "
-            "§1 item 2")
+    if sr_type in ("TsHARP", "ATPRK", "AATPRK"):
+        from sifsr_tpu_torch.baselines import aatprk, atprk, tsharp
+        from sifsr_tpu_torch.ops.pooling import norm_l4_downsample
+
+        def coarse_ndvi(ndvi):
+            nd = norm_l4_downsample(torch.as_tensor(np.asarray(ndvi, np.float32))[None], 4)
+            return np.clip(nd[0].numpy(), -1, 1)
+
+        if sr_type == "TsHARP":
+            return lambda lst, ndvi: tsharp(lst, coarse_ndvi(ndvi), ndvi, 4, min_t=273)
+        method = atprk if sr_type == "ATPRK" else aatprk
+        return lambda lst, ndvi: method(lst, coarse_ndvi(ndvi), ndvi, scale=4, scc=926,
+                                        block_size=5, min_t=273)
+    if sr_type == "DMS":
+        from sifsr_tpu_torch.baselines import dms_sharpen
+
+        return lambda lst, ndvi: dms_sharpen(
+            lst, ndvi, factor=4, moving_window_size=dms_moving_window, device=dev)
 
     from sifsr_tpu_torch.cli.predict import load_variables
     from sifsr_tpu_torch.data.statistics import Statistics
@@ -203,7 +221,8 @@ def main(argv=None):
     parser.add_argument("--figures", action="store_true",
                         help="write 4-panel comparison PNGs per pair")
     parser.add_argument("--dms-moving-window", type=int, default=0,
-                        help="DMS movingWindowSize in coarse px (DMS is not ported yet)")
+                        help="DMS movingWindowSize in coarse px (0 = the reference's "
+                             "patch-eval configuration, no local regressors)")
     parser.add_argument("--up2-impl", default="mxu", choices=["mxu", "vpu"],
                         help="pallas/prow only: the fused x2 upsamples' rounding chain, "
                              "'mxu' integer-exact row mix (default) or 'vpu' the float32 "
@@ -241,7 +260,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     sr_fn = make_sr_fn(args.sr_type, args.model_dir, args.statistics, args.scale_invariance,
-                       serving=args.serving, dataset=args.dataset,
+                       dms_moving_window=args.dms_moving_window, serving=args.serving,
+                       dataset=args.dataset,
                        calib_pairs=args.calib_pairs,
                        calib_quantile=(None if args.calib_quantile >= 1.0
                                        else args.calib_quantile),

@@ -10,7 +10,8 @@ from sifsr_tpu_torch.data.datasets import (
     normalize,
     prepare_batch,
 )
-from sifsr_tpu_torch.data.statistics import Statistics
+from sifsr_tpu_torch.data.statistics import Statistics, compute_statistics
 
-__all__ = ["Statistics", "ArrayDataset", "ModisDataset", "normalize", "denormalize",
-           "prepare_batch", "degrade_batch_scale_invariance", "make_synthetic_dataset"]
+__all__ = ["Statistics", "compute_statistics", "ArrayDataset", "ModisDataset", "normalize",
+           "denormalize", "prepare_batch", "degrade_batch_scale_invariance",
+           "make_synthetic_dataset"]

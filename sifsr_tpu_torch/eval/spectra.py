@@ -10,9 +10,12 @@ in float32. torch's float32 FFT is off the float64 one by up to 6e-4 dB in
 the rings of a 300 K image of other than power-of-two size (JAX's by up to
 1.2e-4 dB), while the float64 form stays within 1e-5 dB of
 ``attenuation_spectrum_np`` (``tests/test_torch_eval_metrics.py``). The
-ring sums are differences of one float64 prefix sum over the pixels in ring
-order, not a scatter-add: CUDA's ``index_add_`` and weighted ``bincount``
-sum with atomics, in an order that changes from run to run.
+ring sums are segmented scans over the pixels in ring order
+(``ops.segments``), not a scatter-add: CUDA's ``index_add_`` and weighted
+``bincount`` sum with atomics, in an order that changes from run to run. A
+difference of one global prefix sum, as before, carried an error of the
+whole prefix into the high-frequency rings, enough to move a float32 dB
+value of ``cli.compare_methods``'s scores by an ulp.
 
 Conventions preserved exactly:
 - input to the radial average is fftshift(abs(fft2(image)));
@@ -27,6 +30,8 @@ import functools
 
 import numpy as np
 import torch
+
+from sifsr_tpu_torch.ops.segments import segment_scan
 
 __all__ = ["attenuation_spectrum", "pfr", "afr", "frr", "fro", "fru", "attenuation_spectrum_np"]
 
@@ -53,35 +58,40 @@ def _ring_ids(h: int, w: int) -> tuple[np.ndarray, int]:
 
 @functools.lru_cache(maxsize=8)
 def _ring_order(h: int, w: int, device: torch.device):
-    """(order, starts, counts) of ``_ring_ids`` on ``device``: the flat
-    indices of the ring pixels sorted by ring (int64), each ring's first
-    position in that order and its pixel count (float64), both (n_rings,)."""
+    """(order, seg_start, last, counts, longest) of ``_ring_ids``: on
+    ``device`` the flat indices of the ring pixels sorted by ring, the
+    position of each one's ring start in that order, each ring's last
+    position and its pixel count (float64, (n_rings,)); the largest count."""
     ids, n_rings = _ring_ids(h, w)
     flat = ids.reshape(-1)
     order = np.flatnonzero(flat >= 0)
     order = order[np.argsort(flat[order], kind="stable")]
     counts = np.bincount(flat[order], minlength=n_rings)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    return (torch.as_tensor(order, device=device), torch.as_tensor(starts, device=device),
-            torch.as_tensor(counts.astype(np.float64), device=device))
+    return (torch.as_tensor(order, device=device),
+            torch.as_tensor(np.repeat(starts, counts), device=device),
+            torch.as_tensor(starts + counts - 1, device=device),
+            torch.as_tensor(counts.astype(np.float64), device=device), int(counts.max()))
 
 
 def attenuation_spectrum(image: torch.Tensor) -> torch.Tensor:
     """Radially-averaged attenuation spectrum in dB re f0 of (..., H, W)
-    images, float32.
+    images, float32. A float64 image is transformed as it is (the crops of
+    ``cli.compare_methods``), any other as float32.
 
     Equivalent to compute_2D_attenuation_spectra(fftshift(abs(fft2(image))))
     (utils.py:598-637 + compare_methods.py:312). Returns (..., 1 + n_rings).
     """
-    image = torch.as_tensor(image, dtype=torch.float32)
+    image = torch.as_tensor(image)
+    if image.dtype != torch.float64:
+        image = image.to(torch.float32)
     h, w = image.shape[-2], image.shape[-1]
-    order, starts, counts = _ring_order(h, w, image.device)
+    order, seg_start, last, counts, longest = _ring_order(h, w, image.device)
 
     spec = torch.fft.fftshift(torch.abs(torch.fft.fft2(image.double())), dim=(-2, -1))
     f0 = spec[..., h // 2, w // 2]
     ring_vals = spec.reshape(*spec.shape[:-2], h * w)[..., order]
-    csum = torch.nn.functional.pad(torch.cumsum(ring_vals, dim=-1), (1, 0))
-    means = (csum[..., starts + counts.long()] - csum[..., starts]) / counts
+    means = segment_scan(ring_vals, seg_start, longest)[..., last] / counts
     att = (10.0 * (torch.log10(means) - torch.log10(f0[..., None]))).to(torch.float32)
     head = torch.ones((*spec.shape[:-2], 1), dtype=att.dtype, device=att.device)  # f0/f0 quirk
     return torch.cat([head, att], dim=-1)

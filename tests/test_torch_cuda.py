@@ -1002,3 +1002,71 @@ def test_attenuation_spectrum_cuda(cuda):
     got = attenuation_spectrum(torch.from_numpy(img).to(cuda)).cpu().numpy()
     want = np.stack([attenuation_spectrum_np(im.astype(np.float64)) for im in img])
     assert got.shape == want.shape and np.abs(got - want).max() <= 1e-5
+
+
+def _dms_scene(n, seed=3):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:4 * n, 0:4 * n]
+    ndvi = (0.3 + 0.25 * np.sin(yy / 9.0) + 0.2 * np.cos(xx / 7.0)
+            + 0.05 * rng.standard_normal((4 * n, 4 * n)))
+    lst = 310.0 - 18.0 * ndvi + 0.5 * rng.standard_normal(ndvi.shape)
+    return lst.reshape(n, 4, n, 4).mean(axis=(1, 3)).astype(np.float32), ndvi
+
+
+@pytest.mark.parametrize("n,opts", [(16, {}), (32, {}), (64, {}), (16, {"moving_window_size": 8}),
+                                    (32, {"per_leaf_linear_regression": False})])
+def test_dms_cuda(cuda, n, opts):
+    """DMS with its bagged trees grown and applied on the card against the
+    same on the CPU: the same trees (segment sums in one order on both),
+    the sharpened LST within 1e-4 K."""
+    from sifsr_tpu_torch.baselines.dms import DecisionTreeSharpener
+
+    lst, ndvi = _dms_scene(n)
+    mw = opts.get("moving_window_size", 0)
+    out = {}
+    for dev in (cuda, "cpu"):
+        s = DecisionTreeSharpener(factor=4, device=dev, **opts).train(ndvi, lst)
+        out[str(dev)] = (s, s.residual_correction(s.apply(ndvi, lst if mw else None), lst))
+    (card, got), (host, want) = out[str(cuda)], out["cpu"]
+    regs = [(card.reg, host.reg)] + [(a[1], b[1]) for a, b in zip(card.local_regs,
+                                                                   host.local_regs)]
+    for a, b in regs:
+        assert a.n_leaves() == b.n_leaves()
+        for i in range(a.n_estimators):
+            np.testing.assert_array_equal(a.thresholds(i), b.thresholds(i))
+    assert np.isfinite(got).all() and np.abs(got - want).max() <= 1e-4
+
+
+def test_compare_methods_spectra_cuda(cuda, tmp_path):
+    """``compare_methods spectra`` on the card against the CPU: the scores
+    within 1e-6 relative."""
+    import pickle
+
+    import pandas as pd
+
+    from sifsr_tpu_torch.cli import compare_methods
+
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:131, 0:140]
+    for root in ("card", "cpu"):
+        for m in ("bicubic", "m"):
+            (tmp_path / root / m).mkdir(parents=True)
+    for idx in range(3):
+        aster = 300 + np.sin(yy / 2.5) * np.cos(xx / 3.1) + 0.2 * rng.normal(size=yy.shape)
+        crops = {"bicubic": 300 + 0.5 * np.sin(yy / 2.5) * np.cos(xx / 3.1),
+                 "m": 300 + 0.8 * np.sin(yy / 2.5) * np.cos(xx / 3.1)
+                 + 0.05 * rng.normal(size=yy.shape)}
+        for root in ("card", "cpu"):
+            for m, c in crops.items():
+                with open(tmp_path / root / m / f"{idx}_dict_pred.pkl", "wb") as f:
+                    pickle.dump({"LST_ASTER": aster, "LST_SR": c}, f)
+    perf = pd.DataFrame({"PSNR": [20.0, 21.0, 22.0]})
+    for root, dev in (("card", "cuda"), ("cpu", "cpu")):
+        perf.to_csv(tmp_path / root / "m" / "performances.csv")
+        compare_methods.main(["spectra", "--results-dir", str(tmp_path / root), "--models", "m",
+                              "--device", dev])
+    got = pd.read_csv(tmp_path / "card" / "m" / "performances.csv", index_col=0)
+    want = pd.read_csv(tmp_path / "cpu" / "m" / "performances.csv", index_col=0)
+    cols = ["PFR", "AFR", "FRR", "FRO", "FRU"]
+    np.testing.assert_allclose(got[cols].to_numpy(float)[:3], want[cols].to_numpy(float)[:3],
+                               rtol=1e-6, atol=0)

@@ -144,10 +144,14 @@ def test_main_fills_lpips_from_weight_files(dataset, tmp_path):
                                rtol=2e-4, atol=2e-4)
 
 
-def test_baseline_sr_types_raise_not_implemented():
+def test_baseline_sr_types_raise_not_implemented(dataset):
+    """The classical baselines, which raised NotImplementedError until they
+    were ported, now build and sharpen a pair of the harness (each against
+    JAX's in tests/test_torch_baselines.py); bicubic as before."""
+    lst, ndvi = tmp_._load_calibration_pairs(dataset, 1)
     for sr_type in ("TsHARP", "ATPRK", "AATPRK", "DMS"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 2"):
-            tmp_.make_sr_fn(sr_type, WEIGHTS, STATS_JSON, device="cpu")
+        out = tmp_.make_sr_fn(sr_type, WEIGHTS, STATS_JSON, device="cpu")(lst[0], ndvi[0])
+        assert out.shape == (256, 256) and np.isfinite(out).all()
     fn = tmp_.make_sr_fn("bicubic", "", "", device="cpu")
     lst = np.full((64, 64), 300.0, np.float32)
     np.testing.assert_allclose(fn(lst, None), np.full((256, 256), 300.0), rtol=1e-6)

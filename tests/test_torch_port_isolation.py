@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, nothing of sifsr_tpu, and no silent CPU
-fallback when CUDA is asked for."""
+"""The port stands alone: no JAX, nothing of sifsr_tpu, no scikit-learn and
+no matplotlib when it is imported (the card machine has neither), and no
+silent CPU fallback when CUDA is asked for."""
 
 import os
 import subprocess
@@ -17,7 +18,8 @@ import sifsr_tpu_torch
 for m in pkgutil.walk_packages(sifsr_tpu_torch.__path__, "sifsr_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "sifsr_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "sifsr_tpu",
+                                    "sklearn", "matplotlib"))
 print(len([k for k in sys.modules if k.startswith("sifsr_tpu_torch")]))
 print(bad)
 """
@@ -28,7 +30,7 @@ def test_port_imports_no_jax_and_no_sifsr_tpu():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
     n_modules, bad = out.stdout.strip().splitlines()
-    assert int(n_modules) >= 40
+    assert int(n_modules) >= 67
     assert bad == "[]", bad
 
 
@@ -125,6 +127,32 @@ def test_eval_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert np.isfinite(row["RMSE"])
     assert model_perf.make_sr_fn("bicubic", "", "", device="cpu")(
         np.full((64, 64), 300.0), None).shape == (256, 256)
+
+
+def test_baselines_and_spectra_raise_without_cuda(monkeypatch, tmp_path):
+    """DMS (dms_sharpen, its sharpener, the raster workflow, make_sr_fn's
+    DMS) and ``compare_methods spectra`` run on the card unless the caller
+    asks for the CPU; asked for it, they run there."""
+    from sifsr_tpu_torch.baselines import DecisionTreeSharpener, dms_sharpen
+    from sifsr_tpu_torch.baselines.dms_rasters import sharpen_rasters
+    from sifsr_tpu_torch.cli import compare_methods, model_perf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    ndvi = 0.3 + 0.2 * rng.random((32, 32))
+    lst = 300.0 - 10.0 * ndvi.reshape(8, 4, 8, 4).mean(axis=(1, 3))
+    gt_hr, gt_lr = (0.0, 250.0, 0.0, 0.0, 0.0, -250.0), (0.0, 1000.0, 0.0, 0.0, 0.0, -1000.0)
+    (tmp_path / "bicubic").mkdir()
+    for call in (lambda: dms_sharpen(lst, ndvi),
+                 lambda: DecisionTreeSharpener(),
+                 lambda: sharpen_rasters(lst, gt_lr, ndvi, gt_hr),
+                 lambda: model_perf.make_sr_fn("DMS", "", ""),
+                 lambda: compare_methods.main(["spectra", "--results-dir", str(tmp_path),
+                                               "--models", "m"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert dms_sharpen(lst, ndvi, device="cpu").shape == (32, 32)
+    assert sharpen_rasters(lst, gt_lr, ndvi, gt_hr, device="cpu").shape == (32, 32)
 
 
 _SMOKE_WRITER = """
