@@ -132,8 +132,11 @@ Phases, each of which raises on failure (no result line is printed then):
    baselines and phase 9's prow run on the card, then with ``--device
    cpu``: the scores within 1e-6 relative. ``cli.process_modis`` and
    ``cli.data_preparation`` on a 384² / 1536² HDF4 pair cut from the
-   granule: 36 pairs, the first LST patch the granule's, the statistics
-   JSON equal to ``compute_statistics`` on the written Train patches.
+   granule (``process_modis``'s matplotlib histogram, drawn last, stops on
+   its import where matplotlib is absent, as in the JAX package; that one
+   ``ImportError`` is caught and said): 36 pairs, the first LST patch the
+   granule's, the statistics JSON equal to ``compute_statistics`` on the
+   written Train patches.
 
 The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero
@@ -1468,6 +1471,59 @@ def main(profile: bool = False) -> None:
                                            "count": torch.cuda.device_count()}}))
 
 
+SUMMARY_ROWS = ["mean", "std", "10%", "Q1", "mediane", "Q3", "90%"]
+
+
+def scored_model_perf_run(torch, argv: list, out: str, key, calls: dict, n_pairs: int,
+                          label: str):
+    """One ``cli.model_perf.main(argv)`` run writing ``out``, with each
+    ``sr_fn`` it builds recording its calls (inputs, output, host seconds)
+    under ``calls[key(args, kwargs)]`` of its ``make_sr_fn`` call, so that
+    the gates hold the very calls whose launches were counted. Raises
+    unless ``performances.csv`` is in the reference's layout with every one
+    of ``n_pairs`` pairs scored by one ``sr_fn`` call. Returns the frame,
+    the run's wall seconds and its launches by kernel."""
+    import pandas as pd
+
+    import sifsr_tpu_torch.kernels as K
+    from sifsr_tpu_torch.cli import model_perf
+    from sifsr_tpu_torch.eval.harness import METRIC_COLUMNS
+
+    make_sr_fn = model_perf.make_sr_fn
+
+    def recording_sr_fn(*args, **kwargs):
+        fn, log_ = make_sr_fn(*args, **kwargs), []
+        calls[key(args, kwargs)] = log_
+
+        def sr_fn(lst, ndvi):
+            t0 = time.perf_counter()
+            y = fn(lst, ndvi)
+            log_.append((lst.copy(), ndvi.copy(), y, time.perf_counter() - t0))
+            return y
+        return sr_fn
+
+    calls_before = set(calls)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t = time.perf_counter()
+    model_perf.make_sr_fn = recording_sr_fn
+    try:
+        model_perf.main(argv + ["--out", out])
+    finally:
+        model_perf.make_sr_fn = make_sr_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    df = pd.read_csv(os.path.join(out, "performances.csv"), index_col=0)
+    new = [k for k in calls if k not in calls_before]
+    n_calls = len(calls[new[0]]) if len(new) == 1 else -1
+    if (list(df.columns) != list(METRIC_COLUMNS) or list(df.index[-7:]) != SUMMARY_ROWS
+            or len(df) - len(SUMMARY_ROWS) != n_pairs or n_calls != n_pairs):
+        raise AssertionError(f"{label}: performances.csv off its layout or a pair not scored "
+                             f"({n_calls} sr_fn calls for {n_pairs} pairs):\n{df}")
+    return df, wall, launches
+
+
 def eval_phase(torch, dev, granule, per_batch: dict, card: str, tmp: str,
                n_pairs: int = N_EVAL_PAIRS) -> tuple:
     """Phase 9: ``cli.model_perf.main`` over ``n_pairs`` synthetic ASTER pairs
@@ -1480,17 +1536,14 @@ def eval_phase(torch, dev, granule, per_batch: dict, card: str, tmp: str,
     ``card``: the nvidia-smi line printed beside the times; ``per_batch``:
     phase 5's launches a batch of the prow and xla steps, each pair's
     expected counts."""
-    import pandas as pd
-
     import sifsr_tpu_torch.kernels as K
     from sifsr_tpu_torch.cli import model_perf
     from sifsr_tpu_torch.eval.device_metrics import COLUMNS, device_metric_rows
     from sifsr_tpu_torch.data.statistics import Statistics
-    from sifsr_tpu_torch.eval.harness import METRIC_COLUMNS, compute_pair_metrics
+    from sifsr_tpu_torch.eval.harness import compute_pair_metrics
     from sifsr_tpu_torch.eval.lpips import LPIPS
     from sifsr_tpu_torch.eval.spectra import attenuation_spectrum, attenuation_spectrum_np
 
-    summary_rows = ["mean", "std", "10%", "Q1", "mediane", "Q3", "90%"]
     eval_launches = {}
     t = time.perf_counter()
     write_aster_pairs(tmp, n_pairs, seed=1, granule=granule)
@@ -1505,44 +1558,21 @@ def eval_phase(torch, dev, granule, per_batch: dict, card: str, tmp: str,
                                                  "--save-pairs"],
             "bf16": ["--serving", "bf16"], "pallas": ["--serving", "pallas"],
             "bicubic": ["--sr-type", "bicubic"]}
-    # each run's sr_fn, as main builds it, records its inputs, outputs
-    # and host time a call: the accuracy gates below hold the very calls
-    # whose launches were counted
-    make_sr_fn, calls = model_perf.make_sr_fn, {}
+    # each run's sr_fn, as main builds it, records its calls, keyed by
+    # the serving path (the model) or the sr_type
+    calls = {}
 
-    def recording_sr_fn(*args, **kwargs):
-        fn, log_ = make_sr_fn(*args, **kwargs), []
-        calls[kwargs.get("serving", "f32") if args[0] == "modelB" else args[0]] = log_
-
-        def sr_fn(lst, ndvi):
-            t0 = time.perf_counter()
-            y = fn(lst, ndvi)
-            log_.append((lst.copy(), ndvi.copy(), y, time.perf_counter() - t0))
-            return y
-        return sr_fn
+    def run_key(args, kwargs):
+        return kwargs.get("serving", "f32") if args[0] == "modelB" else args[0]
 
     frames, eval_wall = {}, {}
     for name, flags in runs.items():
-        out = os.path.join(tmp, "results", name)
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t = time.perf_counter()
-        model_perf.make_sr_fn = recording_sr_fn
-        try:
-            model_perf.main(base + flags + ["--out", out])
-        finally:
-            model_perf.make_sr_fn = make_sr_fn
-        torch.cuda.synchronize()
-        eval_wall[name] = time.perf_counter() - t
-        eval_launches[name] = {k.__name__: k.launches for k in K.KERNELS}
-        df = pd.read_csv(os.path.join(out, "performances.csv"), index_col=0)
-        pairs_df = df.drop(index=summary_rows)
-        if (list(df.columns) != list(METRIC_COLUMNS) or list(df.index[-7:]) != summary_rows
-                or len(pairs_df) != n_pairs or len(calls[name]) != n_pairs
-                or not np.isfinite(pairs_df["LPIPS"].to_numpy(float)).all()):
-            raise AssertionError(f"eval {name}: performances.csv off its layout, a pair not "
-                                 f"scored ({len(calls[name])} sr_fn calls) or LPIPS not "
-                                 f"finite:\n{df}")
+        df, eval_wall[name], eval_launches[name] = scored_model_perf_run(
+            torch, base + flags, os.path.join(tmp, "results", name), run_key, calls, n_pairs,
+            f"eval {name}")
+        pairs_df = df.drop(index=SUMMARY_ROWS)
+        if not np.isfinite(pairs_df["LPIPS"].to_numpy(float)).all():
+            raise AssertionError(f"eval {name}: LPIPS not finite:\n{df}")
         frames[name] = df
         mean = df.loc["mean"]
         log(f"eval {name}: {eval_wall[name]:.1f} s wall for {len(pairs_df)} scored pairs of "
@@ -1563,7 +1593,7 @@ def eval_phase(torch, dev, granule, per_batch: dict, card: str, tmp: str,
     # the device metric block against the port's host path, on the crops
     # the prow run pickled
     crops = []
-    for idx in frames["prow"].drop(index=summary_rows).index:
+    for idx in frames["prow"].drop(index=SUMMARY_ROWS).index:
         with open(os.path.join(tmp, "results", "prow", f"{idx}_dict_pred.pkl"), "rb") as f:
             c = pickle.load(f)
         crops.append((idx, c["LST_SR"], c["LST_ASTER"]))
@@ -1664,56 +1694,28 @@ def baselines_phase(torch, dev, granule, card: str, tmp: str, lpips_files: tuple
 
     import pandas as pd
 
-    import sifsr_tpu_torch.kernels as K
     from sifsr_tpu_torch.baselines.dms import DecisionTreeSharpener
-    from sifsr_tpu_torch.cli import compare_methods, data_preparation, model_perf, process_modis
+    from sifsr_tpu_torch.cli import compare_methods, data_preparation, process_modis
     from sifsr_tpu_torch.data.statistics import Statistics, compute_statistics
-    from sifsr_tpu_torch.eval.harness import METRIC_COLUMNS
     from sifsr_tpu_torch.geo.hdf4 import write_hdf4_sds
     from sifsr_tpu_torch.geo.tiff import read_geotiff
 
-    summary_rows = ["mean", "std", "10%", "Q1", "mediane", "Q3", "90%"]
     stats_json = os.path.join(ROOT, "data", "statistics_testset.json")
     base = ["--dataset", tmp, "--statistics", stats_json, "--vgg16-weights", lpips_files[0],
             "--lpips-weights", lpips_files[1], "--device", str(dev), "--save-pairs"]
-    make_sr_fn, calls, wall = model_perf.make_sr_fn, {}, {}
-
-    def recording_sr_fn(*args, **kwargs):
-        fn, log_ = make_sr_fn(*args, **kwargs), []
-        calls[args[0]] = log_
-
-        def sr_fn(lst, ndvi):
-            t0 = time.perf_counter()
-            y = fn(lst, ndvi)
-            log_.append((lst.copy(), ndvi.copy(), y, time.perf_counter() - t0))
-            return y
-        return sr_fn
-
+    calls, wall = {}, {}
     sr_types = ("bicubic", "TsHARP", "ATPRK", "AATPRK", "DMS")
     for sr_type in sr_types:
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t = time.perf_counter()
-        model_perf.make_sr_fn = recording_sr_fn
-        try:
-            model_perf.main(base + ["--sr-type", sr_type])
-        finally:
-            model_perf.make_sr_fn = make_sr_fn
-        torch.cuda.synchronize()
-        wall[sr_type] = time.perf_counter() - t
-        launched = {k.__name__: k.launches for k in K.KERNELS if k.launches}
-        df = pd.read_csv(os.path.join(tmp, "results", sr_type, "performances.csv"), index_col=0)
-        pairs_df = df.drop(index=summary_rows)
-        pkls = [f for f in os.listdir(os.path.join(tmp, "results", sr_type))
-                if f.endswith("_dict_pred.pkl")]
-        if (list(df.columns) != list(METRIC_COLUMNS) or list(df.index[-7:]) != summary_rows
-                or len(pairs_df) != n_pairs or len(calls[sr_type]) != n_pairs
-                or len(pkls) != n_pairs or launched
-                or not np.isfinite(pairs_df.to_numpy(float)).all()):
-            raise AssertionError(f"baselines {sr_type}: performances.csv off its layout, a pair "
-                                 f"not scored ({len(calls[sr_type])} sr_fn calls, {len(pkls)} "
-                                 f"pickles), a value not finite or a kernel launched "
-                                 f"({launched}):\n{df}")
+        out = os.path.join(tmp, "results", sr_type)
+        df, wall[sr_type], launches = scored_model_perf_run(
+            torch, base + ["--sr-type", sr_type], out, lambda args, kwargs: args[0], calls,
+            n_pairs, f"baselines {sr_type}")
+        launched = {k: v for k, v in launches.items() if v}
+        pairs_df = df.drop(index=SUMMARY_ROWS)
+        pkls = [f for f in os.listdir(out) if f.endswith("_dict_pred.pkl")]
+        if len(pkls) != n_pairs or launched or not np.isfinite(pairs_df.to_numpy(float)).all():
+            raise AssertionError(f"baselines {sr_type}: {len(pkls)} pickles, a value not "
+                                 f"finite or a kernel launched ({launched}):\n{df}")
         mean = df.loc["mean"]
         log(f"baselines {sr_type}: {wall[sr_type]:.1f} s wall for {len(pairs_df)} scored pairs; "
             f"mean PSNR {mean['PSNR']:.3f} SSIM {mean['SSIM']:.4f} RMSE {mean['RMSE']:.4f} K "
@@ -1757,7 +1759,7 @@ def baselines_phase(torch, dev, granule, card: str, tmp: str, lpips_files: tuple
                               "--device", d])
         spectra_s[d] = time.perf_counter() - t
         scores[d] = {m: pd.read_csv(os.path.join(results, m, "performances.csv"), index_col=0)
-                     .loc[:, ["PFR", "AFR", "FRR", "FRO", "FRU"]].drop(index=summary_rows)
+                     .loc[:, ["PFR", "AFR", "FRR", "FRO", "FRU"]].drop(index=SUMMARY_ROWS)
                      .to_numpy(float) for m in models}
     worst = 0.0
     for m in models:
@@ -1799,9 +1801,17 @@ def baselines_phase(torch, dev, granule, card: str, tmp: str, lpips_files: tuple
                     "sur_refl_b02_1": np.round(900.0 * (1.0 + nd) / (1.0 - nd)).astype(np.int16)},
                    struct_metadata=struct_meta(4 * size, 231.656358), deflate=True)
     pairs_csv = os.path.join(work, "pairs_day.csv")
-    process_modis.main(["--lst-dir", lst_dir, "--nirred-dir", nir_dir,
-                        "--out-lst", os.path.join(work, "LST"),
-                        "--out-ndvi", os.path.join(work, "NDVI"), "--pairs-out", pairs_csv])
+    try:
+        process_modis.main(["--lst-dir", lst_dir, "--nirred-dir", nir_dir,
+                            "--out-lst", os.path.join(work, "LST"),
+                            "--out-ndvi", os.path.join(work, "NDVI"), "--pairs-out", pairs_csv])
+        histogram = "and its georeference histogram"
+    except ImportError as e:
+        # the histogram, drawn after the patches and the CSV are written,
+        # needs matplotlib, as in the JAX package; the card machine has none
+        if e.name != "matplotlib":
+            raise
+        histogram = "(no georeference histogram: matplotlib is not installed)"
     stats_out = os.path.join(work, "statistics.json")
     data_preparation.main(["--pairs", pairs_csv, "--out", os.path.join(work, "ModisDatasetB.csv"),
                            "--statistics-out", stats_out])
@@ -1821,8 +1831,8 @@ def baselines_phase(torch, dev, granule, card: str, tmp: str, lpips_files: tuple
         raise AssertionError("process_modis: the first LST patch is not the granule's")
     shutil.rmtree(work)
     log(f"data tooling: process_modis and data_preparation over a {size}² / {4 * size}² HDF4 "
-        f"pair in {tooling_s:.1f} s: {len(pairs)} pairs, {len(train)} train; the statistics "
-        f"JSON equal to compute_statistics on the written patches")
+        f"pair in {tooling_s:.1f} s: {len(pairs)} pairs {histogram}, {len(train)} train; the "
+        f"statistics JSON equal to compute_statistics on the written patches")
     log(card + ": baselines wall s a model_perf run over " + f"{n_pairs} pairs: "
         + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
         + "; sr_fn ms a pair (mean over pairs 2-" + f"{n_pairs}): "

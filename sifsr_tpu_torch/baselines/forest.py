@@ -59,6 +59,7 @@ import heapq
 import numpy as np
 import torch
 
+from sifsr_tpu_torch.device import resolve_device
 from sifsr_tpu_torch.ops.segments import segment_scan
 
 __all__ = ["bootstrap_counts", "BaggedTrees"]
@@ -281,7 +282,8 @@ def _best_first(trees: _Trees, improvement: torch.Tensor, max_leaf_nodes: int) -
 class BaggedTrees:
     """``BaggingRegressor(n_estimators)`` of regression trees, each with a
     ridge a leaf value when ``leaf_ridge`` (``LeafLinearTreeRegressor``),
-    fitted and applied on ``device``.
+    fitted and applied on ``device`` (the card unless the caller asks for
+    the CPU).
 
     ``min_samples_leaf`` and ``max_leaf_nodes`` are the trees' options
     (``None``: grown until every node stops)."""
@@ -289,14 +291,14 @@ class BaggedTrees:
     def __init__(self, n_estimators: int = 10, leaf_ridge: bool = True,
                  extrapolation_ratio: float = 0.25, min_samples_leaf: int = 1,
                  max_leaf_nodes: int | None = None, random_state=None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.n_estimators = n_estimators
         self.leaf_ridge = leaf_ridge
         self.extrapolation_ratio = extrapolation_ratio
         self.min_samples_leaf = min_samples_leaf
         self.max_leaf_nodes = max_leaf_nodes
         self.random_state = random_state
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def fit(self, x: np.ndarray, y: np.ndarray, sample_weight: np.ndarray) -> "BaggedTrees":
         x = np.asarray(x, np.float64).reshape(len(y), -1)

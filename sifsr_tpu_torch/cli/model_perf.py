@@ -17,10 +17,10 @@ with ``mid='xla'`` and the default ``mid='prow'``, the hand-written
 kernels). The quantised paths calibrate their static scales on the first
 ``--calib-pairs`` usable pairs of the dataset. ``--sr-type bicubic`` is the
 floor method. The classical baselines: ``TsHARP``, ``ATPRK`` and ``AATPRK``
-run on the host in numpy and scipy, on a coarse NDVI pooled by
-``ops.pooling.norm_l4_downsample`` on the CPU; ``DMS`` fits and applies its
-bagged regression trees and its residual correction's bicubic x4 on
-``--device`` (``baselines.forest``), the rest in numpy
+run on the host in numpy and scipy, on a coarse NDVI pooled in numpy with
+the bits of the JAX package's norm-L4 pooling (``_coarse_ndvi``); ``DMS``
+fits and applies its bagged regression trees and its residual correction's
+bicubic x4 on ``--device`` (``baselines.forest``), the rest in numpy
 (``--dms-moving-window`` turns on its moving-window local regressors).
 """
 
@@ -67,6 +67,25 @@ def _load_calibration_pairs(dataset: str, n: int = 32):
     return np.stack(lsts), np.stack(ndvis)
 
 
+def _coarse_ndvi(ndvi: np.ndarray, factor: int = 4) -> np.ndarray:
+    """TsHARP's, ATPRK's and AATPRK's coarse NDVI: the norm-L4 pooling of
+    ``ops.pooling.norm_l4_downsample`` in float32, clipped to [-1, 1], with
+    the bits of ``jnp``'s on XLA:CPU (each block's fourth powers added one at
+    a time in row-major order, each root correctly rounded). AATPRK's
+    windowed regressions carry an ulp of the coarse NDVI past 1e-3 K."""
+    x = np.asarray(ndvi, np.float32)
+    h, w = x.shape
+    x4 = np.square(np.square(x.reshape(h // factor, factor, w // factor, factor)))
+    total = x4[:, 0, :, 0]
+    for i in range(factor):
+        for j in range(factor):
+            if i or j:
+                total = total + x4[:, i, :, j]
+    mean = total / np.float32(factor * factor)
+    root = np.sqrt(np.sqrt(mean.astype(np.float64)).astype(np.float32).astype(np.float64))
+    return np.clip(root.astype(np.float32), -1, 1)
+
+
 def make_sr_fn(sr_type: str, model_dir: str, statistics: str, scale_invariance: bool = False,
                dms_moving_window: int = 0, serving: str = "f32",
                dataset: str | None = None, calib_pairs: int = 32,
@@ -91,16 +110,11 @@ def make_sr_fn(sr_type: str, model_dir: str, statistics: str, scale_invariance: 
         return lambda lst, ndvi: bicubic_sr(lst)
     if sr_type in ("TsHARP", "ATPRK", "AATPRK"):
         from sifsr_tpu_torch.baselines import aatprk, atprk, tsharp
-        from sifsr_tpu_torch.ops.pooling import norm_l4_downsample
-
-        def coarse_ndvi(ndvi):
-            nd = norm_l4_downsample(torch.as_tensor(np.asarray(ndvi, np.float32))[None], 4)
-            return np.clip(nd[0].numpy(), -1, 1)
 
         if sr_type == "TsHARP":
-            return lambda lst, ndvi: tsharp(lst, coarse_ndvi(ndvi), ndvi, 4, min_t=273)
+            return lambda lst, ndvi: tsharp(lst, _coarse_ndvi(ndvi), ndvi, 4, min_t=273)
         method = atprk if sr_type == "ATPRK" else aatprk
-        return lambda lst, ndvi: method(lst, coarse_ndvi(ndvi), ndvi, scale=4, scc=926,
+        return lambda lst, ndvi: method(lst, _coarse_ndvi(ndvi), ndvi, scale=4, scc=926,
                                         block_size=5, min_t=273)
     if sr_type == "DMS":
         from sifsr_tpu_torch.baselines import dms_sharpen

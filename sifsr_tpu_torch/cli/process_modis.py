@@ -15,9 +15,8 @@ inputs are accepted too for pipelines that pre-convert.
 
 Port of ``sifsr_tpu/cli/process_modis.py`` (host numpy, same flags and
 outputs), on the port's ``data.ingest``, ``geo.hdf4`` and ``geo.tiff``. The
-georeference histogram needs matplotlib; where it is not installed (the card
-machine has none) the patches and the CSV are written all the same and the
-histogram is skipped, where the JAX package stops on the import.
+georeference histogram needs matplotlib, imported after the patches and the
+CSV are written, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -140,15 +139,12 @@ def main(argv=None):
     if len(df):
         # georeference-QA histogram (reference process_modis.py:496-503
         # writes pairs_day_error.png next to the pairs CSV)
-        fig_path = os.path.splitext(args.pairs_out)[0] + "_error.png"
-        try:
-            import matplotlib
-        except ImportError:
-            print(f"matplotlib is not installed: no {fig_path}")
-            return
+        import matplotlib
+
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
+        fig_path = os.path.splitext(args.pairs_out)[0] + "_error.png"
         plt.figure(figsize=(10, 7))
         plt.hist(df["georef_error"], bins=50)
         plt.xlabel("|Δx| + |Δy| georeference error (m)")

@@ -19,24 +19,7 @@ def norm_l4_downsample(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
     x = x.reshape(*lead, h // factor, factor, w // factor, factor)
     x4 = x * x
     x4 = x4 * x4
-    # the block's values summed one at a time in row-major order, the order
-    # of jnp.mean on XLA:CPU: the same bits as the JAX package's op, which
-    # the baselines' windowed regressions amplify (cli.model_perf)
-    total = x4[..., 0, :, 0]
-    for i in range(factor):
-        for j in range(factor):
-            if i or j:
-                total = total + x4[..., i, :, j]
-    return _sqrt(_sqrt(total / (factor * factor)))
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded sqrt: a float32 one through float64 (torch's
-    vectorised float32 sqrt on the CPU is off by an ulp on some inputs;
-    rounding the float64 root to float32 is exact for sqrt)."""
-    if x.dtype == torch.float32:
-        return torch.sqrt(x.double()).float()
-    return torch.sqrt(x)
+    return torch.sqrt(torch.sqrt(x4.mean(dim=(-3, -1))))
 
 
 def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -66,6 +66,22 @@ def test_variogram_and_windowed_fit_identical_to_jax(rng):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_coarse_ndvi_equals_jax_pooling(rng, dtype):
+    """make_sr_fn's coarse NDVI for TsHARP, ATPRK and AATPRK: the bits of
+    the JAX package's norm_l4_downsample (jnp, float32) clipped to [-1, 1],
+    over signed values and values past 1."""
+    import jax.numpy as jnp
+
+    from sifsr_tpu.ops.pooling import norm_l4_downsample as jax_pool
+
+    ndvi = rng.uniform(-1.3, 1.3, (256, 256)).astype(dtype)
+    want = np.clip(np.asarray(jax_pool(jnp.asarray(ndvi)[None], 4))[0], -1, 1)
+    got = model_perf._coarse_ndvi(ndvi)
+    assert got.dtype == np.float32 and got.shape == (64, 64)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("sr_type", ["TsHARP", "ATPRK", "AATPRK"])
 def test_make_sr_fn_baselines_match_jax(rng, sr_type):
     """On a 64² / 256² pair in the harness's float32: within 1e-3 K of JAX's

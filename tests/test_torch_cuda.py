@@ -1004,24 +1004,28 @@ def test_attenuation_spectrum_cuda(cuda):
     assert got.shape == want.shape and np.abs(got - want).max() <= 1e-5
 
 
-def _dms_scene(n, seed=3):
+def _dms_scene(n, seed=3, quantised=False):
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:4 * n, 0:4 * n]
     ndvi = (0.3 + 0.25 * np.sin(yy / 9.0) + 0.2 * np.cos(xx / 7.0)
             + 0.05 * rng.standard_normal((4 * n, 4 * n)))
     lst = 310.0 - 18.0 * ndvi + 0.5 * rng.standard_normal(ndvi.shape)
-    return lst.reshape(n, 4, n, 4).mean(axis=(1, 3)).astype(np.float32), ndvi
+    lst = lst.reshape(n, 4, n, 4).mean(axis=(1, 3))
+    if quantised:  # MODIS's 0.02 K steps
+        lst = np.round(lst / 0.02) * 0.02
+    return lst.astype(np.float32), ndvi
 
 
-@pytest.mark.parametrize("n,opts", [(16, {}), (32, {}), (64, {}), (16, {"moving_window_size": 8}),
-                                    (32, {"per_leaf_linear_regression": False})])
-def test_dms_cuda(cuda, n, opts):
+@pytest.mark.parametrize("n,opts,quantised", [
+    (16, {}, False), (32, {}, False), (64, {}, False), (16, {"moving_window_size": 8}, False),
+    (32, {"per_leaf_linear_regression": False}, False), (32, {}, True), (64, {}, True)])
+def test_dms_cuda(cuda, n, opts, quantised):
     """DMS with its bagged trees grown and applied on the card against the
-    same on the CPU: the same trees (segment sums in one order on both),
-    the sharpened LST within 1e-4 K."""
+    same on the CPU, on continuous and on 0.02 K-step LST: the same trees
+    (segment sums in one order on both), the sharpened LST within 1e-4 K."""
     from sifsr_tpu_torch.baselines.dms import DecisionTreeSharpener
 
-    lst, ndvi = _dms_scene(n)
+    lst, ndvi = _dms_scene(n, quantised=quantised)
     mw = opts.get("moving_window_size", 0)
     out = {}
     for dev in (cuda, "cpu"):

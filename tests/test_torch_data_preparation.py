@@ -84,18 +84,22 @@ def test_process_modis_equal_jax(tmp_path, rng, monkeypatch, product, coverage, 
             assert a.geotransform == b.geotransform
 
 
-def test_process_modis_without_matplotlib(tmp_path, rng, monkeypatch, capsys):
-    """Where matplotlib is missing (the card machine), the patches and the
-    pairs CSV are written and the georeference histogram is skipped, said
-    so; the JAX package stops on the import after writing them."""
+def test_process_modis_without_matplotlib(tmp_path, rng, monkeypatch):
+    """Where matplotlib is missing (the card machine), both packages write
+    the patches and the pairs CSV, then stop on the histogram's import."""
     lst_dir, nir_dir = _granules(tmp_path, rng, "MOD21A1D", n_days=1)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setitem(sys.modules, "matplotlib", None)
-    process_modis.main(["--lst-dir", lst_dir, "--nirred-dir", nir_dir, "--out-lst", "o/LST",
-                        "--out-ndvi", "o/NDVI", "--pairs-out", "o/pairs_day.csv"])
-    assert len(pd.read_csv("o/pairs_day.csv", index_col=0)) > 0
-    assert not os.path.exists("o/pairs_day_error.png")
-    assert "matplotlib is not installed" in capsys.readouterr().out
+    out = {}
+    for name, main in (("jax", jax_process.main), ("port", process_modis.main)):
+        with pytest.raises(ImportError, match="matplotlib"):
+            main(["--lst-dir", lst_dir, "--nirred-dir", nir_dir, "--out-lst", f"{name}/LST",
+                  "--out-ndvi", f"{name}/NDVI", "--pairs-out", f"{name}/pairs_day.csv"])
+        out[name] = pd.read_csv(f"{name}/pairs_day.csv", index_col=0)
+        assert len(out[name]) > 0 and all(os.path.exists(p) for p in out[name]["LST"])
+        assert not os.path.exists(f"{name}/pairs_day_error.png")
+    assert [p.replace("port/", "", 1) for p in out["port"]["NDVI"]] == \
+           [p.replace("jax/", "", 1) for p in out["jax"]["NDVI"]]
 
 
 def _pairs_csv(tmp_path, rng, n=40):

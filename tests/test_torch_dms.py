@@ -4,7 +4,9 @@
 
 Every tree has scikit-learn's leaf count and split thresholds, and the
 sharpened LST is within 1e-4 K (the residual correction's float32 bicubic
-of T⁴ residuals is ``ops.resize``'s here and ``jnp``'s there)."""
+of T⁴ residuals is ``ops.resize``'s here and ``jnp``'s there), on
+continuous LST and on LST in MODIS's 0.02 K steps, whose duplicate targets
+tie candidate splits in exact arithmetic."""
 
 import numpy as np
 import pytest
@@ -20,15 +22,19 @@ from sifsr_tpu_torch.baselines.forest import BaggedTrees, bootstrap_counts
 TOL_K = 1e-4
 
 
-def _scene(seed, n):
+def _scene(seed, n, quantised=False):
     """A coarse (n, n) LST and its fine (4n, 4n) NDVI: smooth fields plus
-    noise, anticorrelated, continuous values."""
+    noise, anticorrelated, continuous values; ``quantised`` rounds the LST
+    to MODIS's 0.02 K steps."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:4 * n, 0:4 * n]
     ndvi = (0.3 + 0.25 * np.sin(yy / 9.0) + 0.2 * np.cos(xx / 7.0)
             + 0.05 * rng.standard_normal((4 * n, 4 * n)))
     lst = 310.0 - 18.0 * ndvi + 0.5 * rng.standard_normal(ndvi.shape)
-    return lst.reshape(n, 4, n, 4).mean(axis=(1, 3)).astype(np.float32), ndvi
+    lst = lst.reshape(n, 4, n, 4).mean(axis=(1, 3))
+    if quantised:
+        lst = np.round(lst / 0.02) * 0.02
+    return lst.astype(np.float32), ndvi
 
 
 def _sharpen(cls, ndvi, lst, mw, **kw):
@@ -50,14 +56,18 @@ CASES = {
     "32": dict(n=32, mw=0),
     "16-window8": dict(n=16, mw=8),
     "32-no-leaf-ridge": dict(n=32, mw=0, per_leaf_linear_regression=False),
+    "16-quantised": dict(n=16, mw=0, quantised=True),
+    "32-quantised": dict(n=32, mw=0, quantised=True),
 }
 
 
 @pytest.fixture(scope="module", params=list(CASES))
 def case(request):
     opts = dict(CASES[request.param])
-    n, mw = opts.pop("n"), opts.pop("mw")
-    lst, ndvi = _scene(3, n)
+    n, mw, quantised = opts.pop("n"), opts.pop("mw"), opts.pop("quantised", False)
+    lst, ndvi = _scene(3, n, quantised)
+    if quantised:  # coarse pixels share values: 226 of 256 distinct, 554 of 1024
+        assert np.unique(lst).size < 0.9 * lst.size
     ref, want = _sharpen(JaxSharpener, ndvi, lst, mw, **opts)
     port, got = _sharpen(DecisionTreeSharpener, ndvi, lst, mw, device="cpu", **opts)
     return request.param, ref, want, port, got
@@ -142,7 +152,7 @@ def test_two_features_partition_as_sklearn():
     x, y, w = _two_feature_data()
     ref = ensemble.BaggingRegressor(tree.DecisionTreeRegressor(), n_estimators=10,
                                     random_state=4).fit(x, y, sample_weight=w)
-    port = BaggedTrees(10, leaf_ridge=False, random_state=4).fit(x, y, w)
+    port = BaggedTrees(10, leaf_ridge=False, random_state=4, device="cpu").fit(x, y, w)
     assert port.n_leaves() == [int(e.get_n_leaves()) for e in ref.estimators_]
     values = port.trees_.value[port.trees_.apply(torch.as_tensor(x))].numpy()
     for i, e in enumerate(ref.estimators_):
@@ -154,9 +164,9 @@ def test_duplicate_feature_takes_the_lower_index():
     """A feature that copies another ties it at every split: the port
     splits on feature 0 everywhere, the trees of the one-feature fit."""
     x, y, w = _two_feature_data()
-    one = BaggedTrees(10, leaf_ridge=False, random_state=4).fit(x[:, :1], y, w)
-    two = BaggedTrees(10, leaf_ridge=False, random_state=4).fit(np.repeat(x[:, :1], 2, axis=1),
-                                                                y, w)
+    one = BaggedTrees(10, leaf_ridge=False, random_state=4, device="cpu").fit(x[:, :1], y, w)
+    two = BaggedTrees(10, leaf_ridge=False, random_state=4, device="cpu").fit(
+        np.repeat(x[:, :1], 2, axis=1), y, w)
     inner = ~two.trees_.leaf
     assert (two.trees_.feature[inner] == 0).all()
     assert two.n_leaves() == one.n_leaves()
@@ -172,7 +182,7 @@ def test_two_feature_leaf_ridges_as_sklearn_ridge():
     from sklearn.linear_model import Ridge
 
     x, y, w = _two_feature_data()
-    port = BaggedTrees(3, random_state=4).fit(x, y, w)
+    port = BaggedTrees(3, random_state=4, device="cpu").fit(x, y, w)
     table, first, coef, intercept, lo, hi = port.groups_
     values = port.trees_.value[port.trees_.apply(torch.as_tensor(x))].numpy()
     for t in range(3):
@@ -219,7 +229,7 @@ def test_leaf_refinement_chain_as_sklearn():
         sel = want == v
         want[sel] = np.clip(coef[k] * x[sel] + intercept[k], lo[k], hi[k])
 
-    bt = BaggedTrees(1)
+    bt = BaggedTrees(1, device="cpu")
     d = torch.float64
     bt.groups_ = (torch.tensor(values[None], dtype=d), torch.tensor([0]),
                   torch.tensor(coef[:, None], dtype=d), torch.tensor(intercept, dtype=d),

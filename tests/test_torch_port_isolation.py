@@ -130,11 +130,12 @@ def test_eval_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_baselines_and_spectra_raise_without_cuda(monkeypatch, tmp_path):
-    """DMS (dms_sharpen, its sharpener, the raster workflow, make_sr_fn's
-    DMS) and ``compare_methods spectra`` run on the card unless the caller
-    asks for the CPU; asked for it, they run there."""
+    """DMS (dms_sharpen, its sharpener, its regression forest, the raster
+    workflow, make_sr_fn's DMS) and ``compare_methods spectra`` run on the
+    card unless the caller asks for the CPU; asked for it, they run there."""
     from sifsr_tpu_torch.baselines import DecisionTreeSharpener, dms_sharpen
     from sifsr_tpu_torch.baselines.dms_rasters import sharpen_rasters
+    from sifsr_tpu_torch.baselines.forest import BaggedTrees
     from sifsr_tpu_torch.cli import compare_methods, model_perf
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -145,6 +146,7 @@ def test_baselines_and_spectra_raise_without_cuda(monkeypatch, tmp_path):
     (tmp_path / "bicubic").mkdir()
     for call in (lambda: dms_sharpen(lst, ndvi),
                  lambda: DecisionTreeSharpener(),
+                 lambda: BaggedTrees(),
                  lambda: sharpen_rasters(lst, gt_lr, ndvi, gt_hr),
                  lambda: model_perf.make_sr_fn("DMS", "", ""),
                  lambda: compare_methods.main(["spectra", "--results-dir", str(tmp_path),
@@ -153,6 +155,7 @@ def test_baselines_and_spectra_raise_without_cuda(monkeypatch, tmp_path):
             call()
     assert dms_sharpen(lst, ndvi, device="cpu").shape == (32, 32)
     assert sharpen_rasters(lst, gt_lr, ndvi, gt_hr, device="cpu").shape == (32, 32)
+    assert BaggedTrees(device="cpu").device == torch.device("cpu")
 
 
 _SMOKE_WRITER = """
