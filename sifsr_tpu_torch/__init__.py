@@ -2,7 +2,8 @@
 
 The JAX package ``sifsr_tpu`` is the reference; this package re-implements
 its whole-granule serving path (``cli.predict``, ``cli.serve``, every granule
-mode), its training path (three recipes, one card), its evaluation with the
+mode), its training path (three recipes, the native loader and the
+streaming dataset, data parallelism over ``torch.distributed``), its evaluation with the
 classical baselines (``cli.model_perf``, ``cli.compare_methods``) and its
 data-preparation tools in PyTorch, with every TPU kernel of the repository
 written by hand in CUDA C++ for ``sm_90a`` (``csrc/``, bound through ctypes by

@@ -9,8 +9,9 @@ mirrors the reference __main__ (train_model_B_predef_filters.py:442-514):
 loads the params JSON, refuses to overwrite an existing save dir, trains with
 early stopping, saves weights + params copy + metrics pickle + loss/psnr/ssim
 curve PNGs. --resume picks up from the latest epoch checkpoint under
-``<save_path>/checkpoints``. Not ported yet (ROADMAP.md): --streaming and
---pad-impl fused, which raise ``NotImplementedError``.
+``<save_path>/checkpoints``. --streaming decodes each batch on demand through
+the native thread pool (``StreamingModisDataset``); --pad-impl fused trains
+with the zero-padded convs plus border corrections of ``models.unet``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import sys
 from argparse import ArgumentParser
 
 from sifsr_tpu_torch.config import load_params_json
-from sifsr_tpu_torch.data.datasets import ModisDataset
+from sifsr_tpu_torch.data.datasets import ModisDataset, StreamingModisDataset
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import resolve_device
 from sifsr_tpu_torch.train.checkpoint import save_final
@@ -69,12 +70,15 @@ def main(argv=None):
     parser.add_argument("--statistics", type=str, default="data/statistics.json")
     parser.add_argument("--csv", type=str, default="data/ModisDatasetB.csv")
     parser.add_argument("--streaming", action="store_true",
-                        help="decode batches on demand instead of materialising the "
-                             "dataset up front (not ported yet)")
+                        help="decode batches on demand through the native thread pool "
+                             "with prefetch (for corpora larger than host RAM) instead "
+                             "of materialising the dataset up front")
     parser.add_argument("--pad-impl", type=str, default="explicit",
                         choices=["explicit", "fused"],
-                        help="conv padding implementation; 'fused' is a TPU "
-                             "memory-traffic variant (not ported)")
+                        help="conv padding implementation: 'fused' is a zero-padded conv "
+                             "plus border-ring corrections, without the padded copy of "
+                             "each conv input (border pixels differ from 'explicit' by "
+                             "float summation order)")
     parser.add_argument("--remat", action="store_true",
                         help="rematerialise the model block by block in the backward "
                              "pass (torch.utils.checkpoint): same numerics, about one "
@@ -84,19 +88,13 @@ def main(argv=None):
                              "kernels' plain PyTorch versions)")
     args = parser.parse_args(argv)
 
-    if args.streaming:
-        raise NotImplementedError(
-            "--streaming (StreamingModisDataset and the native loader) is not ported "
-            "yet: see ROADMAP.md")
-    if args.pad_impl != "explicit":
-        raise NotImplementedError(
-            f"--pad-impl {args.pad_impl} is not ported (a TPU memory-traffic variant): "
-            "see ROADMAP.md")
     device = resolve_device(args.device)
 
     config = load_params_json(args.params, recipe=args.recipe)
     if args.remat:
         config = dataclasses.replace(config, remat=True)
+    if args.pad_impl != "explicit":
+        config = dataclasses.replace(config, pad_impl=args.pad_impl)
     stats = Statistics.from_json(args.statistics)
 
     save_path = config.save.save_path
@@ -106,10 +104,11 @@ def main(argv=None):
         sys.exit(0)
 
     print("Loading the ModisDataset...")
-    train_ds = ModisDataset(args.csv, stats, split="Train",
-                            time=config.dataset.time, transf=config.dataset.transf)
-    val_ds = ModisDataset(args.csv, stats, split="Val",
-                          time=config.dataset.time, transf=config.dataset.transf)
+    ds_cls = StreamingModisDataset if args.streaming else ModisDataset
+    train_ds = ds_cls(args.csv, stats, split="Train",
+                      time=config.dataset.time, transf=config.dataset.transf)
+    val_ds = ds_cls(args.csv, stats, split="Val",
+                    time=config.dataset.time, transf=config.dataset.transf)
     print(f"train={len(train_ds)} val={len(val_ds)}")
 
     ckpt_dir = os.path.join(save_path, "checkpoints") if args.resume else None

@@ -60,8 +60,9 @@ class TrainConfig:
     save: SaveConfig = SaveConfig()
     recipe: str = "predef_filters"  # 'predef_filters' | 'gradftm' | 'scale_invariance'
     seed: int = 0
-    # data-parallel replicas; accepted for schema parity with the JAX package,
-    # the port trains on one card until torch.distributed lands (ROADMAP.md)
+    # data-parallel replicas (0 = all), as in the JAX package, whose
+    # train_loop does not read it either: a data-parallel run builds its
+    # group with parallel.make_mesh(n_devices) and passes it to the steps
     n_devices: int = 0
     # conv/matmul precision: 'highest' = full float32 (TF32 off for cuDNN and
     # matmul, torch-reference parity); 'default' = whatever the process's
@@ -72,9 +73,9 @@ class TrainConfig:
     # per-step on-device PSNR/SSIM (the reference computes them per batch)
     step_metrics: bool = True
     # conv padding implementation: 'explicit' = the replicate-padded conv
-    # (reference parity). The 'fused' variant (a zero-padded conv plus border
-    # corrections) is ported for the serving model only (models/fused.py);
-    # training with it is queued in ROADMAP.md.
+    # (reference parity); 'fused' = a zero-padded conv plus border-ring
+    # corrections, without the padded copy of each conv input (border pixels
+    # differ by float summation order; models.unet.replicate_conv_fused)
     pad_impl: str = "explicit"
     # rematerialise the model block by block in the backward pass
     # (torch.utils.checkpoint): only the blocks' inputs are held across it,

@@ -1,9 +1,10 @@
 """Host data pipeline of the port: normalisation statistics, manifests,
-batch iterators."""
+batch iterators, the native raster loader."""
 
 from sifsr_tpu_torch.data.datasets import (
     ArrayDataset,
     ModisDataset,
+    StreamingModisDataset,
     degrade_batch_scale_invariance,
     denormalize,
     make_synthetic_dataset,
@@ -12,6 +13,7 @@ from sifsr_tpu_torch.data.datasets import (
 )
 from sifsr_tpu_torch.data.statistics import Statistics, compute_statistics
 
-__all__ = ["Statistics", "compute_statistics", "ArrayDataset", "ModisDataset", "normalize",
+__all__ = ["Statistics", "compute_statistics", "ArrayDataset", "ModisDataset",
+           "StreamingModisDataset", "normalize",
            "denormalize", "prepare_batch", "degrade_batch_scale_invariance",
            "make_synthetic_dataset"]

@@ -15,9 +15,11 @@ torch Datasets, by design:
 The manifest CSV format is the reference's ModisDatasetB.csv: columns
 (index, LST, NDVI, split) where LST/NDVI are GeoTIFF paths and split is
 Train/Val/Test; time-of-day filtering matches the reference's filename
-substring test (dataset.py:74-79). GeoTIFFs are decoded by the numpy-only
-reader of ``geo/tiff.py``; the JAX package's native multithreaded loader and
-its ``StreamingModisDataset`` are not ported yet (ROADMAP.md).
+substring test (dataset.py:74-79). GeoTIFFs are decoded by the native
+thread pool of ``data/native_loader.py`` where it is built, else by the
+numpy-only reader of ``geo/tiff.py``. ``StreamingModisDataset`` keeps only
+the manifest's paths and decodes each batch on demand, one batch ahead of
+the consumer on a background thread.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
+from sifsr_tpu_torch.data.native_loader import _read_band1, load_batch, native_available
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import resolve_device
 from sifsr_tpu_torch.geo.tiff import read_geotiff
@@ -39,6 +42,7 @@ __all__ = [
     "denormalize",
     "ArrayDataset",
     "ModisDataset",
+    "StreamingModisDataset",
     "prepare_batch",
     "degrade_batch_scale_invariance",
     "make_synthetic_dataset",
@@ -104,14 +108,20 @@ class ArrayDataset:
         return -(-len(self) // batch_size)
 
 
-def _read_band1(path: str) -> np.ndarray:
-    """Single-raster read with a clear error for multi-band inputs
-    (geo/tiff.py returns (H, W, S) for those; training batches are
-    single-band by contract)."""
-    arr = read_geotiff(path).array
-    if arr.ndim != 2:
-        raise ValueError(f"{path}: expected a single-band raster, got {arr.shape[-1]} bands")
-    return arr.astype(np.float32)
+def _read_manifest(csv_path: str, split: str, time: str) -> tuple[list[str], list[str]]:
+    """The LST and NDVI paths of one split, filtered by time of day."""
+    import csv as csv_mod
+
+    lst_paths, ndvi_paths = [], []
+    with open(csv_path, newline="") as f:
+        for row in csv_mod.DictReader(f):
+            if row.get("split") != split:
+                continue
+            if time != "Both" and time not in row["LST"]:
+                continue
+            lst_paths.append(row["LST"])
+            ndvi_paths.append(row["NDVI"])
+    return lst_paths, ndvi_paths
 
 
 class ModisDataset(ArrayDataset):
@@ -125,21 +135,17 @@ class ModisDataset(ArrayDataset):
         time: str = "Both",
         transf: str = "norm",
     ):
-        import csv as csv_mod
-
-        lst_paths, ndvi_paths = [], []
-        with open(csv_path, newline="") as f:
-            reader = csv_mod.DictReader(f)
-            for row in reader:
-                if row.get("split") != split:
-                    continue
-                if time != "Both" and time not in row["LST"]:
-                    continue
-                lst_paths.append(row["LST"])
-                ndvi_paths.append(row["NDVI"])
-
-        lst = np.stack([_read_band1(p) for p in lst_paths]) if lst_paths else np.zeros((0, 64, 64), np.float32)
-        ndvi = np.stack([_read_band1(p) for p in ndvi_paths]) if ndvi_paths else np.zeros((0, 256, 256), np.float32)
+        lst_paths, ndvi_paths = _read_manifest(csv_path, split, time)
+        # decode through the native thread pool where it is built, else the
+        # pure-Python reader
+        if lst_paths and native_available():
+            lst = load_batch(lst_paths, 64, 64)
+            ndvi = load_batch(ndvi_paths, 256, 256)
+        else:
+            lst = (np.stack([_read_band1(p) for p in lst_paths]) if lst_paths
+                   else np.zeros((0, 64, 64), np.float32))
+            ndvi = (np.stack([_read_band1(p) for p in ndvi_paths]) if ndvi_paths
+                    else np.zeros((0, 256, 256), np.float32))
         lst, ndvi = normalize(lst.astype(np.float32), ndvi.astype(np.float32), stats, transf)
         super().__init__(lst, ndvi, stats)
         self.paths = list(zip(lst_paths, ndvi_paths))
@@ -223,3 +229,107 @@ def make_synthetic_dataset(
 
     lst, ndvi = normalize(np.stack(lst_list), np.stack(ndvi_list), stats, "norm")
     return ArrayDataset(lst, ndvi, stats)
+
+
+class StreamingModisDataset:
+    """Out-of-core manifest dataset: per-batch decode through the native
+    thread pool with background prefetch.
+
+    ModisDataset materialises every patch at construction, which suits the
+    reference-sized corpora (a few GB) but not a manifest larger than host
+    RAM. This variant keeps only the path lists and decodes each shuffled
+    batch on demand in the native loader's pthread pool, one batch ahead of
+    the consumer on a background thread, so that decode overlaps the device's
+    work.
+
+    Same iteration contract as ArrayDataset.batches (shuffled per seed,
+    drop_remainder, {'lst','ndvi'} NHWC numpy dicts): ``train.loop`` takes it
+    unchanged.
+    """
+
+    def __init__(self, csv_path: str, stats: Statistics, split: str = "Train",
+                 time: str = "Both", transf: str = "norm",
+                 n_threads: int = 8, prefetch: int = 2):
+        self.lst_paths, self.ndvi_paths = _read_manifest(csv_path, split, time)
+        self.stats = stats
+        self.transf = transf
+        self.n_threads = n_threads
+        self.prefetch = max(1, prefetch)
+
+    def __len__(self) -> int:
+        return len(self.lst_paths)
+
+    def n_batches(self, batch_size: int, drop_remainder: bool = True) -> int:
+        if drop_remainder:
+            return len(self) // batch_size
+        return -(-len(self) // batch_size)
+
+    def _decode(self, idx: np.ndarray) -> dict:
+        lp = [self.lst_paths[i] for i in idx]
+        np_ = [self.ndvi_paths[i] for i in idx]
+        if native_available():
+            lst = load_batch(lp, 64, 64, n_threads=self.n_threads)
+            ndvi = load_batch(np_, 256, 256, n_threads=self.n_threads)
+        else:
+            lst = np.stack([read_geotiff(p).array for p in lp])
+            ndvi = np.stack([read_geotiff(p).array for p in np_])
+        lst, ndvi = normalize(lst.astype(np.float32), ndvi.astype(np.float32),
+                              self.stats, self.transf)
+        return {"lst": lst[..., None], "ndvi": ndvi[..., None]}
+
+    def batches(self, batch_size: int, seed: int | None = None,
+                drop_remainder: bool = True) -> Iterator[dict]:
+        import queue
+        import threading
+
+        order = np.arange(len(self))
+        if seed is not None:
+            np.random.default_rng(seed).shuffle(order)
+        stop = len(self) - batch_size + 1 if drop_remainder else len(self)
+        starts = list(range(0, max(stop, 0), batch_size))
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        stop_event = threading.Event()
+
+        def put(item) -> bool:
+            """Bounded put that gives up when the consumer is gone."""
+            while not stop_event.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for s0 in starts:
+                    if stop_event.is_set():
+                        return
+                    if not put(self._decode(order[s0 : s0 + batch_size])):
+                        return
+            except Exception as exc:  # a decode error is raised in the consumer
+                put(exc)
+            put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            # the consumer left the epoch (break, exception, close): unblock
+            # and retire the producer instead of leaving it on a full queue
+            stop_event.set()
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5.0)

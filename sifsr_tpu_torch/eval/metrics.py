@@ -45,10 +45,13 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: torch.Tensor) -> 
     return 10.0 * torch.log10(torch.square(data_range) / mse)
 
 
-def psnr_batch_mean(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def psnr_batch_mean(pred: torch.Tensor, target: torch.Tensor,
+                    data_range: torch.Tensor | None = None) -> torch.Tensor:
     """Mean per-image PSNR over an (N, H, W) batch with the reference's
-    batch-wide data_range convention (utils.py:548-552)."""
-    data_range = target.max() - target.min()
+    batch-wide data_range convention (utils.py:548-552); a data-parallel
+    step passes the global batch's range."""
+    if data_range is None:
+        data_range = target.max() - target.min()
     mse = torch.mean(torch.square(target - pred), dim=(-2, -1))
     return torch.mean(10.0 * torch.log10(torch.square(data_range) / mse))
 
@@ -86,10 +89,12 @@ def ssim(
     return ssim_map.mean(dim=(-2, -1))
 
 
-def ssim_batch_mean(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def ssim_batch_mean(pred: torch.Tensor, target: torch.Tensor,
+                    data_range: torch.Tensor | None = None) -> torch.Tensor:
     """Mean SSIM over an (N, H, W) batch, batch-wide data_range
-    (utils.py:554-578)."""
-    data_range = target.max() - target.min()
+    (utils.py:554-578; a data-parallel step passes the global batch's)."""
+    if data_range is None:
+        data_range = target.max() - target.min()
     return ssim(pred, target, data_range).mean()
 
 

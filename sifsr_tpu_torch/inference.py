@@ -23,7 +23,9 @@ process and picks the mode its model of the two walls favours.
 
 ``coverage`` reproduces the reference's (vacuous) cloud/sea skip test by
 default (1.0); invalid blocks still run through the batch and are zeroed in
-the mosaic. Not ported yet (ROADMAP): the ``mesh`` data-parallel path.
+the mosaic. ``mesh`` (a ``parallel.Mesh``) splits every batch over a
+data-parallel group, one process per device, each rank assembling the whole
+mosaic.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import full_f32_convs, resolve_device
 from sifsr_tpu_torch.models.fused import InferenceModelB2
 from sifsr_tpu_torch.ops.resize import upsample_bicubic
+from sifsr_tpu_torch.parallel.mesh import gather_rows
 
 __all__ = ["tile_granule", "untile_mosaic", "make_sr_step", "predict_granule", "encode_wire",
            "probe_link", "choose_granule_mode", "WIRE_LST_STEP", "WIRE_NDVI_STEP"]
@@ -385,6 +388,7 @@ def predict_granule(
     pad_impl: str | None = None,
     mode: str | None = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> np.ndarray:
     """SR a whole granule; returns the (factor·H, factor·W) Kelvin mosaic.
 
@@ -421,8 +425,16 @@ def predict_granule(
     the step once per process (``probe_link``, one timed step) and picks the
     mode ``choose_granule_mode`` favours; the decision goes to stderr. wire
     stays an explicit knob under 'auto'.
+
+    mesh: a ``parallel.Mesh``; every rank of its group calls predict_granule
+    on the same granule. Each batch (the tail zero-padded to ``batch_size``,
+    which must split evenly over the group) is split across the group's
+    devices: each rank uploads and runs its rows on ``mesh.device``, and the
+    rows are gathered so that every rank assembles the whole mosaic. Not
+    combined with ``wire='int'`` or ``device_tiling`` (``ValueError``), as in
+    the JAX package; ``device`` is then ``mesh.device``.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     fwin = window * factor
     if sr_step is None:
         sr_step = make_sr_step(stats, compute_dtype, dev, pad_impl)
@@ -448,12 +460,25 @@ def predict_granule(
     if wire not in (None, "int"):
         raise ValueError(f"wire must be None or 'int', got {wire!r}")
     if wire == "int":
+        if mesh is not None:
+            raise ValueError("wire='int' is a single-device transfer optimisation; "
+                             "use wire=None with mesh")
         lst_granule, ndvi_granule = encode_wire(lst_granule, ndvi_granule)
         batch_step, decode_out = _wire_step(sr_step, dev), _decode_wire_out
     else:
         lst_granule = np.asarray(lst_granule, np.float32)
         ndvi_granule = np.asarray(ndvi_granule, np.float32)
         batch_step, decode_out = sr_step, np.asarray
+    rows = slice(0, batch_size)
+    if mesh is not None:
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} does not split over {mesh.size} devices")
+        shard = batch_size // mesh.size
+        rows = slice(mesh.rank * shard, (mesh.rank + 1) * shard)
+        local_step = batch_step
+
+        def batch_step(params, lst_b, ndvi_b):  # noqa: F811: this rank's rows in, all out
+            return gather_rows(local_step(params, lst_b, ndvi_b), mesh)
 
     def run_batches(lst_blocks, ndvi_blocks, n, consume):
         pipe = _Pipeline(dev, pipeline_depth,
@@ -466,10 +491,13 @@ def predict_granule(
             if pad:
                 lst_b = np.concatenate([lst_b, np.zeros((pad, window, window), lst_b.dtype)])
                 ndvi_b = np.concatenate([ndvi_b, np.zeros((pad, fwin, fwin), ndvi_b.dtype)])
-            pipe.submit(start, stop, batch_step, step_params, lst_b, ndvi_b)
+            pipe.submit(start, stop, batch_step, step_params, lst_b[rows], ndvi_b[rows])
         pipe.finish()
 
     if device_tiling:
+        if mesh is not None:
+            raise ValueError("device_tiling targets single-device serving; use the host "
+                             "pipeline (device_tiling=False) with mesh")
         if overlap != 0:
             raise ValueError("device_tiling does not implement overlap blending; "
                              "use the host pipeline (device_tiling=False) with overlap")

@@ -16,9 +16,10 @@ SC-Unet (train_model_B_scale_invariance.py:88-103):
 All functions take NHWC batches with a single channel and are differentiable
 end to end; the PSF downscale and low-pass enter as precomputed per-axis
 matrices (``ops.psf``), and on a CUDA tensor the ds-loss degradation runs
-as the fused kernel of ``kernels/fused_ops.py``. The JAX package's
-``mesh``/``axis_name`` arguments (the kernel under ``shard_map``) wait for
-the port's data parallelism (ROADMAP.md).
+as the fused kernel of ``kernels/fused_ops.py``. Under a data-parallel
+group (``mesh``, ``parallel.make_mesh``) each rank runs that kernel on its
+own shard and ``ds_loss`` returns the global batch's loss, as the JAX
+package's does with the kernel under ``shard_map``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from sifsr_tpu_torch.kernels.fused_ops import fused_psf_downscale
 from sifsr_tpu_torch.ops.filters import directional_gradients
 from sifsr_tpu_torch.ops.psf import downscale_lst_sr_to_lr, lowpass_ftm
+from sifsr_tpu_torch.parallel.mesh import global_mean
 
 __all__ = [
     "huber",
@@ -65,6 +67,8 @@ def ds_loss(
     factor: int = 4,
     mtf: float = 0.1,
     use_pallas: bool | None = None,
+    mesh=None,
+    axis_name: str = "data",
 ) -> torch.Tensor:
     """Reconstruction loss: un-normalise the SR patch, degrade it through the
     sensor PSF model back to input resolution, re-normalise, Huber vs the
@@ -74,17 +78,24 @@ def ds_loss(
     None means the kernel for a CUDA tensor and the per-axis matmul chain
     for a CPU tensor; True goes through the kernel's wrapper (whose plain
     version runs on a CPU tensor); False is the matmul chain everywhere.
+
+    ``mesh``: a ``parallel.Mesh``. ``sr`` and ``lst`` are this rank's shard
+    of the global batch: the degradation is per image, so each rank runs it
+    on its shard, and the returned loss is the global batch's (the mean of
+    the ranks' losses over equal shards, through a differentiable
+    all-reduce). ``axis_name`` is the mesh's one axis, kept for the JAX
+    package's signature.
     """
     if use_pallas is None:
         use_pallas = sr.is_cuda
     if use_pallas:
         down = fused_psf_downscale(sr[..., 0], float(mean_lst), float(std_lst),
                                    factor=factor, mtf=mtf)[..., None]
-        return huber(down, lst)
+        return global_mean(huber(down, lst), mesh)
     sr_unnorm = sr * std_lst + mean_lst
     down = downscale_lst_sr_to_lr(_nhwc_to_nchw(sr_unnorm), factor=factor, mtf=mtf)
     down = (down - mean_lst) / std_lst
-    return huber(_nchw_to_nhwc(down), lst)
+    return global_mean(huber(_nchw_to_nhwc(down), lst), mesh)
 
 
 def percep_loss_predef(sr: torch.Tensor, ndvi: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -111,8 +122,9 @@ def sif_loss_predef(
     gamma: float,
     mean_lst: float,
     std_lst: float,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
-    dsl = ds_loss(sr, lst, mean_lst, std_lst)
+    dsl = ds_loss(sr, lst, mean_lst, std_lst, mesh=mesh)
     pl = percep_loss_predef(sr, ndvi, gamma)
     total = alpha * dsl + (1.0 - alpha) * pl
     return total, {"ds_loss": dsl, "percep_loss": pl}
@@ -126,8 +138,9 @@ def sif_loss_gradftm(
     gamma: float,
     mean_lst: float,
     std_lst: float,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict]:
-    dsl = ds_loss(sr, lst, mean_lst, std_lst)
+    dsl = ds_loss(sr, lst, mean_lst, std_lst, mesh=mesh)
     pl = percep_loss_gradftm(sr, ndvi, gamma)
     total = alpha * dsl + (1.0 - alpha) * pl
     return total, {"ds_loss": dsl, "percep_loss": pl}

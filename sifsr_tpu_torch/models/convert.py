@@ -13,6 +13,10 @@ running_mean/running_var``, under the reference torch model's key names, so
 the result loads into ``models.unet.ModelB2`` with ``strict=True`` (as does a
 reference ``modelB_state_dict.pt``). ``to_jax_variables`` is its inverse, so
 that trained parameters and BatchNorm statistics compare tree against tree.
+Both carry the ConvTranspose decoder's ``ub*.up`` (``bilinear=False``): flax's
+``ConvTranspose`` kernel (kh, kw, in, out) is the spatially flipped torch
+``ConvTranspose2d`` weight (in, out, kh, kw) (``sifsr_tpu/models/convert.py:
+96-100``), so the map flips as it transposes.
 
 ``from_jax_vgg16`` and ``to_jax_vgg16`` do the same for the LPIPS trunk: the
 flax ``VGG16Features`` tree (``conv1_1`` .. ``conv5_3``, HWIO kernels) and
@@ -175,10 +179,16 @@ def from_jax_variables(variables: dict) -> "OrderedDict[str, torch.Tensor]":
                                 stats[name]["lastbn"]))
     conv("outlay.weight", params["outlay"]["kernel"])
     flat["outlay.bias"] = params["outlay"]["bias"]
+    for name in ("ub1", "ub2", "ub3"):
+        if "up" in params[name]:
+            up = params[name]["up"]
+            flat[f"{name}.up.weight"] = np.asarray(up["kernel"], np.float32)[::-1, ::-1].transpose(
+                2, 3, 0, 1)   # flipped (kh, kw, in, out) -> (in, out, kh, kw)
+            flat[f"{name}.up.bias"] = up["bias"]
 
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for key, value in flat.items():
-        out[key] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+        out[key] = torch.from_numpy(np.array(value, np.float32, order="C"))   # a copy
         if key.endswith(".running_var"):
             out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return out
@@ -218,6 +228,12 @@ def to_jax_variables(state_dict) -> dict:
         params[name]["lastconv"] = {"kernel": kernel(f"{name}.lastconv.0.weight")}
         params[name]["lastbn"], stats[name]["lastbn"] = bn(f"{name}.lastconv.1")
     params["outlay"] = {"kernel": kernel("outlay.weight"), "bias": arr("outlay.bias")}
+    for name in ("ub1", "ub2", "ub3"):
+        if f"{name}.up.weight" in state_dict:
+            params[name]["up"] = {
+                "kernel": np.ascontiguousarray(
+                    arr(f"{name}.up.weight").transpose(2, 3, 0, 1)[::-1, ::-1]),
+                "bias": arr(f"{name}.up.bias")}
     return {"params": params, "batch_stats": stats}
 
 

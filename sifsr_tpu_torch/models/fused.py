@@ -12,19 +12,18 @@ layout the int8 builders and the tests read), and ``InferenceModelB2`` is the
 U-Net with one biased conv per layer (conv -> bias -> ReLU) built from it.
 
 ``pad_impl`` picks how a layer pads: 'explicit' materialises the replicate
-pad (``nn.Conv2d(padding_mode='replicate')``); 'fused' is the port of
-``models/unet.py::_replicate_conv_fused``, a zero-padded conv plus O(H+W)
-corrections of the border ring, which differs from 'explicit' only by the
-float summation order at border pixels.
+pad (``nn.Conv2d(padding_mode='replicate')``); 'fused' is
+``models.unet.replicate_conv_fused`` (the training model's fused route), a
+zero-padded conv plus O(H+W) corrections of the border ring, which differs
+from 'explicit' only by the float summation order at border pixels.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from sifsr_tpu_torch.models.unet import DOWNCHANNELS, Conv3x3
+from sifsr_tpu_torch.models.unet import DOWNCHANNELS, Conv3x3, replicate_conv_fused
 from sifsr_tpu_torch.ops.resize import _matrix, upsample_bilinear_x2
 
 __all__ = ["InferenceModelB2", "fold_batchnorm", "upsample_bilinear_x2_nhwc",
@@ -72,31 +71,6 @@ def fold_batchnorm(state_dict: dict) -> dict:
     out["outlay"] = {"conv": {"kernel": sd["outlay.weight"].permute(2, 3, 1, 0).contiguous(),
                               "bias": sd["outlay.bias"]}}
     return out
-
-
-def replicate_conv_fused(x: torch.Tensor, weight: torch.Tensor,
-                         bias: torch.Tensor | None = None) -> torch.Tensor:
-    """3x3 replicate-pad conv of NCHW x with OIHW weight without the padded
-    copy of the input: the interior comes from a zero-padded conv, and the
-    border ring, where zero and replicate padding differ, gets the taps the
-    zero pad dropped back from the clamped edge rows and columns (each a 1-D
-    conv of one line), less the four corner taps that a row and a column
-    correction both added. Interior pixels are the explicit conv's; border
-    pixels take the missing taps in a second addition (~1 ulp)."""
-    out = F.conv2d(x, weight, None, padding=1)
-
-    def line(edge, w1d, along_w):
-        pad = (1, 1, 0, 0) if along_w else (0, 0, 1, 1)
-        return F.conv2d(F.pad(edge, pad, mode="replicate"), w1d)
-
-    out[:, :, :1] += line(x[:, :, :1], weight[:, :, 0:1, :], True)      # row -1
-    out[:, :, -1:] += line(x[:, :, -1:], weight[:, :, 2:3, :], True)    # row H
-    out[:, :, :, :1] += line(x[:, :, :, :1], weight[:, :, :, 0:1], False)   # column -1
-    out[:, :, :, -1:] += line(x[:, :, :, -1:], weight[:, :, :, 2:3], False)  # column W
-    for (y, xx), (ky, kx) in (((0, 0), (0, 0)), ((0, -1), (0, 2)), ((-1, 0), (2, 0)),
-                              ((-1, -1), (2, 2))):
-        out[:, :, y, xx] -= x[:, :, y, xx] @ weight[:, :, ky, kx].t()
-    return out if bias is None else out + bias[None, :, None, None]
 
 
 class _FusedConv(nn.Module):
@@ -151,9 +125,7 @@ class InferenceModelB2(nn.Module):
     """BN-folded ModelB2 for serving: NHWC (N, H, W, 2) -> (N, H, W, 1).
     Submodule names follow the folded tree (``db1.res.conv1.conv`` ...).
     ``forward``'s pad_impl is 'explicit' or 'fused' (see the module
-    docstring; ``inference.make_sr_step`` validates and chooses it). The
-    fused form updates its conv outputs in place: it is for inference (no
-    autograd)."""
+    docstring; ``inference.make_sr_step`` validates and chooses it)."""
 
     def __init__(self):
         super().__init__()

@@ -31,14 +31,16 @@ class SifTrainState:
 
 
 def _init_parameters(model: ModelB2, generator: torch.Generator) -> None:
-    """Fresh initialisation as the JAX model's: conv kernels LeCun-normal
-    (a normal of variance 1/fan_in truncated at two standard deviations),
+    """Fresh initialisation as the JAX model's: conv kernels, and the
+    transposed convs of the ConvTranspose decoder, LeCun-normal (a normal of
+    variance 1/fan_in, fan_in = input channels x kernel taps, truncated at
+    two standard deviations),
     biases zero, BatchNorm scale one and shift zero, running statistics
     (0, 1). Drawn on the CPU from ``generator``, so that a seed gives the
     same weights whatever device trains them; the draws differ from JAX's."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, torch.nn.Conv2d):
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
                 fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
                 # 0.8796...: the standard deviation of a unit normal truncated at +-2
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978

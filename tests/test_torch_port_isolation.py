@@ -22,6 +22,10 @@ bad = sorted(k for k in sys.modules
                                     "sklearn", "matplotlib"))
 print(len([k for k in sys.modules if k.startswith("sifsr_tpu_torch")]))
 print(bad)
+print(all(m in sys.modules for m in ("sifsr_tpu_torch.data.native_loader",
+                                     "sifsr_tpu_torch.data.datasets",
+                                     "sifsr_tpu_torch.parallel",
+                                     "sifsr_tpu_torch.parallel.mesh")))
 """
 
 
@@ -29,9 +33,10 @@ def test_port_imports_no_jax_and_no_sifsr_tpu():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
-    n_modules, bad = out.stdout.strip().splitlines()
-    assert int(n_modules) >= 67
+    n_modules, bad, new_modules = out.stdout.strip().splitlines()
+    assert int(n_modules) >= 70
     assert bad == "[]", bad
+    assert new_modules == "True"
 
 
 def test_cuda_default_entry_points_raise_without_cuda(monkeypatch):
@@ -50,6 +55,12 @@ def test_cuda_default_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         predict_granule({}, np.zeros((64, 64), np.float32), np.zeros((256, 256), np.float32),
                         stats)
+    from sifsr_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(group=None, rank=0, size=1, device=torch.device("cuda", 0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        predict_granule({}, np.zeros((64, 64), np.float32), np.zeros((256, 256), np.float32),
+                        stats, mesh=mesh)
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
@@ -81,6 +92,9 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         degrade_batch_scale_invariance(batch, 295.0, 10.0)
     with pytest.raises(RuntimeError, match="cuda"):
         cli_train.main(["--params", os.path.join(ROOT, "paramsB.json")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_train.main(["--params", os.path.join(ROOT, "paramsB.json"), "--streaming",
+                        "--pad-impl", "fused"])
     # asked for the CPU, the same entry points run: a step follows the
     # device of the state it is given
     state, metrics = train_loop(config, ds, ds, log_fn=lambda s: None, device="cpu")

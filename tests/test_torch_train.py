@@ -21,7 +21,6 @@ from sifsr_tpu.train.state import create_train_state as jax_create_train_state
 from sifsr_tpu.train.step import make_eval_step as jax_make_eval_step
 from sifsr_tpu.train.step import make_train_step as jax_make_train_step
 
-from sifsr_tpu_torch.cli import train as cli_train
 from sifsr_tpu_torch.cli.predict import load_variables
 from sifsr_tpu_torch.data import make_synthetic_dataset
 from sifsr_tpu_torch.data.datasets import prepare_batch
@@ -254,15 +253,7 @@ def test_remat_step_identical():
         assert torch.equal(s0[k], s1[k]), k
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="pad_impl"):
-        ModelB2(pad_impl="fused")
-    with pytest.raises(NotImplementedError, match="ConvTranspose"):
-        ModelB2(bilinear=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_train.main(["--streaming", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_train.main(["--pad-impl", "fused", "--device", "cpu"])
+def test_unknown_recipe_raises():
     with pytest.raises(ValueError, match="recipe"):
         make_train_step(ModelB2(), "sr3", ALPHA, GAMMA, MEAN, STD)
 
