@@ -154,7 +154,18 @@ Phases, each of which raises on failure (no result line is printed then):
    other and against the single-process step on all 32 (metrics within
    1e-6 relative, 1e-5 for PSNR/SSIM; ``step_diffs_ok``), and
    ``predict_granule(mesh=...)`` with the prow step on phase 5's granule,
-   its mosaic identical to phase 5's.
+   its mosaic identical to phase 5's;
+12. the packed comparison steps (``packed_phase``) on phase 5's granule at
+   batch 324 through ``predict_granule``: ``make_packed_sr_step`` in
+   float32 (within rtol 1e-4 / atol 5e-3 K of phase 5's float32 mosaic) and
+   bf16 (RMSE 0.1 K / max 0.5 K), no hand-written kernel launched;
+   ``make_int8_packed_sr_step`` calibrated by ``calibrate_packed_scales`` on
+   the granule's first 8 fully valid blocks (RMSE 0.3 K / max 1 K, inside
+   250-350 K; conv_i8_generic exactly 18 a batch, no other kernel; within 3
+   int8 quanta of the outlay's input of phase 5's --int8 mosaic, whose convs
+   it runs); ``upsample_bilinear_x2_nhwc_hp`` at (324,128,128,16) card vs CPU within
+   1e-6; the step ms of the three beside the prow and --int8 steps, two
+   turns, with conv TFLOP/s from ``utils.flops.modelb2_conv_flops``.
 
 The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero
@@ -971,6 +982,7 @@ def main(profile: bool = False) -> None:
     if not d.max() < 0.5:
         raise AssertionError(f"the vpu mosaic is {d.max()} K off the mxu mosaic")
     prow_digest = digest(prow_mosaic)
+    int8_mosaic = mosaics["int8"]          # phase 12 holds the packed int8 mosaic to it
     del mosaics, prow_mosaic
 
     # device time of one serving batch for each step
@@ -1009,7 +1021,7 @@ def main(profile: bool = False) -> None:
             f"({wall[name]:.3f} s), step {ms_i8[name]:.3f} ms/batch of {N} on device")
     log(f"int8 calibration (make_quantized_step): prow/mxu {t_cal:.2f} s, prow/vpu "
         f"{t_cal_vpu:.2f} s, --int8 {t_cal_q:.2f} s")
-    del fmodel, bmodel, lst_d, ndvi_d, vpu_params, q_params
+    del fmodel, bmodel, lst_d, ndvi_d, vpu_params
     torch.cuda.empty_cache()
 
     # granule modes on the arrays (the default bf16 step and the int8 step)
@@ -1401,9 +1413,15 @@ def main(profile: bool = False) -> None:
     with tempfile.TemporaryDirectory() as rest_dir:
         rest_launches = train_rest_phase(torch, dev, smi.splitlines()[0], rest_dir, (lst, ndvi),
                                          prow_digest, per_batch["prow"], profile)
+    # 12. the packed comparison steps, float and int8, on phase 5's granule
+    # (packed_phase)
+    t_packed = time.perf_counter()
+    packed_launches = packed_phase(torch, dev, smi.splitlines()[0], (lst, ndvi), ref, variables,
+                                   stats, {"prow": (step, qparams), "--int8": (q_step, q_params)},
+                                   int8_mosaic)
     log(f"wall s: phases 1-8 {t_eval - t_main:.1f}, phase 9 (eval) {t_base - t_eval:.1f}, "
         f"phase 10 (baselines) {t_rest - t_base:.1f}, phase 11 (training, the rest) "
-        f"{time.perf_counter() - t_rest:.1f}")
+        f"{t_packed - t_rest:.1f}, phase 12 (packed steps) {time.perf_counter() - t_packed:.1f}")
 
     src = "sifsr_tpu_torch/csrc/"
     meta = {
@@ -1474,7 +1492,8 @@ def main(profile: bool = False) -> None:
     for name in ("fused_psf_downscale", "fused_psf_downscale_backward"):
         main_launches[name] = train_launches["predef_filters"][name]
     main_launches["fused_norm_l4"] = train_launches["scale_invariance"]["fused_norm_l4"]
-    by_path = dict(launches, **{"train_" + r: c for r, c in train_launches.items()},
+    by_path = dict(launches, packed_int8=packed_launches,
+                   **{"train_" + r: c for r, c in train_launches.items()},
                    **{"eval_" + r: eval_launches[r] for r in ("prow", "pallas")},
                    **{"phase11_" + r: c for r, c in rest_launches.items()})
     kernels_line = {"kernels": [
@@ -1868,6 +1887,134 @@ def baselines_phase(torch, dev, granule, card: str, tmp: str, lpips_files: tuple
         f"{1e3 * float(np.mean(cpu_s)):.3f} (2 pairs, fit, apply and residual correction)")
     log("phase 10 ran: model_perf --sr-type " + ", ".join(sr_types)
         + "; compare_methods spectra (card and CPU); process_modis; data_preparation")
+
+
+def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_steps: dict,
+                 int8_mosaic) -> dict:
+    """Phase 12: the space-to-depth packed comparison steps through
+    ``predict_granule`` on phase 5's granule at batch 324, each mosaic held
+    against phase 5's float32 mosaic ``ref``: the float32 packed step within
+    rtol 1e-4 / atol 5e-3 K (the JAX package's packed-vs-standard bound),
+    the bf16 one within RMSE 0.1 K / max 0.5 K, the int8 one (calibrated by
+    ``calibrate_packed_scales`` on the granule's first 8 fully valid blocks,
+    as ``make_quantized_step`` picks them) within RMSE 0.3 K / max 1 K inside
+    250-350 K, launching ``conv_i8_generic`` exactly 18 times a batch and no
+    other kernel. The int8 one runs --int8's 18 convs at its shapes on the
+    same weights, so it is also held to phase 5's --int8 mosaic
+    ``int8_mosaic``: at most 3 int8 quanta of the outlay's input (its
+    calibrated ``in_scale`` x std_lst, in K) apart anywhere. Then ``upsample_bilinear_x2_nhwc_hp`` at (324,128,128,16)
+    on the card against the CPU within 1e-6, and the step ms of the three
+    beside phase 5's prow and --int8 steps (``phase5_steps``: name -> (step,
+    params)), CUDA events on
+    device-resident inputs, in two turns, with the conv TFLOP/s of each
+    (``modelb2_conv_flops`` a patch). Returns the int8 step's launches."""
+    from sifsr_tpu_torch import kernels as K
+    from sifsr_tpu_torch.inference import predict_granule, tile_granule
+    from sifsr_tpu_torch.models.packed import make_packed_sr_step, packed_step_params
+    from sifsr_tpu_torch.models.quantized_packed import (
+        calibrate_packed_scales,
+        make_int8_packed_sr_step,
+        quantize_packed_params,
+        unpacked_int8_params,
+    )
+    from sifsr_tpu_torch.ops.resize import upsample_bilinear_x2_nhwc_hp
+    from sifsr_tpu_torch.utils.flops import modelb2_conv_flops
+
+    lst, ndvi = granule
+    lst_b, ndvi_b, _ = tile_granule(lst, np.clip(ndvi, -1, 1))
+    n_batches = -(-lst_b.shape[0] // N)
+
+    def run(step, params):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = predict_granule(variables, lst, ndvi, stats, batch_size=N, device=dev,
+                              sr_step=step, step_params=params)
+        return out, time.perf_counter() - t
+
+    def diffs(sr):
+        assert sr.shape == ref.shape and np.isfinite(sr).all(), sr.shape
+        d = sr.astype(np.float64) - ref
+        return float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
+
+    sel = np.nonzero((lst_b != 0).all(axis=(1, 2)))[0][:8]
+    t = time.perf_counter()
+    i8_params = unpacked_int8_params(calibrate_packed_scales(
+        variables, quantize_packed_params(variables, dev), lst_b[sel], ndvi_b[sel], stats,
+        device=dev))
+    t_cal = time.perf_counter() - t
+    steps = {
+        "packed f32": (make_packed_sr_step(stats, torch.float32, dev),
+                       packed_step_params(variables, torch.float32, dev)),
+        "packed bf16": (make_packed_sr_step(stats, device=dev),
+                        packed_step_params(variables, torch.bfloat16, dev)),
+        "packed int8": (make_int8_packed_sr_step(stats, dev), i8_params),
+    }
+    wall, launches = {}, {}
+    for name, (step, params) in steps.items():
+        run(step, params)
+        K.reset_launches()
+        sr, wall[name] = run(step, params)
+        launches[name] = {k.__name__: k.launches for k in K.KERNELS}
+        rmse, dmax = diffs(sr)
+        log(f"granule {name} vs phase 5's f32 mosaic: RMSE {rmse:.4f} K, max {dmax:.4f} K, range "
+            f"{sr.min():.2f}..{sr.max():.2f} K, {lst_b.shape[0] / wall[name]:.1f} patches/s wall "
+            f"({wall[name]:.3f} s); launches {launches[name]}; mosaic sha256 {digest(sr)}")
+        if name != "packed int8" and any(launches[name].values()):
+            raise AssertionError(f"{name} launched a hand-written kernel: {launches[name]}")
+        if name == "packed f32":
+            np.testing.assert_allclose(sr, ref, rtol=1e-4, atol=5e-3)
+        elif name == "packed bf16":
+            if not (rmse < 0.1 and dmax < 0.5):
+                raise AssertionError(f"{name}: rmse {rmse}, max {dmax}")
+        else:
+            want = {k.__name__: 18 * n_batches if k is K.conv_i8_generic else 0
+                    for k in K.KERNELS}
+            if launches[name] != want:
+                raise AssertionError(f"{name}: launches {launches[name]}, expected {want}")
+            if not (rmse < 0.3 and dmax < 1.0 and sr.min() > 250.0 and sr.max() < 350.0):
+                raise AssertionError(f"{name}: rmse {rmse}, max {dmax}, range "
+                                     f"{sr.min()}..{sr.max()}")
+            quantum = float(i8_params["outlay"]["conv"]["in_scale"]) * stats.std_lst
+            d = np.abs(sr.astype(np.float64) - int8_mosaic)
+            log(f"granule {name} vs phase 5's --int8 mosaic: {int((d > 0).sum())} of {d.size} "
+                f"pixels differ, RMSE {float(np.sqrt((d ** 2).mean())):.5f} K, max "
+                f"{d.max():.4f} K; one int8 quantum of the outlay's input is {quantum:.4f} K")
+            if not d.max() <= 3 * quantum:
+                raise AssertionError(f"{name} is {d.max()} K off the --int8 mosaic, more than "
+                                     f"3 quanta of {quantum} K")
+        del sr
+    log(f"packed int8 calibration (quantize_packed_params + calibrate_packed_scales on "
+        f"{sel.size} blocks): {t_cal:.2f} s")
+
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal((N, 128, 128, 16),
+                                                                   dtype=np.float32))
+    got = upsample_bilinear_x2_nhwc_hp(x.to(dev)).cpu().numpy()
+    want = upsample_bilinear_x2_nhwc_hp(x).numpy()
+    log(f"upsample_bilinear_x2_nhwc_hp {tuple(x.shape)}: card vs CPU max|d| "
+        f"{np.abs(got - want).max():.3g}")
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    del x, got, want
+
+    # step ms on one device-resident batch, beside phase 5's prow and --int8
+    # steps, in two turns
+    steps.update(phase5_steps)
+    lst_d = torch.from_numpy(lst_b[:N].copy()).to(dev)
+    ndvi_d = torch.from_numpy(ndvi_b[:N].copy()).to(dev)
+    ms: dict = {}
+    order = list(steps)
+    for turn in (order, order[::-1]):
+        for name in turn:
+            step, params = steps[name]
+            ms.setdefault(name, []).append(
+                time_ms(torch, lambda: step(params, lst_d, ndvi_d), 5))
+    flops = modelb2_conv_flops()
+    log(f"modelb2_conv_flops: {flops:.0f} a patch (256²), {flops * N / 1e9:.3f} GFLOP a batch "
+        f"of {N}")
+    for name in order:
+        best = min(ms[name])
+        log(f"step {name}: {' / '.join(f'{v:.3f}' for v in ms[name])} ms/batch of {N} (two "
+            f"turns; {card}), {flops * N / (best * 1e-3) / 1e12:.2f} conv TFLOP/s")
+    return launches["packed int8"]
 
 
 def demangle(name: str) -> str:

@@ -5,7 +5,8 @@ its whole-granule serving path (``cli.predict``, ``cli.serve``, every granule
 mode), its training path (three recipes, the native loader and the
 streaming dataset, data parallelism over ``torch.distributed``), its evaluation with the
 classical baselines (``cli.model_perf``, ``cli.compare_methods``) and its
-data-preparation tools in PyTorch, with every TPU kernel of the repository
+data-preparation tools, and its comparison steps (the space-to-depth packed
+float and int8 steps) and FLOP counts, in PyTorch, with every TPU kernel of the repository
 written by hand in CUDA C++ for ``sm_90a`` (``csrc/``, bound through ctypes by
 ``kernels/_build.py``). It imports neither JAX nor anything of ``sifsr_tpu``.
 

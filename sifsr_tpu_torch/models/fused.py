@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from sifsr_tpu_torch.models.unet import DOWNCHANNELS, Conv3x3, replicate_conv_fused
-from sifsr_tpu_torch.ops.resize import _matrix, upsample_bilinear_x2
+from sifsr_tpu_torch.ops.resize import upsample_bilinear_x2, upsample_bilinear_x2_nhwc
 
 __all__ = ["InferenceModelB2", "fold_batchnorm", "upsample_bilinear_x2_nhwc",
            "replicate_conv_fused"]
@@ -32,17 +32,12 @@ __all__ = ["InferenceModelB2", "fold_batchnorm", "upsample_bilinear_x2_nhwc",
 _BN_EPS = 1e-5
 
 
-def upsample_bilinear_x2_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """Align-corners bilinear x2 on NHWC (rows, then columns), in x's dtype."""
-    n, h, w, c = x.shape
-    mat_h = _matrix(h, 2 * h, "linear_ac", x.dtype, x.device)
-    mat_w = _matrix(w, 2 * w, "linear_ac", x.dtype, x.device)
-    x = torch.einsum("oh,nhwc->nowc", mat_h, x)
-    return torch.einsum("pw,nowc->nopc", mat_w, x)
-
-
 def _fold_pair(weight_oihw: torch.Tensor, sd: dict, bn: str) -> dict:
-    s = sd[f"{bn}.weight"] / torch.sqrt(sd[f"{bn}.running_var"] + _BN_EPS)
+    # the float64 root of the float32 var + eps, rounded to float32, is the
+    # correctly rounded float32 root (JAX's); torch's vectorised float32 sqrt
+    # on the CPU can be an ulp off it
+    root = torch.sqrt((sd[f"{bn}.running_var"] + _BN_EPS).to(torch.float64)).to(torch.float32)
+    s = sd[f"{bn}.weight"] / root
     kernel = weight_oihw.permute(2, 3, 1, 0) * s[None, None, None, :]   # HWIO
     bias = sd[f"{bn}.bias"] - sd[f"{bn}.running_mean"] * s
     return {"conv": {"kernel": kernel.contiguous(), "bias": bias}}

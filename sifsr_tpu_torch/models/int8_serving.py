@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sifsr_tpu_torch.device import full_f32_convs, resolve_device
 from sifsr_tpu_torch.kernels import (
@@ -72,10 +71,11 @@ from sifsr_tpu_torch.kernels import (
 from sifsr_tpu_torch.kernels.conv_px import prow_leaf, up2_coeffs, up2_coeffs_mxu
 from sifsr_tpu_torch.models.fused import fold_batchnorm, upsample_bilinear_x2_nhwc
 from sifsr_tpu_torch.models.packed import (
+    _mid_conv,
     _packed_concat,
+    _packed_conv,
     _packed_resize,
     _phase_matrices,
-    _replicate_pad_packed,
     _space_to_depth,
     _to_numpy_tree,
     pack_serving_params,
@@ -89,14 +89,6 @@ __all__ = ["calibrate", "int8_serving_params", "build_int8_serving_params",
 
 
 # ---------------------------------------------------------------- calibration
-
-def _conv_valid(x: torch.Tensor, kernel, bias, relu: bool) -> torch.Tensor:
-    """VALID float32 conv of a pre-padded NHWC tensor, HWIO numpy kernel."""
-    k = torch.as_tensor(kernel, device=x.device).permute(3, 2, 0, 1)
-    y = F.conv2d(x.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
-    y = y + torch.as_tensor(bias, device=x.device)
-    return torch.clamp_min(y, 0.0) if relu else y
-
 
 @torch.no_grad()
 def _f32_packed_mirror(pp: dict, sample_lst, sample_ndvi, stats, quantile=None,
@@ -115,11 +107,7 @@ def _f32_packed_mirror(pp: dict, sample_lst, sample_ndvi, stats, quantile=None,
 
     def conv_mid(x, tree, path, relu=True):
         mid_rec[path] = _amax(x)
-        xx = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
-        return _conv_valid(xx, tree["kernel"], tree["bias"], relu)
-
-    def conv_packed(x, wp_bp, c_in, relu=True):
-        return _conv_valid(_replicate_pad_packed(x, c_in), wp_bp[0], wp_bp[1], relu)
+        return _mid_conv(x, tree, relu)
 
     with full_f32_convs():
         lst_n = (torch.as_tensor(sample_lst, dtype=torch.float32, device=dev)
@@ -134,9 +122,9 @@ def _f32_packed_mirror(pp: dict, sample_lst, sample_ndvi, stats, quantile=None,
         c0 = 16
         x = _packed_concat(lst_up_p, 1, ndvi_p, 1)
         rec["in1"] = _amax(x)
-        x = conv_packed(x, pk["in_conv1"], 2)
+        x = _packed_conv(x, *pk["in_conv1"], 2)
         rec["in2"] = _amax(x)
-        s0p = conv_packed(x, pk["in_conv2"], c0)
+        s0p = _packed_conv(x, *pk["in_conv2"], c0)
         rec["s0"] = _amax(s0p)
         n, hh, ww, _ = s0p.shape
 
@@ -171,9 +159,9 @@ def _f32_packed_mirror(pp: dict, sample_lst, sample_ndvi, stats, quantile=None,
         rec_max("m_u2", t)
         up_p = _packed_resize(t, _phase_matrices(t.shape[1], 2 * t.shape[1], "linear_ac"))
         rec["up"] = _amax(up_p)
-        u31 = conv_packed(_packed_concat(up_p, c0, s0p, c0), pk["ub3_conv1"], 2 * c0)
+        u31 = _packed_conv(_packed_concat(up_p, c0, s0p, c0), *pk["ub3_conv1"], 2 * c0)
         rec["u32"] = _amax(u31)
-        u32 = conv_packed(u31, pk["ub3_conv2"], c0)
+        u32 = _packed_conv(u31, *pk["ub3_conv2"], c0)
         rec["ol"] = _amax(u32)
     return rec, mid_rec
 

@@ -1,22 +1,26 @@
-"""Space-to-depth packed forms of the 256²-level layers.
+"""Space-to-depth packed serving: the packed float step and the packed
+forms of the 256²-level layers.
 
-Port of the parts of ``sifsr_tpu/models/packed.py:44-170`` that the int8
-calibration mirror (``models.int8_serving._f32_packed_mirror``) runs. The JAX
-package serves the 256² layers on a 2x2 space-to-depth packed layout
-(N, 128, 128, 4C), packed channel ``(q*2 + r)*C + c`` for pixel phase
+Port of ``sifsr_tpu/models/packed.py``. The JAX package serves the
+256²-level layers (inbloc, ub3, outlay) on a 2x2 space-to-depth packed
+layout (N, 128, 128, 4C), packed channel ``(q*2 + r)*C + c`` for pixel phase
 (q, r), to fill TPU lanes:
 
 - a 3x3 conv C->D becomes a 3x3 conv 4C->4D with
   ``Wp[p+1, s+1, (q,r,c), (do,eo,k)] = W[2p+q-do+1, 2s+r-eo+1, c, k]``;
 - the replicate pad replicates the outermost original row/column into both
   phase slots (``_replicate_pad_packed``);
+- db1's AvgPool2 is the mean over the four phases of the packed map;
 - integer-factor resizes emit packed outputs through per-phase matrices.
 
-The port's int8 kernels work on the unpacked NHWC tensors instead (the
-packed conv equals the unpacked replicate-pad conv, weights and scales
-included: ``tests/test_torch_int8_serving.py`` asserts it). The calibration
-mirror keeps the packed graph so that its record matches JAX's tensor by
-tensor.
+``make_packed_sr_step`` runs that graph as JAX does: a comparison step of
+the float path (``inference.make_sr_step`` is the port's float step), its
+convs ``F.conv2d`` as JAX's are XLA convs. The packed convs do four times
+the MACs of the unpacked ones. The port's int8 kernels work on the unpacked
+NHWC tensors instead (the packed conv equals the unpacked replicate-pad
+conv, weights and scales included). The int8 calibration mirror
+(``models.int8_serving._f32_packed_mirror``) keeps the packed graph so that
+its record matches JAX's tensor by tensor.
 """
 
 from __future__ import annotations
@@ -25,11 +29,15 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from sifsr_tpu_torch.device import full_f32, resolve_device
 from sifsr_tpu_torch.models.fused import fold_batchnorm
-from sifsr_tpu_torch.ops.resize import resize_matrix
+from sifsr_tpu_torch.models.quantized import _pool2
+from sifsr_tpu_torch.ops.resize import resize_matrix, upsample_bilinear_x2_nhwc
 
-__all__ = ["pack_conv_weights", "pack_serving_params"]
+__all__ = ["pack_conv_weights", "pack_serving_params", "packed_step_params", "packed_forward",
+           "make_packed_sr_step"]
 
 
 def pack_conv_weights(w, b) -> tuple[np.ndarray, np.ndarray]:
@@ -81,6 +89,13 @@ def _phase_matrices(in_size: int, out_size: int, kind: str) -> np.ndarray:
     """(2, out_size//2, in_size) per-phase rows of a resampling matrix."""
     a = resize_matrix(in_size, out_size, kind)
     return np.stack([a[0::2], a[1::2]]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _phase_tensor(in_size: int, out_size: int, kind: str, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """``_phase_matrices`` as a tensor, uploaded once per device and dtype."""
+    return torch.as_tensor(_phase_matrices(in_size, out_size, kind), dtype=dtype, device=device)
 
 
 def _packed_resize(x: torch.Tensor, phases) -> torch.Tensor:
@@ -135,3 +150,134 @@ def pack_serving_params(state_dict: dict) -> dict:
         "outlay": pack_conv_weights(*grab(folded["outlay"]["conv"])),
     }
     return {"mid": folded, "packed": packed}
+
+
+def packed_step_params(state_dict: dict, compute_dtype: torch.dtype = torch.bfloat16,
+                       device: str | torch.device = "cuda") -> dict:
+    """``pack_serving_params``'s tree as tensors on ``device`` in
+    ``compute_dtype``, moved and cast once (JAX's
+    ``pack_serving_params(variables, dtype)``): the parameters of
+    ``make_packed_sr_step``."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
+        return torch.as_tensor(node).to(dev, compute_dtype)
+
+    return walk(pack_serving_params(state_dict))
+
+
+def _conv(x: torch.Tensor, kernel, bias, relu: bool) -> torch.Tensor:
+    """VALID conv of a pre-padded NHWC tensor with an HWIO kernel (a tensor,
+    or a numpy array moved to x's device), + bias [-> ReLU]."""
+    k = torch.as_tensor(kernel, device=x.device).permute(3, 2, 0, 1)
+    y = F.conv2d(x.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
+    y = y + torch.as_tensor(bias, device=x.device)
+    return torch.clamp_min(y, 0) if relu else y
+
+
+def _packed_conv(x: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, c_in: int,
+                 relu: bool = True) -> torch.Tensor:
+    return _conv(_replicate_pad_packed(x, c_in), wp, bp, relu)
+
+
+def _mid_conv(x: torch.Tensor, tree: dict, relu: bool = True) -> torch.Tensor:
+    x = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
+    return _conv(x, tree["kernel"], tree["bias"], relu)
+
+
+def _mid_double(x, tree):
+    x = _mid_conv(x, tree["conv1"]["conv"])
+    return _mid_conv(x, tree["conv2"]["conv"])
+
+
+def _mid_down_body(x, tree):
+    """Residual DoubleConv + lastconv (the DownBlock minus its AvgPool)."""
+    x = x + _mid_double(x, tree["res"])
+    return _mid_conv(x, tree["lastconv"]["conv"])
+
+
+def _mid_down(x, tree):
+    return _mid_down_body(_pool2(x), tree)
+
+
+def packed_forward(params: dict, lst_up_packed: torch.Tensor, ndvi_packed: torch.Tensor,
+                   c0: int = 16) -> torch.Tensor:
+    """Packed serving forward. Inputs: packed (N,h,w,4) LST-up and NDVI
+    planes (phase-major, one channel each); output the packed SR
+    (N,h,w,4), all in the parameters' dtype."""
+    mid = params["mid"]
+    pk = params["packed"]
+
+    x = _packed_concat(lst_up_packed, 1, ndvi_packed, 1)          # (N,h,w,8)
+    x = _packed_conv(x, *pk["in_conv1"], c_in=2)
+    s0p = _packed_conv(x, *pk["in_conv2"], c_in=c0)                # (N,h,w,4*16)
+
+    n, h, w, _ = s0p.shape
+    # db1's AvgPool2 of the 2x-resolution s0 is the mean over the (q, r)
+    # phases of the packed map
+    s1 = _mid_down_body(s0p.reshape(n, h, w, 4, c0).mean(dim=3), mid["db1"])   # (N,h,w,32)
+    s2 = _mid_down(s1, mid["db2"])                                 # (N,h/2,w/2,64)
+    x = _mid_down(s2, mid["db3"])                                  # (N,h/4,w/4,64)
+
+    x = _mid_double(torch.cat([upsample_bilinear_x2_nhwc(x), s2], dim=-1),
+                    mid["ub1"]["convbloc"])                        # 32 @ h/4
+    x = _mid_double(torch.cat([upsample_bilinear_x2_nhwc(x), s1], dim=-1),
+                    mid["ub2"]["convbloc"])                        # 16 @ h/2
+
+    # ub3: packed bilinear x2 of the 16-channel map, packed concat with s0p
+    h2 = x.shape[1]
+    up_p = _packed_resize(x, _phase_tensor(h2, 2 * h2, "linear_ac", x.dtype, x.device))
+    x = _packed_concat(up_p, c0, s0p, c0)                          # (N,h,w,128)
+    x = _packed_conv(x, *pk["ub3_conv1"], c_in=2 * c0)
+    x = _packed_conv(x, *pk["ub3_conv2"], c_in=c0)
+    return _packed_conv(x, *pk["outlay"], c_in=c0, relu=False)    # (N,h,w,4)
+
+
+def _packed_inputs(stats, dev: torch.device):
+    """(lst (N,h,h) K, ndvi (N,4h,4h)) -> float32 packed (N,2h,2h,4) inputs:
+    normalise (dividing by 0-d float32 tensors made here once, as the int8
+    steps do), the cubic x4 of the LST straight into the packed layout in
+    full float32, NDVI space-to-depth."""
+    mean_lst, std_lst, mean_ndvi, std_ndvi = (
+        torch.tensor(v, dtype=torch.float32, device=dev)
+        for v in (stats.mean_lst, stats.std_lst, stats.mean_ndvi, stats.std_ndvi))
+
+    def inputs(lst_blocks, ndvi_blocks):
+        lst_n = (torch.as_tensor(lst_blocks, dtype=torch.float32, device=dev) - mean_lst) / std_lst
+        ndvi_n = (torch.as_tensor(ndvi_blocks, dtype=torch.float32, device=dev)
+                  - mean_ndvi) / std_ndvi
+        h = lst_n.shape[1]
+        with full_f32():
+            lst_up_p = _packed_resize(lst_n[..., None],
+                                      _phase_tensor(h, 4 * h, "cubic", torch.float32, dev))
+        return lst_up_p, _space_to_depth(ndvi_n[..., None])
+
+    return inputs
+
+
+def make_packed_sr_step(stats, compute_dtype: torch.dtype = torch.bfloat16,
+                        device: str | torch.device = "cuda"):
+    """The packed twin of ``inference.make_sr_step``:
+    (params, lst (N,h,h) K, ndvi (N,4h,4h)) -> (N,4h,4h) K float32, params
+    from ``packed_step_params(state_dict, compute_dtype, device)``.
+
+    Normalisation and the cubic x4 run in float32 and are cast to
+    ``compute_dtype`` afterwards; the network runs in ``compute_dtype``. A
+    float32 step runs its convs and einsums with TF32 off (JAX's HIGHEST)."""
+    dev = resolve_device(device)
+    exact = compute_dtype == torch.float32
+    inputs = _packed_inputs(stats, dev)
+
+    @torch.no_grad()
+    def sr_step(params, lst_blocks, ndvi_blocks):
+        lst_up_p, ndvi_p = inputs(lst_blocks, ndvi_blocks)
+        with full_f32(exact):
+            sr_p = packed_forward(params, lst_up_p.to(compute_dtype), ndvi_p.to(compute_dtype))
+        sr = _depth_to_space(sr_p.to(torch.float32), 1)[..., 0]
+        return sr * stats.std_lst + stats.mean_lst
+
+    return sr_step

@@ -23,12 +23,16 @@ import functools
 import numpy as np
 import torch
 
+from sifsr_tpu_torch.device import full_f32
+
 __all__ = [
     "resize_matrix",
     "cubic_resize",
     "upsample_bicubic",
     "downsample_bicubic",
     "upsample_bilinear_x2",
+    "upsample_bilinear_x2_nhwc",
+    "upsample_bilinear_x2_nhwc_hp",
 ]
 
 _A = -0.75  # Keys cubic coefficient used by cv2 INTER_CUBIC and torch bicubic.
@@ -119,6 +123,25 @@ def upsample_bilinear_x2(x: torch.Tensor) -> torch.Tensor:
     """torch Upsample(scale_factor=2, bilinear, align_corners=True) on (..., H, W)."""
     h, w = x.shape[-2], x.shape[-1]
     return _apply_separable(x, 2 * h, 2 * w, "linear_ac")
+
+
+def upsample_bilinear_x2_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """Align-corners bilinear x2 on NHWC (rows, then columns), in x's dtype
+    under the caller's matmul precision."""
+    n, h, w, c = x.shape
+    mat_h = _matrix(h, 2 * h, "linear_ac", x.dtype, x.device)
+    mat_w = _matrix(w, 2 * w, "linear_ac", x.dtype, x.device)
+    x = torch.einsum("oh,nhwc->nowc", mat_h, x)
+    return torch.einsum("pw,nowc->nopc", mat_w, x)
+
+
+def upsample_bilinear_x2_nhwc_hp(x: torch.Tensor) -> torch.Tensor:
+    """Align-corners bilinear x2 directly on (N, H, W, C), both contractions
+    in full float32 (TF32 off: JAX's ``Precision.HIGHEST``). The
+    transpose-free twin of ``upsample_bilinear_x2``, equal up to summation
+    order."""
+    with full_f32():
+        return upsample_bilinear_x2_nhwc(x)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1074,3 +1074,32 @@ def test_compare_methods_spectra_cuda(cuda, tmp_path):
     cols = ["PFR", "AFR", "FRR", "FRO", "FRU"]
     np.testing.assert_allclose(got[cols].to_numpy(float)[:3], want[cols].to_numpy(float)[:3],
                                rtol=1e-6, atol=0)
+
+
+def test_int8_packed_step_cuda(cuda):
+    """make_int8_packed_sr_step on the card against the same step on the CPU
+    (every conv's plain version) at 32² LST, on one parameter tree
+    calibrated on the CPU: identical, 18 conv_i8_generic launches a batch."""
+    import os
+
+    from sifsr_tpu_torch.cli.predict import load_variables
+    from sifsr_tpu_torch.data.statistics import Statistics
+    from sifsr_tpu_torch.models import quantized_packed as qp
+
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    sd = load_variables(os.path.join(root, "weights", "modelB_1009"))
+    stats = Statistics.from_json(os.path.join(root, "data", "statistics_testset.json"))
+    rng = np.random.default_rng(4)
+    lst = (296.0 + 20.0 * rng.random((3, 32, 32))).astype(np.float32)
+    ndvi = (0.1 + 0.7 * rng.random((3, 128, 128))).astype(np.float32)
+    tree = qp.unpacked_int8_params(qp.calibrate_packed_scales(
+        sd, qp.quantize_packed_params(sd, "cpu"), lst[:2], ndvi[:2], stats, device="cpu"))
+    want = qp.make_int8_packed_sr_step(stats, "cpu")(tree, lst, ndvi).numpy()
+    from sifsr_tpu_torch import kernels
+
+    card = torch.utils._pytree.tree_map(lambda t: t.to(cuda), tree)
+    kernels.reset_launches()
+    got = qp.make_int8_packed_sr_step(stats, cuda)(card, lst, ndvi).cpu().numpy()
+    assert {k.__name__: k.launches for k in kernels.KERNELS} == {
+        k.__name__: 18 if k is kernels.conv_i8_generic else 0 for k in kernels.KERNELS}
+    np.testing.assert_array_equal(got, want)

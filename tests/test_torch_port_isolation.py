@@ -25,7 +25,8 @@ print(bad)
 print(all(m in sys.modules for m in ("sifsr_tpu_torch.data.native_loader",
                                      "sifsr_tpu_torch.data.datasets",
                                      "sifsr_tpu_torch.parallel",
-                                     "sifsr_tpu_torch.parallel.mesh")))
+                                     "sifsr_tpu_torch.parallel.mesh",
+                                     "sifsr_tpu_torch.utils.flops")))
 """
 
 
@@ -44,12 +45,26 @@ def test_cuda_default_entry_points_raise_without_cuda(monkeypatch):
     from sifsr_tpu_torch.data.statistics import Statistics
     from sifsr_tpu_torch.inference import make_sr_step, predict_granule
     from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+    from sifsr_tpu_torch.models.packed import make_packed_sr_step, packed_step_params
+    from sifsr_tpu_torch.models.quantized_packed import (
+        calibrate_packed_scales,
+        make_int8_packed_sr_step,
+        quantize_packed_params,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     stats = Statistics(maxi=330.0, mini=260.0, mean_lst=300.0, std_lst=8.0,
                        mean_ndvi=0.35, std_ndvi=0.2)
     with pytest.raises(RuntimeError, match="cuda"):
         make_int8_sr_step(stats)
+    for call in (lambda: make_packed_sr_step(stats),
+                 lambda: make_packed_sr_step(stats, torch.float32),
+                 lambda: make_int8_packed_sr_step(stats),
+                 lambda: packed_step_params({}),
+                 lambda: quantize_packed_params({}),
+                 lambda: calibrate_packed_scales({}, {}, None, None, stats)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
     with pytest.raises(RuntimeError, match="cuda"):
         make_sr_step(stats, torch.float32, "cuda:0")
     with pytest.raises(RuntimeError, match="cuda"):
