@@ -163,9 +163,18 @@ Phases, each of which raises on failure (no result line is printed then):
    the granule's first 8 fully valid blocks (RMSE 0.3 K / max 1 K, inside
    250-350 K; conv_i8_generic exactly 18 a batch, no other kernel; within 3
    int8 quanta of the outlay's input of phase 5's --int8 mosaic, whose convs
-   it runs); ``upsample_bilinear_x2_nhwc_hp`` at (324,128,128,16) card vs CPU within
-   1e-6; the step ms of the three beside the prow and --int8 steps, two
-   turns, with conv TFLOP/s from ``utils.flops.modelb2_conv_flops``.
+   it runs), and the same step given the calibrated packed tree as it is
+   (JAX's form, un-packed on every call): the same launches, its mosaic
+   identical to the un-packed tree's; ``upsample_bilinear_x2_nhwc_hp`` at
+   (324,128,128,16) card vs CPU within 1e-6; the step ms of the four beside
+   the prow and --int8 steps, two turns, with conv TFLOP/s from
+   ``utils.flops.modelb2_conv_flops``;
+13. bf16 convergence (``convergence_phase``): ``python -m
+   sifsr_tpu_torch.tools.bf16_convergence`` at its defaults (predef_filters,
+   24 epochs on 32 / 8 synthetic pairs, float32 against bf16) in a process
+   of its own: every loss finite, each curve's last validation loss below
+   its first; the summary (final validation losses, relative differences)
+   on a line of its own, not gated.
 
 The second-to-last line is the kernels JSON, the last
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero
@@ -1419,9 +1428,14 @@ def main(profile: bool = False) -> None:
     packed_launches = packed_phase(torch, dev, smi.splitlines()[0], (lst, ndvi), ref, variables,
                                    stats, {"prow": (step, qparams), "--int8": (q_step, q_params)},
                                    int8_mosaic)
+    # 13. the bf16-vs-float32 convergence tool (convergence_phase)
+    t_conv = time.perf_counter()
+    with tempfile.TemporaryDirectory() as conv_dir:
+        convergence_phase(smi.splitlines()[0], conv_dir)
     log(f"wall s: phases 1-8 {t_eval - t_main:.1f}, phase 9 (eval) {t_base - t_eval:.1f}, "
         f"phase 10 (baselines) {t_rest - t_base:.1f}, phase 11 (training, the rest) "
-        f"{t_packed - t_rest:.1f}, phase 12 (packed steps) {time.perf_counter() - t_packed:.1f}")
+        f"{t_packed - t_rest:.1f}, phase 12 (packed steps) {t_conv - t_packed:.1f}, "
+        f"phase 13 (bf16 convergence) {time.perf_counter() - t_conv:.1f}")
 
     src = "sifsr_tpu_torch/csrc/"
     meta = {
@@ -1902,8 +1916,11 @@ def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_s
     other kernel. The int8 one runs --int8's 18 convs at its shapes on the
     same weights, so it is also held to phase 5's --int8 mosaic
     ``int8_mosaic``: at most 3 int8 quanta of the outlay's input (its
-    calibrated ``in_scale`` x std_lst, in K) apart anywhere. Then ``upsample_bilinear_x2_nhwc_hp`` at (324,128,128,16)
-    on the card against the CPU within 1e-6, and the step ms of the three
+    calibrated ``in_scale`` x std_lst, in K) apart anywhere. The int8 step
+    then takes the calibrated packed tree as it is, as JAX's step does, and
+    un-packs it on every call: the same launches, and a mosaic identical to
+    the un-packed tree's. Then ``upsample_bilinear_x2_nhwc_hp`` at (324,128,128,16)
+    on the card against the CPU within 1e-6, and the step ms of the four
     beside phase 5's prow and --int8 steps (``phase5_steps``: name -> (step,
     params)), CUDA events on
     device-resident inputs, in two turns, with the conv TFLOP/s of each
@@ -1938,18 +1955,22 @@ def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_s
 
     sel = np.nonzero((lst_b != 0).all(axis=(1, 2)))[0][:8]
     t = time.perf_counter()
-    i8_params = unpacked_int8_params(calibrate_packed_scales(
-        variables, quantize_packed_params(variables, dev), lst_b[sel], ndvi_b[sel], stats,
-        device=dev))
+    i8_tree = calibrate_packed_scales(variables, quantize_packed_params(variables, dev),
+                                      lst_b[sel], ndvi_b[sel], stats, device=dev)
     t_cal = time.perf_counter() - t
+    i8_params = unpacked_int8_params(i8_tree)
+    int8_step = make_int8_packed_sr_step(stats, dev)
     steps = {
         "packed f32": (make_packed_sr_step(stats, torch.float32, dev),
                        packed_step_params(variables, torch.float32, dev)),
         "packed bf16": (make_packed_sr_step(stats, device=dev),
                         packed_step_params(variables, torch.bfloat16, dev)),
-        "packed int8": (make_int8_packed_sr_step(stats, dev), i8_params),
+        "packed int8": (int8_step, i8_params),
+        # JAX's form: the calibrated packed tree as it is, un-packed by the
+        # step on every call
+        "packed int8, packed tree": (int8_step, i8_tree),
     }
-    wall, launches = {}, {}
+    wall, launches, int8_sr = {}, {}, None
     for name, (step, params) in steps.items():
         run(step, params)
         K.reset_launches()
@@ -1959,14 +1980,14 @@ def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_s
         log(f"granule {name} vs phase 5's f32 mosaic: RMSE {rmse:.4f} K, max {dmax:.4f} K, range "
             f"{sr.min():.2f}..{sr.max():.2f} K, {lst_b.shape[0] / wall[name]:.1f} patches/s wall "
             f"({wall[name]:.3f} s); launches {launches[name]}; mosaic sha256 {digest(sr)}")
-        if name != "packed int8" and any(launches[name].values()):
+        if not name.startswith("packed int8") and any(launches[name].values()):
             raise AssertionError(f"{name} launched a hand-written kernel: {launches[name]}")
         if name == "packed f32":
             np.testing.assert_allclose(sr, ref, rtol=1e-4, atol=5e-3)
         elif name == "packed bf16":
             if not (rmse < 0.1 and dmax < 0.5):
                 raise AssertionError(f"{name}: rmse {rmse}, max {dmax}")
-        else:
+        elif name == "packed int8":
             want = {k.__name__: 18 * n_batches if k is K.conv_i8_generic else 0
                     for k in K.KERNELS}
             if launches[name] != want:
@@ -1982,9 +2003,20 @@ def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_s
             if not d.max() <= 3 * quantum:
                 raise AssertionError(f"{name} is {d.max()} K off the --int8 mosaic, more than "
                                      f"3 quanta of {quantum} K")
+            int8_sr = sr
+        else:
+            # the packed tree's route: the un-packed route's launches and mosaic
+            if launches[name] != launches["packed int8"]:
+                raise AssertionError(f"{name}: launches {launches[name]}, expected "
+                                     f"{launches['packed int8']}")
+            if not np.array_equal(sr, int8_sr):
+                raise AssertionError(f"{name}: the mosaic differs from the un-packed tree's")
+            log(f"granule {name}: mosaic identical to the un-packed tree's")
         del sr
+    del int8_sr
     log(f"packed int8 calibration (quantize_packed_params + calibrate_packed_scales on "
-        f"{sel.size} blocks): {t_cal:.2f} s")
+        f"{sel.size} blocks): {t_cal:.2f} s; unpacked_int8_params "
+        f"{time_ms(torch, lambda: unpacked_int8_params(i8_tree), 5):.3f} ms a call")
 
     x = torch.from_numpy(np.random.default_rng(12).standard_normal((N, 128, 128, 16),
                                                                    dtype=np.float32))
@@ -2015,6 +2047,44 @@ def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_s
         log(f"step {name}: {' / '.join(f'{v:.3f}' for v in ms[name])} ms/batch of {N} (two "
             f"turns; {card}), {flops * N / (best * 1e-3) / 1e12:.2f} conv TFLOP/s")
     return launches["packed int8"]
+
+
+def convergence_phase(card: str, tmp: str, timeout: float = 600.0) -> dict:
+    """Phase 13: ``python -m sifsr_tpu_torch.tools.bf16_convergence`` as a
+    user runs it, at its defaults (predef_filters, 24 epochs on 32 / 8
+    synthetic pairs, batch 8, ModelB2 in float32 with TF32 off and in bf16,
+    on the card), in a process of its own, writing into ``tmp``. Gates:
+    every loss finite, and each curve's last validation loss below its
+    first; the relative difference of bf16 from float32 is recorded, not
+    gated. Logs each run's first and last epochs and the summary on a line
+    of its own; returns the summary."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sifsr_tpu_torch.tools.bf16_convergence",
+                           "--out", tmp], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise RuntimeError(f"bf16_convergence failed (rc {proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    for run in ("f32", "bf16"):
+        epochs = [line for line in lines if line.startswith(f"[{run}] epoch")]
+        log(f"  {epochs[0]}\n  {epochs[-1]}")
+    with open(os.path.join(tmp, "convergence.json")) as f:
+        result = json.load(f)
+    if not os.path.getsize(os.path.join(tmp, "convergence.png")) > 0:
+        raise AssertionError("bf16_convergence wrote no curve PNG")
+    log(f"bf16_convergence at its defaults: {wall:.1f} s wall, the process's start included "
+        f"({card}); summary:")
+    log(json.dumps(result["summary"]))
+    for run, curve in result["curves"].items():
+        losses = np.asarray(curve["train_loss"] + curve["val_loss"])
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"bf16_convergence {run}: a loss is not finite: {curve}")
+        if not curve["val_loss"][-1] < curve["val_loss"][0]:
+            raise AssertionError(f"bf16_convergence {run}: the validation loss went "
+                                 f"{curve['val_loss'][0]} -> {curve['val_loss'][-1]}")
+    return result["summary"]
 
 
 def demangle(name: str) -> str:

@@ -211,12 +211,24 @@ class HDF4File:
             namelen = struct.unpack(">H", raw[p : p + 2])[0]
             name = raw[p + 2 : p + 2 + namelen].decode("ascii", "replace").rstrip("\0")
             p += 2 + namelen
+            if p + 2 > len(raw):
+                raise HDF4Error(f"Vgroup ({tag}, {ref}) class name beyond end")
             classlen = struct.unpack(">H", raw[p : p + 2])[0]
             klass = raw[p + 2 : p + 2 + classlen].decode("ascii", "replace").rstrip("\0")
             yield name, klass, list(zip(tags, refs))
 
     def vdata(self, ref: int) -> dict:
-        """Parse a VH header + its VS payload into field arrays."""
+        """Parse a VH header + its VS payload into field arrays. Names,
+        orders or offsets that overrun the header or the payload raise
+        HDF4Error, as every other malformed element does."""
+        try:
+            return self._vdata(ref)
+        except (struct.error, ValueError) as exc:
+            if isinstance(exc, HDF4Error):
+                raise
+            raise HDF4Error(f"Vdata ref {ref}: {exc}") from exc
+
+    def _vdata(self, ref: int) -> dict:
         if (TAG_VH, ref) not in self.dds:
             raise HDF4Error(f"no Vdata header ref {ref}")
         raw = self._raw(TAG_VH, ref)

@@ -19,9 +19,10 @@ packed output phase sees each of the 9 taps once; the packed kernel's
 quantisation is the packed form of the unpacked one with its scales tiled
 x4; the input's scale is a max over the same values), so the int8 packed
 step is ``predict --int8``'s forward (``models.quantized.int8_forward``) on
-the packed tree un-packed once (``unpacked_int8_params``): the same 18
-convs at the same shapes. What stays packed is the input: the cubic x4 into
-the packed layout, as JAX's step makes it, then un-packed.
+the packed tree un-packed (``unpacked_int8_params``: once by the caller, or
+on every call where the step is given the packed tree, as JAX's is): the
+same 18 convs at the same shapes. What stays packed is the input: the cubic
+x4 into the packed layout, as JAX's step makes it, then un-packed.
 
 A leaf is ``{'q': int8 HWIO, 'scale': (K,), 'bias': (K,)[, 'in_scale':
 ()]}``, tensors on the serving device. ``models.int8_serving``'s
@@ -99,8 +100,9 @@ def unpacked_int8_params(tree: dict) -> dict:
     -> the tree of ``predict --int8`` (``models.quantized.int8_forward``):
     ``mid`` with the five packed leaves un-packed into inbloc, ub3 and
     outlay, the kernel through ``_unpack_conv_weights``, ``scale[:K]`` and
-    ``bias[:K]`` (the packed ones are tiled x4), ``in_scale`` as it is. The
-    parameters of ``make_int8_packed_sr_step``, built once for a tree."""
+    ``bias[:K]`` (the packed ones are tiled x4), ``in_scale`` as it is.
+    Built once for a tree, it spares ``make_int8_packed_sr_step`` and
+    ``int8_packed_forward`` the un-packing on every call."""
     def leaf(name):
         pk = tree["packed"][name]
         k = pk["q"].shape[3] // 4
@@ -116,13 +118,26 @@ def unpacked_int8_params(tree: dict) -> dict:
                 outlay=leaf("outlay"))
 
 
+def _int8_tree(params: dict) -> dict:
+    """The tree the int8 packed functions run on: ``unpacked_int8_params``
+    of a packed tree (a ``'packed'`` key: JAX's form, from
+    ``quantize_packed_params`` or ``calibrate_packed_scales``), un-packed on
+    every call; else ``params``, already un-packed, as it is."""
+    return unpacked_int8_params(params) if "packed" in params else params
+
+
 @torch.no_grad()
 def int8_packed_forward(params: dict, lst_up_packed: torch.Tensor,
-                        ndvi_packed: torch.Tensor) -> torch.Tensor:
+                        ndvi_packed: torch.Tensor, c0: int = 16) -> torch.Tensor:
     """The int8 packed forward: packed (N,h,w,4) float32 LST-up and NDVI
-    planes -> the packed SR (N,h,w,4) float32, ``params`` from
-    ``unpacked_int8_params``. The planes are un-packed and run through
-    ``int8_forward``, whose convs are the packed ones."""
+    planes -> the packed SR (N,h,w,4) float32. ``params`` is the packed tree
+    or its ``unpacked_int8_params``; ``c0`` is inbloc's width, which the tree
+    must have. The planes are un-packed and run through ``int8_forward``,
+    whose convs are the packed ones."""
+    params = _int8_tree(params)
+    width = params["inbloc"]["conv1"]["conv"]["q"].shape[3]
+    if width != c0:
+        raise ValueError(f"c0={c0}, but the tree's inbloc is {width} channels wide")
     x = _depth_to_space(_packed_concat(lst_up_packed, 1, ndvi_packed, 1), 2)
     return _space_to_depth(int8_forward(params, x))
 
@@ -159,11 +174,12 @@ def calibrate_packed_scales(variables: dict, qparams: dict, sample_lst, sample_n
 def make_int8_packed_sr_step(stats, device: str | torch.device = "cuda"):
     """The int8 packed twin of ``inference.make_sr_step``:
     (params, lst (N,h,h) K, ndvi (N,4h,4h)) -> (N,4h,4h) K float32, params
-    ``unpacked_int8_params`` of a ``quantize_packed_params`` tree (dynamic
-    activation scales) or a ``calibrate_packed_scales`` one (static) on
-    ``device``. The inputs are made in the packed layout, as JAX's step
-    makes them, and un-packed into ``int8_forward``: ``conv_i8_generic`` 18
-    times a batch and no other kernel."""
+    a ``quantize_packed_params`` tree (dynamic activation scales) or a
+    ``calibrate_packed_scales`` one (static) on ``device``: the packed tree
+    itself, as JAX's step takes it, or, without the un-packing on every
+    call, its ``unpacked_int8_params``. The inputs are made in the packed
+    layout, as JAX's step makes them, and un-packed into ``int8_forward``:
+    ``conv_i8_generic`` 18 times a batch and no other kernel."""
     dev = resolve_device(device)
     inputs = _packed_inputs(stats, dev)
 
@@ -171,7 +187,7 @@ def make_int8_packed_sr_step(stats, device: str | torch.device = "cuda"):
     def sr_step(params, lst_blocks, ndvi_blocks):
         lst_up_p, ndvi_p = inputs(lst_blocks, ndvi_blocks)
         x = _depth_to_space(_packed_concat(lst_up_p, 1, ndvi_p, 1), 2)
-        sr = int8_forward(params, x)[..., 0]
+        sr = int8_forward(_int8_tree(params), x)[..., 0]
         return sr * stats.std_lst + stats.mean_lst
 
     return sr_step

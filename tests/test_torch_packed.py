@@ -174,15 +174,37 @@ def test_calibrate_packed_scales_matches_jax(weights, stats, jax_int8_trees):
     assert n == 18
 
 
+@pytest.fixture(scope="module")
+def jax_int8_steps(stats, jax_int8_trees):
+    """JAX's int8 packed step on seeded blocks: calibrated -> (its tree, the
+    blocks, the step's output)."""
+    tree, jcal, _ = jax_int8_trees
+    lst, ndvi = _patches(4)
+    step = jax_qpacked.make_int8_packed_sr_step(stats[1])
+    return {cal: (jtree, (lst, ndvi),
+                  np.asarray(step(jtree, jnp.asarray(lst), jnp.asarray(ndvi))))
+            for cal, jtree in ((True, jcal), (False, tree))}
+
+
+@pytest.fixture(scope="module")
+def jax_int8_forwards(jax_int8_trees):
+    """JAX's int8_packed_forward on seeded packed planes: calibrated -> (its
+    tree, the planes, the packed SR)."""
+    tree, jcal, _ = jax_int8_trees
+    rng = np.random.default_rng(6)
+    lst_up = rng.normal(size=(2, 32, 32, 4)).astype(np.float32)
+    ndvi = rng.normal(size=(2, 32, 32, 4)).astype(np.float32)
+    return {cal: (jtree, (lst_up, ndvi),
+                  np.asarray(jax_qpacked.int8_packed_forward(jtree, jnp.asarray(lst_up),
+                                                             jnp.asarray(ndvi))))
+            for cal, jtree in ((True, jcal), (False, tree))}
+
+
 @pytest.mark.parametrize("calibrated", [True, False])
-def test_int8_packed_step_matches_jax(weights, stats, jax_int8_trees, calibrated):
+def test_int8_packed_step_matches_jax(stats, jax_int8_steps, calibrated):
     """make_int8_packed_sr_step on JAX's tree carried across, calibrated
     (static scales) or not (dynamic per-sample scales), vs JAX's step."""
-    tree, jcal, _ = jax_int8_trees
-    jtree = jcal if calibrated else tree
-    lst, ndvi = _patches(4)
-    want = np.asarray(jax_qpacked.make_int8_packed_sr_step(stats[1])(
-        jtree, jnp.asarray(lst), jnp.asarray(ndvi)))
+    jtree, (lst, ndvi), want = jax_int8_steps[calibrated]
     got = quantized_packed.make_int8_packed_sr_step(stats[0], "cpu")(
         quantized_packed.unpacked_int8_params(jax_tree_to_torch(jax.device_get(jtree))),
         lst, ndvi).numpy()
@@ -192,10 +214,26 @@ def test_int8_packed_step_matches_jax(weights, stats, jax_int8_trees, calibrated
     assert 250.0 < got.min() and got.max() < 350.0
 
 
+@pytest.mark.parametrize("calibrated", [True, False])
+def test_int8_packed_step_takes_jax_packed_tree(stats, jax_int8_steps, calibrated):
+    """JAX's packed tree, carried across and passed as it is (as JAX's step
+    takes it), runs through the port's step: within the bounds of JAX's
+    step, and identical to the step on the tree un-packed beforehand."""
+    jtree, (lst, ndvi), want = jax_int8_steps[calibrated]
+    tree = jax_tree_to_torch(jax.device_get(jtree))
+    assert tree.keys() == {"mid", "packed"}
+    step = quantized_packed.make_int8_packed_sr_step(stats[0], "cpu")
+    got = step(tree, lst, ndvi)
+    rmse, dmax = _diffs(got.numpy(), want)
+    assert rmse < RMSE_K and dmax < MAX_K, (rmse, dmax)
+    assert torch.equal(got, step(quantized_packed.unpacked_int8_params(tree), lst, ndvi))
+
+
 def test_int8_packed_step_runs_18_generic_convs(weights, stats, monkeypatch):
     """One batch runs conv_i8_generic 18 times, once for every conv of the
-    folded model; the five level-0 kernels are unpacked once, where the
-    step's tree is built, and never by the step."""
+    folded model, on either tree: the five level-0 kernels are unpacked once
+    where the step's un-packed tree is built and never by the step on it,
+    and five times a call by the step on the packed tree."""
     calls = {"conv": 0, "unpack": 0}
     conv, unpack = quantized.conv_i8_generic, quantized_packed._unpack_conv_weights
 
@@ -210,8 +248,8 @@ def test_int8_packed_step_runs_18_generic_convs(weights, stats, monkeypatch):
     monkeypatch.setattr(quantized, "conv_i8_generic", counted_conv)
     monkeypatch.setattr(quantized_packed, "_unpack_conv_weights", counted_unpack)
     step = quantized_packed.make_int8_packed_sr_step(stats[0], "cpu")
-    params = quantized_packed.unpacked_int8_params(
-        quantized_packed.quantize_packed_params(weights[0], "cpu"))
+    tree = quantized_packed.quantize_packed_params(weights[0], "cpu")
+    params = quantized_packed.unpacked_int8_params(tree)
     assert calls == {"conv": 0, "unpack": 5}
     lst, ndvi = _patches(5, n=1, size=16)
     first = step(params, lst, ndvi)
@@ -219,6 +257,9 @@ def test_int8_packed_step_runs_18_generic_convs(weights, stats, monkeypatch):
     second = step(params, lst, ndvi)
     assert calls == {"conv": 36, "unpack": 5}
     assert torch.equal(first, second)
+    packed_route = step(tree, lst, ndvi)
+    assert calls == {"conv": 54, "unpack": 10}
+    assert torch.equal(packed_route, first)
 
 
 def test_unpacked_int8_params_is_the_int8_tree(weights, stats, jax_int8_trees):
@@ -241,22 +282,44 @@ def test_unpacked_int8_params_is_the_int8_tree(weights, stats, jax_int8_trees):
     assert count(cal) == 18
 
 
-def test_int8_packed_forward_matches_jax(weights, stats, jax_int8_trees):
+def test_int8_packed_forward_matches_jax(stats, jax_int8_forwards):
     """int8_packed_forward on packed planes, on JAX's calibrated tree carried
     across and un-packed, vs JAX's int8_packed_forward on the packed tree:
     the packed SR within the step's bounds (normalised units x std_lst)."""
-    _, jcal, _ = jax_int8_trees
-    rng = np.random.default_rng(6)
-    lst_up = rng.normal(size=(2, 32, 32, 4)).astype(np.float32)
-    ndvi = rng.normal(size=(2, 32, 32, 4)).astype(np.float32)
-    want = np.asarray(jax_qpacked.int8_packed_forward(jcal, jnp.asarray(lst_up),
-                                                      jnp.asarray(ndvi)))
+    jcal, (lst_up, ndvi), want = jax_int8_forwards[True]
     got = quantized_packed.int8_packed_forward(
         quantized_packed.unpacked_int8_params(jax_tree_to_torch(jax.device_get(jcal))),
         torch.from_numpy(lst_up), torch.from_numpy(ndvi)).numpy()
     assert got.shape == want.shape == (2, 32, 32, 4)
     rmse, dmax = _diffs(got * stats[0].std_lst, want * stats[0].std_lst)
     assert rmse < RMSE_K and dmax < MAX_K, (rmse, dmax)
+
+
+@pytest.mark.parametrize("calibrated", [True, False])
+def test_int8_packed_forward_takes_jax_packed_tree(stats, jax_int8_forwards, calibrated):
+    """int8_packed_forward on JAX's packed tree passed as it is, with JAX's
+    c0: within the step's bounds of JAX's forward, and identical to the
+    forward on the tree un-packed beforehand."""
+    jtree, (lst_up, ndvi), want = jax_int8_forwards[calibrated]
+    tree = jax_tree_to_torch(jax.device_get(jtree))
+    planes = torch.from_numpy(lst_up), torch.from_numpy(ndvi)
+    got = quantized_packed.int8_packed_forward(tree, *planes, c0=16)
+    rmse, dmax = _diffs(got.numpy() * stats[0].std_lst, want * stats[0].std_lst)
+    assert rmse < RMSE_K and dmax < MAX_K, (rmse, dmax)
+    assert torch.equal(got, quantized_packed.int8_packed_forward(
+        quantized_packed.unpacked_int8_params(tree), *planes))
+
+
+@pytest.mark.parametrize("unpacked", [False, True])
+def test_int8_packed_forward_rejects_wrong_c0(weights, unpacked):
+    """A c0 other than the tree's inbloc width (16) raises, on either tree."""
+    tree = quantized_packed.quantize_packed_params(weights[0], "cpu")
+    if unpacked:
+        tree = quantized_packed.unpacked_int8_params(tree)
+    planes = torch.zeros(1, 8, 8, 4), torch.zeros(1, 8, 8, 4)
+    with pytest.raises(ValueError, match="c0=32"):
+        quantized_packed.int8_packed_forward(tree, *planes, c0=32)
+    assert quantized_packed.int8_packed_forward(tree, *planes, c0=16).shape == (1, 8, 8, 4)
 
 
 def test_unpack_conv_weights_inverts_packing(rng):

@@ -26,7 +26,8 @@ print(all(m in sys.modules for m in ("sifsr_tpu_torch.data.native_loader",
                                      "sifsr_tpu_torch.data.datasets",
                                      "sifsr_tpu_torch.parallel",
                                      "sifsr_tpu_torch.parallel.mesh",
-                                     "sifsr_tpu_torch.utils.flops")))
+                                     "sifsr_tpu_torch.utils.flops",
+                                     "sifsr_tpu_torch.tools.bf16_convergence")))
 """
 
 
