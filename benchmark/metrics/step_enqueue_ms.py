@@ -1,0 +1,10 @@
+"""step_enqueue_ms: the mean, over the window's requests, of the time the
+program's ``predict_granule`` spends in its ``step`` spans: the serving
+step's call and the device-to-host enqueue (the program's ``tracing``,
+``harness/program_spans.py``)."""
+
+from benchmark.harness import program_spans
+
+
+def read(rec):
+    return program_spans.span_ms(program_spans.serving_roots(rec), "step")

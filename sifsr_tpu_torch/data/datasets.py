@@ -29,6 +29,7 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
+from sifsr_tpu_torch import tracing
 from sifsr_tpu_torch.data.native_loader import _read_band1, load_batch, native_available
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import resolve_device
@@ -157,13 +158,26 @@ def _to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
 
 
+@tracing.rooted("prepare_batch")
 @torch.no_grad()
 def prepare_batch(batch: dict, device: str | torch.device = "cuda") -> dict:
     """Device-side prep for the standard recipes: move the batch (numpy
     arrays or tensors) to ``device`` and add the bicubic x4 LST upsample as a
     model input channel (reference dataset.py:141, but on the device instead
-    of per-item cv2 on the host)."""
-    batch = _to_device(batch, device)
+    of per-item cv2 on the host).
+
+    Under ``tracing``: a ``prepare_batch`` root with the spans ``upload``
+    (the pageable host-to-device copy) and, on CUDA with host arrays in the
+    batch, ``wait``: the copy waits for the stream's queued work anyway, so
+    under tracing the stream is synchronised just before it, to give that
+    wait a span of its own."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and tracing.enabled() and any(
+            not torch.is_tensor(v) or v.device.type == "cpu" for v in batch.values()):
+        with tracing.span("wait"):
+            torch.cuda.current_stream(dev).synchronize()
+    with tracing.span("upload"):
+        batch = _to_device(batch, dev)
     lst = batch["lst"]
     lst_up = upsample_bicubic(lst.movedim(-1, 1), 4).movedim(1, -1)
     return {"lst": lst, "lst_up": lst_up, "ndvi": batch["ndvi"]}

@@ -13,6 +13,17 @@ of batch i+1 (pinned host memory, its own stream) and the download of batch
 i-1 overlap the compute of batch i, with ``pipeline_depth`` batches in
 flight (``mode='host_pipeline'``).
 
+Under ``tracing`` each call is a ``predict_granule`` root with the stage
+spans ``tile`` (the NDVI clip, the float32 cast, tiling, the coverage mask,
+the output's allocation), ``pad`` (each batch's contiguous copy and its
+zero padding to ``batch_size``), ``upload`` (the pinned staging copy and
+the host-to-device enqueue), ``step`` (the serving step and the
+device-to-host enqueue), ``wait`` (the host waiting on the device) and
+``mosaic`` (decoding, scattering, masking and untiling), and the counters
+``blocks`` (real blocks), ``rows`` (batch rows stepped, padding included:
+this rank's under a mesh) and ``host_bytes`` (the bytes of every host
+array the call creates; torch's cached pinned buffers are not counted).
+
 ``device_tiling`` instead uploads the granule once, tiles it, masks by
 coverage, runs the batches and assembles the mosaic on the device, and
 downloads the mosaic once. ``wire='int'`` ships LST as uint16 (0.02 K a
@@ -38,6 +49,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from sifsr_tpu_torch import tracing
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import full_f32_convs, resolve_device
 from sifsr_tpu_torch.models.fused import InferenceModelB2
@@ -67,6 +79,15 @@ def untile_mosaic(blocks: np.ndarray, grid: tuple[int, int]) -> np.ndarray:
     gh, gw = grid
     fwin = blocks.shape[-1]
     return blocks.reshape(gh, gw, fwin, fwin).transpose(0, 2, 1, 3).reshape(gh * fwin, gw * fwin)
+
+
+def _fresh(a: np.ndarray, *sources) -> np.ndarray:
+    """``a``; under tracing its bytes count as ``host_bytes`` of the open
+    root unless it shares memory with one of ``sources`` (a view, or a cast
+    that did not copy)."""
+    if tracing.enabled() and not any(np.may_share_memory(a, s) for s in sources):
+        tracing.count("host_bytes", a.nbytes)
+    return a
 
 
 def _as_f32(x, device: torch.device) -> torch.Tensor:
@@ -116,8 +137,12 @@ WIRE_NDVI_STEP = 1e-4  # per LSB, int16
 
 def encode_wire(lst: np.ndarray, ndvi: np.ndarray):
     """float32 Kelvin / NDVI -> (uint16, int16) wire arrays (2 bytes/px)."""
-    lst_w = np.clip(np.round(lst / WIRE_LST_STEP), 0, 65535).astype(np.uint16)
-    ndvi_w = np.clip(np.round(ndvi / WIRE_NDVI_STEP), -32768, 32767).astype(np.int16)
+    lst_q = np.clip(np.round(lst / WIRE_LST_STEP), 0, 65535)
+    ndvi_q = np.clip(np.round(ndvi / WIRE_NDVI_STEP), -32768, 32767)
+    lst_w, ndvi_w = lst_q.astype(np.uint16), ndvi_q.astype(np.int16)
+    # each input leaves three float temporaries (quotient, rounding, clip)
+    tracing.count("host_bytes", 3 * (lst_q.nbytes + ndvi_q.nbytes) + lst_w.nbytes
+                  + ndvi_w.nbytes)
     return lst_w, ndvi_w
 
 
@@ -128,7 +153,9 @@ def _u16_bits(a: np.ndarray) -> np.ndarray:
 
 
 def _decode_wire_out(a: np.ndarray) -> np.ndarray:
-    return a.view(np.uint16).astype(np.float32) * WIRE_LST_STEP
+    out = a.view(np.uint16).astype(np.float32) * WIRE_LST_STEP
+    tracing.count("host_bytes", 2 * out.nbytes)    # the cast and the product
+    return out
 
 
 def _wire_step(sr_step, dev: torch.device):
@@ -153,7 +180,7 @@ def _wire_step(sr_step, dev: torch.device):
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(_u16_bits(a)))
+    t = torch.from_numpy(_fresh(np.ascontiguousarray(_u16_bits(a)), a))
     if dev.type != "cuda":
         return t
     return t.pin_memory().to(dev, non_blocking=True)
@@ -164,7 +191,8 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
         return t.numpy()
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
+    with tracing.span("wait"):
+        torch.cuda.current_stream(t.device).synchronize()
     return host.numpy()
 
 
@@ -180,25 +208,31 @@ def _run_device_tiling(step, params, lst_g: np.ndarray, ndvi_g: np.ndarray, wind
     nt = gh * gw
     k = -(-nt // bs)
     pad = k * bs - nt
-    lst_d, ndvi_d = _to_device(lst_g, dev), _to_device(ndvi_g, dev)
-    lst_t = (lst_d[: gh * window, : gw * window].reshape(gh, window, gw, window)
-             .permute(0, 2, 1, 3).reshape(nt, window, window))
-    ndvi_t = (ndvi_d[: gh * fwin, : gw * fwin].reshape(gh, fwin, gw, fwin)
-              .permute(0, 2, 1, 3).reshape(nt, fwin, fwin))
-    keep = (lst_t == 0).to(torch.float32).mean(dim=(1, 2)) <= coverage
-    if pad:
-        lst_t = torch.cat([lst_t, lst_t.new_zeros((pad, window, window))])
-        ndvi_t = torch.cat([ndvi_t, ndvi_t.new_zeros((pad, fwin, fwin))])
+    with tracing.span("upload"):
+        lst_d, ndvi_d = _to_device(lst_g, dev), _to_device(ndvi_g, dev)
+    with tracing.span("tile"):
+        lst_t = (lst_d[: gh * window, : gw * window].reshape(gh, window, gw, window)
+                 .permute(0, 2, 1, 3).reshape(nt, window, window))
+        ndvi_t = (ndvi_d[: gh * fwin, : gw * fwin].reshape(gh, fwin, gw, fwin)
+                  .permute(0, 2, 1, 3).reshape(nt, fwin, fwin))
+        keep = (lst_t == 0).to(torch.float32).mean(dim=(1, 2)) <= coverage
+        if pad:
+            lst_t = torch.cat([lst_t, lst_t.new_zeros((pad, window, window))])
+            ndvi_t = torch.cat([ndvi_t, ndvi_t.new_zeros((pad, fwin, fwin))])
+    tracing.count("rows", k * bs)
     sr = None
-    for i in range(k):
-        out = step(params, lst_t[i * bs:(i + 1) * bs], ndvi_t[i * bs:(i + 1) * bs])
-        if sr is None:
-            sr = out.new_empty((k * bs, fwin, fwin))
-        sr[i * bs:(i + 1) * bs] = out
-    sr = sr[:nt]
-    sr = torch.where(keep[:, None, None], sr, sr.new_zeros(()))
-    mosaic = sr.reshape(gh, gw, fwin, fwin).permute(0, 2, 1, 3).reshape(gh * fwin, gw * fwin)
-    return _to_host(mosaic.contiguous())
+    with tracing.span("step"):
+        for i in range(k):
+            out = step(params, lst_t[i * bs:(i + 1) * bs], ndvi_t[i * bs:(i + 1) * bs])
+            if sr is None:
+                sr = out.new_empty((k * bs, fwin, fwin))
+            sr[i * bs:(i + 1) * bs] = out
+    with tracing.span("mosaic"):
+        sr = sr[:nt]
+        sr = torch.where(keep[:, None, None], sr, sr.new_zeros(()))
+        mosaic = (sr.reshape(gh, gw, fwin, fwin).permute(0, 2, 1, 3)
+                  .reshape(gh * fwin, gw * fwin).contiguous())
+    return _to_host(mosaic)
 
 
 _LINK_PROBE_CACHE: dict = {}
@@ -335,39 +369,45 @@ class _Pipeline:
 
     def submit(self, start, stop, step, params, lst_b, ndvi_b):
         if not self.cuda:
-            self.pending.append((start, stop, step(params, _to_device(lst_b, self.device),
-                                                   _to_device(ndvi_b, self.device)), None))
+            with tracing.span("upload"):
+                lst_d, ndvi_d = _to_device(lst_b, self.device), _to_device(ndvi_b, self.device)
+            with tracing.span("step"):
+                self.pending.append((start, stop, step(params, lst_d, ndvi_d), None))
         else:
             compute = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self.h2d):
+            with tracing.span("upload"), torch.cuda.stream(self.h2d):
                 lst_d = _to_device(lst_b, self.device)
                 ndvi_d = _to_device(ndvi_b, self.device)
-            compute.wait_stream(self.h2d)
-            lst_d.record_stream(compute)
-            ndvi_d.record_stream(compute)
-            sr = step(params, lst_d, ndvi_d)
-            self.d2h.wait_stream(compute)
-            with torch.cuda.stream(self.d2h):
-                host = torch.empty(sr.shape, dtype=sr.dtype, pin_memory=True)
-                host.copy_(sr, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.d2h)
-            sr.record_stream(self.d2h)
-            self.pending.append((start, stop, host, done))
+            with tracing.span("step"):
+                compute.wait_stream(self.h2d)
+                lst_d.record_stream(compute)
+                ndvi_d.record_stream(compute)
+                sr = step(params, lst_d, ndvi_d)
+                self.d2h.wait_stream(compute)
+                with torch.cuda.stream(self.d2h):
+                    host = torch.empty(sr.shape, dtype=sr.dtype, pin_memory=True)
+                    host.copy_(sr, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(self.d2h)
+                sr.record_stream(self.d2h)
+                self.pending.append((start, stop, host, done))
         if len(self.pending) >= self.depth:
             self.drain_one()
 
     def drain_one(self):
         start, stop, out, done = self.pending.popleft()
-        if done is not None:
-            done.synchronize()
-        self.consume(start, stop, out.numpy())
+        with tracing.span("wait"):
+            if done is not None:
+                done.synchronize()
+        with tracing.span("mosaic"):
+            self.consume(start, stop, out.numpy())
 
     def finish(self):
         while self.pending:
             self.drain_one()
 
 
+@tracing.rooted("predict_granule")
 def predict_granule(
     variables,
     lst_granule: np.ndarray,
@@ -455,20 +495,21 @@ def predict_granule(
         else:
             raise ValueError(f"mode must be host_pipeline/device_tiling/device_tiling_wire/auto, "
                              f"got {mode!r}")
-    if ndvi_clip:
-        ndvi_granule = np.clip(ndvi_granule, -1.0, 1.0)  # predict.py:88-89
     if wire not in (None, "int"):
         raise ValueError(f"wire must be None or 'int', got {wire!r}")
-    if wire == "int":
-        if mesh is not None:
-            raise ValueError("wire='int' is a single-device transfer optimisation; "
-                             "use wire=None with mesh")
-        lst_granule, ndvi_granule = encode_wire(lst_granule, ndvi_granule)
-        batch_step, decode_out = _wire_step(sr_step, dev), _decode_wire_out
-    else:
-        lst_granule = np.asarray(lst_granule, np.float32)
-        ndvi_granule = np.asarray(ndvi_granule, np.float32)
-        batch_step, decode_out = sr_step, np.asarray
+    if wire == "int" and mesh is not None:
+        raise ValueError("wire='int' is a single-device transfer optimisation; "
+                         "use wire=None with mesh")
+    with tracing.span("tile"):
+        if ndvi_clip:
+            ndvi_granule = _fresh(np.clip(ndvi_granule, -1.0, 1.0))  # predict.py:88-89
+        if wire == "int":
+            lst_granule, ndvi_granule = encode_wire(lst_granule, ndvi_granule)
+            batch_step, decode_out = _wire_step(sr_step, dev), _decode_wire_out
+        else:
+            lst_granule = _fresh(np.asarray(lst_granule, np.float32), lst_granule)
+            ndvi_granule = _fresh(np.asarray(ndvi_granule, np.float32), ndvi_granule)
+            batch_step, decode_out = sr_step, np.asarray
     rows = slice(0, batch_size)
     if mesh is not None:
         if batch_size % mesh.size:
@@ -486,13 +527,19 @@ def predict_granule(
         for start in range(0, n, batch_size):
             stop = min(start + batch_size, n)
             pad = batch_size - (stop - start)
-            lst_b = np.ascontiguousarray(lst_blocks[start:stop])
-            ndvi_b = np.ascontiguousarray(ndvi_blocks[start:stop])
-            if pad:
-                lst_b = np.concatenate([lst_b, np.zeros((pad, window, window), lst_b.dtype)])
-                ndvi_b = np.concatenate([ndvi_b, np.zeros((pad, fwin, fwin), ndvi_b.dtype)])
+            with tracing.span("pad"):
+                lst_b = _fresh(np.ascontiguousarray(lst_blocks[start:stop]), lst_blocks)
+                ndvi_b = _fresh(np.ascontiguousarray(ndvi_blocks[start:stop]), ndvi_blocks)
+                if pad:
+                    lst_b = _fresh(np.concatenate(
+                        [lst_b, _fresh(np.zeros((pad, window, window), lst_b.dtype))]))
+                    ndvi_b = _fresh(np.concatenate(
+                        [ndvi_b, _fresh(np.zeros((pad, fwin, fwin), ndvi_b.dtype))]))
+            tracing.count("rows", lst_b[rows].shape[0])
             pipe.submit(start, stop, batch_step, step_params, lst_b[rows], ndvi_b[rows])
         pipe.finish()
+        with tracing.span("pad"):
+            lst_b = ndvi_b = None     # the last batch's release is padding's cost too
 
     if device_tiling:
         if mesh is not None:
@@ -502,21 +549,33 @@ def predict_granule(
             raise ValueError("device_tiling does not implement overlap blending; "
                              "use the host pipeline (device_tiling=False) with overlap")
         nt = (lst_granule.shape[0] // window) * (lst_granule.shape[1] // window)
-        return decode_out(_run_device_tiling(batch_step, step_params, lst_granule, ndvi_granule,
-                                             window, factor, min(batch_size, nt), coverage, dev))
+        tracing.count("blocks", nt)
+        mosaic = _run_device_tiling(batch_step, step_params, lst_granule, ndvi_granule, window,
+                                    factor, min(batch_size, nt), coverage, dev)
+        with tracing.span("mosaic"):
+            return decode_out(mosaic)
 
     if overlap == 0:
-        lst_blocks, ndvi_blocks, grid = tile_granule(lst_granule, ndvi_granule, window, factor)
-        n = lst_blocks.shape[0]
-        keep = (lst_blocks == 0.0).mean(axis=(1, 2)) <= coverage
-        out = np.zeros((n, fwin, fwin), dtype=np.float32)
+        with tracing.span("tile"):
+            lst_blocks, ndvi_blocks, grid = tile_granule(lst_granule, ndvi_granule, window,
+                                                         factor)
+            _fresh(lst_blocks, lst_granule)
+            _fresh(ndvi_blocks, ndvi_granule)
+            n = lst_blocks.shape[0]
+            keep = _fresh(lst_blocks == 0.0).mean(axis=(1, 2)) <= coverage
+            out = _fresh(np.zeros((n, fwin, fwin), dtype=np.float32))
+        tracing.count("blocks", n)
 
         def consume(start, stop, sr):
             out[start:stop] = sr[: stop - start]
 
         run_batches(lst_blocks, ndvi_blocks, n, consume)
-        out[~keep] = 0.0
-        return untile_mosaic(out, grid)
+        with tracing.span("mosaic"):
+            out[~keep] = 0.0
+            mosaic = _fresh(untile_mosaic(out, grid), out)
+            # the call's host arrays are released in this stage, not after it
+            del out, lst_blocks, ndvi_blocks, lst_granule, ndvi_granule
+        return mosaic
 
     # ---- overlapped tiles with trapezoid blending
     stride = window - overlap
@@ -531,22 +590,25 @@ def predict_granule(
         xs.append(w_lim - window)
     origins = [(y, x) for y in ys for x in xs]
 
-    lst_blocks = np.stack([lst_granule[y : y + window, x : x + window] for y, x in origins])
-    ndvi_blocks = np.stack(
-        [ndvi_granule[factor * y : factor * (y + window), factor * x : factor * (x + window)]
-         for y, x in origins]
-    )
-    keep = (lst_blocks == 0.0).mean(axis=(1, 2)) <= coverage
+    with tracing.span("tile"):
+        lst_blocks = _fresh(np.stack([lst_granule[y : y + window, x : x + window]
+                                      for y, x in origins]))
+        ndvi_blocks = _fresh(np.stack(
+            [ndvi_granule[factor * y : factor * (y + window), factor * x : factor * (x + window)]
+             for y, x in origins]
+        ))
+        keep = _fresh(lst_blocks == 0.0).mean(axis=(1, 2)) <= coverage
 
-    ramp = overlap * factor
-    taper_1d = np.ones(fwin, np.float32)
-    if ramp > 0:
-        taper_1d[:ramp] = np.linspace(1.0 / (ramp + 1), 1.0, ramp, endpoint=False)
-        taper_1d[-ramp:] = taper_1d[:ramp][::-1]
-    taper = np.outer(taper_1d, taper_1d)
+        ramp = overlap * factor
+        taper_1d = np.ones(fwin, np.float32)
+        if ramp > 0:
+            taper_1d[:ramp] = np.linspace(1.0 / (ramp + 1), 1.0, ramp, endpoint=False)
+            taper_1d[-ramp:] = taper_1d[:ramp][::-1]
+        taper = np.outer(taper_1d, taper_1d)
 
-    acc = np.zeros((h_lim * factor, w_lim * factor), np.float64)
-    wacc = np.zeros_like(acc)
+        acc = _fresh(np.zeros((h_lim * factor, w_lim * factor), np.float64))
+        wacc = _fresh(np.zeros_like(acc))
+    tracing.count("blocks", len(origins))
 
     def consume(start, stop, sr):
         for k in range(stop - start):
@@ -554,9 +616,11 @@ def predict_granule(
                 continue
             y, x = origins[start + k]
             sl = np.s_[factor * y : factor * y + fwin, factor * x : factor * x + fwin]
-            acc[sl] += sr[k] * taper
+            acc[sl] += _fresh(sr[k] * taper)
             wacc[sl] += taper
 
     run_batches(lst_blocks, ndvi_blocks, len(origins), consume)
-    out = np.where(wacc > 0, acc / np.maximum(wacc, 1e-12), 0.0)
-    return out.astype(np.float32)
+    with tracing.span("mosaic"):
+        covered = _fresh(wacc > 0)
+        out = _fresh(np.where(covered, _fresh(acc / _fresh(np.maximum(wacc, 1e-12))), 0.0))
+        return _fresh(out.astype(np.float32))

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from sifsr_tpu_torch import tracing
 from sifsr_tpu_torch.device import full_f32
 from sifsr_tpu_torch.eval.metrics import psnr_batch_mean, ssim_batch_mean
 from sifsr_tpu_torch.losses.losses import (
@@ -106,6 +107,9 @@ def make_train_step(
     ``parallel.make_parallel_train_step``), and ``model``'s BatchNorms are
     converted to the group's in place.
 
+    Under ``tracing`` each call is a ``train_step`` root: the host's time
+    to enqueue the forward, the losses, the backward, Adam and the metrics.
+
     ``remat``: the model rematerialises block by block
     (``ModelB2.forward(x, remat=True)``): only the blocks' inputs are held
     across the backward pass, at about one extra forward and the same
@@ -118,6 +122,7 @@ def make_train_step(
     if mesh is not None:
         convert_batchnorm(model, mesh)
 
+    @tracing.rooted("train_step")
     def train_step(state: SifTrainState, batch: dict):
         model.train()
         with full_f32(exact):

@@ -1,0 +1,296 @@
+"""The port's tracing (``sifsr_tpu_torch.tracing``) on the CPU: off by
+default and without effect on the mosaic; the roots, stage spans and
+counters of ``predict_granule`` in each of its paths, ``prepare_batch`` and
+``train_step``; the profiler's annotations; the ring's capacity; spans and
+counts with no open root.
+
+The granule is 32x48 LST at window 16 (2x3 = 6 blocks) with a 128x192
+NDVI, served at batch 8, so its one batch is padded by 2 rows."""
+
+import os
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from sifsr_tpu_torch import inference, tracing
+from sifsr_tpu_torch.cli.predict import load_variables
+from sifsr_tpu_torch.data.datasets import prepare_batch
+from sifsr_tpu_torch.data.statistics import Statistics
+from sifsr_tpu_torch.models.unet import ModelB2
+from sifsr_tpu_torch.train.state import create_train_state
+from sifsr_tpu_torch.train.step import make_train_step
+
+ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
+WEIGHTS = os.path.join(ROOT, "weights", "modelB_1009")
+STATS_JSON = os.path.join(ROOT, "data", "statistics_testset.json")
+WINDOW, FACTOR, BATCH = 16, 4, 8
+STAGES = {"tile", "pad", "upload", "step", "wait", "mosaic"}
+F32 = 4
+
+
+@pytest.fixture(autouse=True)
+def fresh_tracing():
+    tracing.disable()
+    tracing.clear()
+    yield
+    tracing.disable()
+    tracing.clear()
+
+
+@pytest.fixture(scope="module")
+def stats():
+    return Statistics.from_json(STATS_JSON)
+
+
+@pytest.fixture(scope="module")
+def variables():
+    return load_variables(WEIGHTS)
+
+
+@pytest.fixture(scope="module")
+def granule():
+    rng = np.random.default_rng(11)
+    lst = (296.0 + 20.0 * rng.random((32, 48))).astype(np.float32)
+    ndvi = (-0.2 + 1.4 * rng.random((128, 192))).astype(np.float32)   # some clipped
+    return lst, ndvi
+
+
+def _stub_step(params, lst, ndvi):
+    """A serving step without a model: the LST block's mean over the NDVI."""
+    return ndvi + lst.mean(dim=(1, 2))[:, None, None]
+
+
+def _predict(granule, stats, variables=None, **kw):
+    kw.setdefault("sr_step", _stub_step if variables is None else None)
+    return inference.predict_granule(variables or {}, *granule, stats, batch_size=BATCH,
+                                     window=WINDOW, factor=FACTOR, compute_dtype=torch.float32,
+                                     device="cpu", **kw)
+
+
+def _roots(name="predict_granule"):
+    return [r for r in tracing.records() if r["name"] == name]
+
+
+def _check_tree(root):
+    """Every span is the root's, nests within its parent, and ends after it starts."""
+    by_id = {root["id"]: root, **{s["id"]: s for s in root["spans"]}}
+    assert root["root"] == root["id"] and root["start_ns"] <= root["end_ns"]
+    for s in root["spans"]:
+        assert s["root"] == root["id"]
+        parent = by_id[s["parent"]]
+        assert parent["start_ns"] <= s["start_ns"] <= s["end_ns"] <= parent["end_ns"]
+
+
+def test_off_records_nothing_and_the_mosaic_is_bitwise_equal(granule, stats, variables):
+    assert not tracing.enabled()
+    off = _predict(granule, stats, variables)
+    assert tracing.records() == []
+    tracing.enable()
+    on = _predict(granule, stats, variables)
+    assert len(_roots()) == 1
+    assert on.dtype == off.dtype and on.shape == (128, 192)
+    np.testing.assert_array_equal(on, off)
+    assert np.all(on > 250.0)
+
+
+def test_host_pipeline_root_stages_and_counts(granule, stats):
+    tracing.enable()
+    _predict(granule, stats)
+    (root,) = _roots()
+    _check_tree(root)
+    assert {s["name"] for s in root["spans"]} == STAGES
+    assert all(s["parent"] == root["id"] for s in root["spans"])
+    n, fwin = 6, WINDOW * FACTOR
+    lst_block, ndvi_block = WINDOW * WINDOW * F32, fwin * fwin * F32
+    want = (128 * 192 * F32                        # the NDVI clip
+            + n * (lst_block + ndvi_block)         # the tile copies
+            + n * WINDOW * WINDOW                  # the coverage test's mask (bool)
+            + n * ndvi_block                       # out
+            + 2 * (lst_block + ndvi_block)         # the padding's zeros
+            + BATCH * (lst_block + ndvi_block)     # the padded batch
+            + n * ndvi_block)                      # the untiled mosaic
+    assert root["counts"] == {"blocks": n, "rows": BATCH, "host_bytes": want}
+
+
+def test_stage_spans_cover_the_root(granule, stats, variables):
+    """The six stages hold nearly all of a call with the step given."""
+    from sifsr_tpu_torch.models.fused import InferenceModelB2
+
+    step = inference.make_sr_step(stats, torch.float32, "cpu")
+    params = InferenceModelB2.from_variables(variables).to("cpu", torch.float32)
+    tracing.enable()
+    _predict(granule, stats, sr_step=step, step_params=params)
+    (root,) = _roots()
+    inside = sum(s["end_ns"] - s["start_ns"] for s in root["spans"])
+    assert inside >= 0.9 * (root["end_ns"] - root["start_ns"])
+
+
+def test_overlap_path_opens_the_root_and_its_stages(granule, stats):
+    tracing.enable()
+    _predict(granule, stats, overlap=4)
+    (root,) = _roots()
+    _check_tree(root)
+    assert {s["name"] for s in root["spans"]} == STAGES
+    # origins at stride 12 over 32x48: rows 0, 12, 16; columns 0, 12, 24, 32
+    assert root["counts"]["blocks"] == 12 and root["counts"]["rows"] == 16
+    assert root["counts"]["host_bytes"] > 2 * 128 * 192 * 8        # the two float64 sums
+
+
+@pytest.mark.parametrize("wire", [None, "int"])
+def test_device_tiling_opens_the_root_and_its_stages(granule, stats, wire):
+    tracing.enable()
+    _predict(granule, stats, device_tiling=True, wire=wire)
+    (root,) = _roots()
+    _check_tree(root)
+    # on the CPU nothing is waited for: the mosaic is the step's own memory
+    assert {s["name"] for s in root["spans"]} == STAGES - {"pad", "wait"}
+    assert root["counts"]["blocks"] == 6 and root["counts"]["rows"] == 6
+    clip = 128 * 192 * F32
+    if wire is None:
+        assert root["counts"]["host_bytes"] == clip
+    else:        # encode: three float temporaries and the code, each input; decode: two
+        codes = (32 * 48 + 128 * 192) * 2
+        want = clip + 3 * 2 * codes + codes + 2 * 128 * 192 * F32
+        assert root["counts"]["host_bytes"] == want
+
+
+def test_wire_host_pipeline_counts_encode_and_decode(granule, stats):
+    tracing.enable()
+    _predict(granule, stats, wire="int")
+    (root,) = _roots()
+    n, fwin = 6, WINDOW * FACTOR
+    codes = (32 * 48 + 128 * 192) * 2                # uint16 LST and int16 NDVI
+    block = (WINDOW * WINDOW + fwin * fwin) * 2      # one block pair on the wire
+    want = (128 * 192 * F32                          # the NDVI clip
+            + 3 * 2 * codes + codes                  # encode: three float temporaries, the codes
+            + n * block                              # the tile copies
+            + n * WINDOW * WINDOW                    # the coverage test's mask
+            + n * fwin * fwin * F32                  # out
+            + (2 + BATCH) * block                    # the padding's zeros, the padded batch
+            + 2 * BATCH * fwin * fwin * F32          # decode: the cast and the product
+            + n * fwin * fwin * F32)                 # the untiled mosaic
+    assert root["counts"] == {"blocks": n, "rows": BATCH, "host_bytes": want}
+
+
+def test_profiler_annotations_without_enable(granule, stats):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        assert tracing.enabled()
+        _predict(granule, stats)
+    assert not tracing.enabled()
+    events = [e for e in prof.events() if e.name.startswith(tracing.PREFIX)]
+    roots = [e for e in events if e.name == "sifsr.predict_granule"]
+    assert len(roots) == 1
+    r = roots[0].time_range
+    stages = [e for e in events if e is not roots[0]]
+    assert {e.name for e in stages} == {tracing.PREFIX + s for s in STAGES}
+    for e in stages:
+        assert r.start <= e.time_range.start <= e.time_range.end <= r.end
+    (root,) = _roots()                               # and the records are kept
+    assert len(root["spans"]) == len(stages)
+
+
+def test_prepare_batch_and_train_step_roots():
+    model = ModelB2(downchannels=(4, 8, 16, 32))
+    state = create_train_state(model, 1e-3, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+    step = make_train_step(model, "predef_filters", 0.99, -0.5, 300.0, 8.0)
+    rng = np.random.default_rng(0)
+    batch = {"lst": rng.normal(size=(2, 8, 8, 1)).astype(np.float32),
+             "ndvi": rng.normal(size=(2, 32, 32, 1)).astype(np.float32)}
+    tracing.enable()
+    for _ in range(2):
+        _, metrics = step(state, prepare_batch(batch, "cpu"))
+    assert np.isfinite(float(metrics["loss"]))
+    names = [r["name"] for r in tracing.records()]
+    assert names == ["prepare_batch", "train_step"] * 2
+    for r in _roots("prepare_batch"):
+        _check_tree(r)
+        assert [s["name"] for s in r["spans"]] == ["upload"]    # no stream to wait on
+    for r in _roots("train_step"):
+        assert r["spans"] == [] and r["end_ns"] > r["start_ns"]
+
+
+def test_the_ring_drops_its_oldest_roots():
+    tracing.enable()
+    for i in range(tracing.CAPACITY + 3):
+        with tracing.root("r"):
+            tracing.count("i", i)
+    got = tracing.records()
+    assert len(got) == tracing.CAPACITY
+    assert got[0]["counts"] == {"i": 3} and got[-1]["counts"] == {"i": tracing.CAPACITY + 2}
+    got.clear()                                       # a copy: the ring is unchanged
+    assert len(tracing.records()) == tracing.CAPACITY
+
+
+def test_a_span_or_count_with_no_open_root_keeps_nothing():
+    tracing.enable()
+    with tracing.span("alone"):
+        with tracing.span("inner"):
+            tracing.count("n", 1)
+    tracing.count("n", 1)
+    assert tracing.records() == []
+    with tracing.root("r"):
+        pass
+    (r,) = tracing.records()
+    assert r["spans"] == [] and r["counts"] == {}
+
+
+def test_nested_roots_and_counts_go_to_the_innermost_root():
+    tracing.enable()
+    with tracing.root("outer"):
+        tracing.count("n", 1)
+        with tracing.span("s"):
+            with tracing.root("inner"):
+                tracing.count("n", 10)
+                with tracing.span("t"):
+                    pass
+        tracing.count("n", 2)
+    inner, outer = tracing.records()              # a root enters the ring as it ends
+    assert (inner["name"], outer["name"]) == ("inner", "outer")
+    assert outer["counts"] == {"n": 3} and inner["counts"] == {"n": 10}
+    (s,) = outer["spans"]
+    assert inner["parent"] == s["id"] and inner["root"] == inner["id"] != outer["id"]
+    assert [t["root"] for t in inner["spans"]] == [inner["id"]]
+
+
+def test_off_is_one_shared_no_op():
+    assert tracing.span("a") is tracing.root("b") is tracing.span("c")
+    with tracing.span("a") as entered:
+        tracing.count("n", 1)
+    assert entered is None
+    with pytest.raises(KeyError):                     # an exception passes through
+        with tracing.root("b"):
+            raise KeyError("b")
+    tracing.enable()
+    assert tracing.span("a") is not tracing.span("a")
+    tracing.disable()
+    assert tracing.records() == []
+
+
+def test_threads_keep_their_own_open_spans():
+    tracing.enable()
+    ready, go = threading.Barrier(2), threading.Event()
+
+    def work(name):
+        with tracing.root(name):
+            ready.wait(timeout=10)
+            with tracing.span(name + ".stage"):
+                go.wait(timeout=10)
+            tracing.count(name, 1)
+
+    threads = [threading.Thread(target=work, args=(n,)) for n in ("a", "b")]
+    for t in threads:
+        t.start()
+    go.set()
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    roots = {r["name"]: r for r in tracing.records()}
+    for name in ("a", "b"):
+        r = roots[name]
+        _check_tree(r)
+        assert [s["name"] for s in r["spans"]] == [name + ".stage"]
+        assert r["counts"] == {name: 1}
