@@ -2625,7 +2625,9 @@ def dp_worker(spec_path: str) -> None:
     downchannels, batch (global), hw, seed, threads and out, and optionally
     weights (start from weights/modelB_1009 instead of the seeded init),
     synthetic (``dp_batch``'s), bn, granule (an .npz of lst and ndvi),
-    serving ('f32' or 'prow'), granule_batch, keep_mosaic and time_steps.
+    serving ('f32' or 'prow'), granule_batch, keep_mosaic, tail_granule (an
+    .npz whose blocks leave a last batch that the group does not divide),
+    tail_batch and time_steps.
 
     Joins a gloo group over tcp://127.0.0.1:port, replicates a seeded
     ModelB2, takes one predef_filters step on its shard of the global batch
@@ -2634,8 +2636,10 @@ def dp_worker(spec_path: str) -> None:
     BatchNorm's output, input gradient and running statistics on its shard
     of a seeded input (and the affine gradients summed over the ranks); with
     granule, ``predict_granule(mesh=...)``'s launches and mosaic digest (and
-    the mosaic with keep_mosaic); with time_steps, the median ms of that
-    many further steps (host clock, synchronised)."""
+    the mosaic with keep_mosaic); with tail_granule, its mosaic at
+    tail_batch and the rows this rank stepped (the ``rows`` counter of
+    ``tracing``); with time_steps, the median ms of that many further steps
+    (host clock, synchronised)."""
     from datetime import timedelta
 
     import torch
@@ -2739,6 +2743,18 @@ def dp_worker(spec_path: str) -> None:
             out["mosaic_digest"] = digest(mosaic)
             if spec.get("keep_mosaic"):
                 out["mosaic"] = mosaic
+            if spec.get("tail_granule"):
+                from sifsr_tpu_torch import tracing
+
+                with np.load(spec["tail_granule"]) as z:
+                    lst, ndvi = z["lst"], z["ndvi"]
+                tracing.enable()
+                out["tail_mosaic"] = predict_granule(variables, lst, ndvi, stats,
+                                                     batch_size=spec["tail_batch"], mesh=mesh,
+                                                     **kw)
+                tracing.disable()
+                (root,) = [r for r in tracing.records() if r["name"] == "predict_granule"]
+                out["tail_rows"] = np.int64(root["counts"]["rows"])
         np.savez(spec["out"], **out)
     finally:
         dist.destroy_process_group()

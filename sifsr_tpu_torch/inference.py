@@ -15,14 +15,15 @@ flight (``mode='host_pipeline'``).
 
 Under ``tracing`` each call is a ``predict_granule`` root with the stage
 spans ``tile`` (the NDVI clip, the float32 cast, tiling, the coverage mask,
-the output's allocation), ``pad`` (each batch's contiguous copy and its
-zero padding to ``batch_size``), ``upload`` (the pinned staging copy and
-the host-to-device enqueue), ``step`` (the serving step and the
-device-to-host enqueue), ``wait`` (the host waiting on the device) and
-``mosaic`` (decoding, scattering, masking and untiling), and the counters
-``blocks`` (real blocks), ``rows`` (batch rows stepped, padding included:
-this rank's under a mesh) and ``host_bytes`` (the bytes of every host
-array the call creates; torch's cached pinned buffers are not counted).
+the output's allocation), ``pad`` (each batch's contiguous copy; under a
+mesh, the last batch's zero padding to a multiple of the group's size),
+``upload`` (the pinned staging copy and the host-to-device enqueue),
+``step`` (the serving step and the device-to-host enqueue), ``wait`` (the
+host waiting on the device) and ``mosaic`` (decoding, scattering, masking
+and untiling), and the counters ``blocks`` (real blocks), ``rows`` (batch
+rows stepped: the real blocks on one device, this rank's rows, padding
+included, under a mesh) and ``host_bytes`` (the bytes of every host array
+the call creates; torch's cached pinned buffers are not counted).
 
 ``device_tiling`` instead uploads the granule once, tiles it, masks by
 coverage, runs the batches and assembles the mosaic on the device, and
@@ -443,8 +444,9 @@ def predict_granule(
 
     sr_step/step_params: serving-step override, e.g. the int8 step of
     ``models.int8_serving``; called as sr_step(step_params, lst_batch,
-    ndvi_batch) on the device. The tail batch is zero-padded to
-    ``batch_size`` so every step sees one shape.
+    ndvi_batch) on the device. Batches hold ``batch_size`` blocks but the
+    last, which is stepped at its own rows, unpadded: a step takes any
+    batch of 1 to ``batch_size`` rows.
 
     device_tiling (overlap == 0 only): tile extraction, batching and mosaic
     assembly all run on the device: the granule is uploaded once and the
@@ -467,10 +469,11 @@ def predict_granule(
     stays an explicit knob under 'auto'.
 
     mesh: a ``parallel.Mesh``; every rank of its group calls predict_granule
-    on the same granule. Each batch (the tail zero-padded to ``batch_size``,
-    which must split evenly over the group) is split across the group's
-    devices: each rank uploads and runs its rows on ``mesh.device``, and the
-    rows are gathered so that every rank assembles the whole mosaic. Not
+    on the same granule. ``batch_size`` must split evenly over the group.
+    Each batch is split across the group's devices in equal shards, the last
+    zero-padded only to the least multiple of the group's size at or above
+    its rows: each rank uploads and runs its shard on ``mesh.device``, and
+    the shards are gathered so that every rank assembles the whole mosaic. Not
     combined with ``wire='int'`` or ``device_tiling`` (``ValueError``), as in
     the JAX package; ``device`` is then ``mesh.device``.
     """
@@ -510,12 +513,9 @@ def predict_granule(
             lst_granule = _fresh(np.asarray(lst_granule, np.float32), lst_granule)
             ndvi_granule = _fresh(np.asarray(ndvi_granule, np.float32), ndvi_granule)
             batch_step, decode_out = sr_step, np.asarray
-    rows = slice(0, batch_size)
     if mesh is not None:
         if batch_size % mesh.size:
             raise ValueError(f"batch_size {batch_size} does not split over {mesh.size} devices")
-        shard = batch_size // mesh.size
-        rows = slice(mesh.rank * shard, (mesh.rank + 1) * shard)
         local_step = batch_step
 
         def batch_step(params, lst_b, ndvi_b):  # noqa: F811: this rank's rows in, all out
@@ -526,17 +526,21 @@ def predict_granule(
                          lambda start, stop, out: consume(start, stop, decode_out(out)))
         for start in range(0, n, batch_size):
             stop = min(start + batch_size, n)
-            pad = batch_size - (stop - start)
             with tracing.span("pad"):
                 lst_b = _fresh(np.ascontiguousarray(lst_blocks[start:stop]), lst_blocks)
                 ndvi_b = _fresh(np.ascontiguousarray(ndvi_blocks[start:stop]), ndvi_blocks)
-                if pad:
-                    lst_b = _fresh(np.concatenate(
-                        [lst_b, _fresh(np.zeros((pad, window, window), lst_b.dtype))]))
-                    ndvi_b = _fresh(np.concatenate(
-                        [ndvi_b, _fresh(np.zeros((pad, fwin, fwin), ndvi_b.dtype))]))
-            tracing.count("rows", lst_b[rows].shape[0])
-            pipe.submit(start, stop, batch_step, step_params, lst_b[rows], ndvi_b[rows])
+                if mesh is not None:     # equal shards: pad to the group's next multiple
+                    shard = -(-(stop - start) // mesh.size)
+                    pad = shard * mesh.size - (stop - start)
+                    if pad:
+                        lst_b = _fresh(np.concatenate(
+                            [lst_b, _fresh(np.zeros((pad, window, window), lst_b.dtype))]))
+                        ndvi_b = _fresh(np.concatenate(
+                            [ndvi_b, _fresh(np.zeros((pad, fwin, fwin), ndvi_b.dtype))]))
+                    rows = slice(mesh.rank * shard, (mesh.rank + 1) * shard)
+                    lst_b, ndvi_b = lst_b[rows], ndvi_b[rows]
+            tracing.count("rows", lst_b.shape[0])
+            pipe.submit(start, stop, batch_step, step_params, lst_b, ndvi_b)
         pipe.finish()
         with tracing.span("pad"):
             lst_b = ndvi_b = None     # the last batch's release is padding's cost too

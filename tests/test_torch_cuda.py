@@ -1103,3 +1103,38 @@ def test_int8_packed_step_cuda(cuda):
     assert {k.__name__: k.launches for k in kernels.KERNELS} == {
         k.__name__: 18 if k is kernels.conv_i8_generic else 0 for k in kernels.KERNELS}
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def prow_full_batch():
+    """The int8 ``prow`` step as ``predict --pallas`` builds it (calibrated
+    on one seeded 64² block), with its output on a seeded batch of 324."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built by nvcc for sm_90a)")
+    import os
+
+    from sifsr_tpu_torch.cli.predict import load_variables, make_quantized_step
+    from sifsr_tpu_torch.data.statistics import Statistics
+
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    sd = load_variables(os.path.join(root, "weights", "modelB_1009"))
+    stats = Statistics.from_json(os.path.join(root, "data", "statistics_testset.json"))
+    rng = np.random.default_rng(20)
+    lst = (296.0 + 20.0 * rng.random((324, 64, 64))).astype(np.float32)
+    ndvi = (0.1 + 0.7 * rng.random((324, 256, 256))).astype(np.float32)
+    step, params = make_quantized_step(sd, lst[0], ndvi[0], stats, True, device="cuda")
+    lst, ndvi = torch.from_numpy(lst).cuda(), torch.from_numpy(ndvi).cuda()
+    return step, params, lst, ndvi, step(params, lst, ndvi)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 9])
+def test_int8_prow_step_small_batches_cuda(prow_full_batch, n):
+    """The prow step on n rows (a request's last batch, unpadded) equals the
+    same rows of the step on the 324-row batch, bit for bit, at the batch's
+    start, middle and end: the persistent kernels take fewer tiles than
+    blocks, and a row's result does not depend on the rows beside it."""
+    step, params, lst, ndvi, full = prow_full_batch
+    for start in (0, 157, 324 - n):
+        got = step(params, lst[start:start + n], ndvi[start:start + n])
+        assert got.shape == (n, 256, 256)
+        assert torch.equal(got, full[start:start + n]), (n, start)

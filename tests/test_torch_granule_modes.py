@@ -2,8 +2,9 @@
 device tiling, the integer wire format, the ``mode`` selector with its link
 probe, and the ``pad_impl='fused'`` float step.
 
-The granule is small (48x80 LST at window 16: 15 blocks, a zero-padded tail
-batch at batch 4, one 0 K block masked by coverage) so that the JAX side,
+The granule is small (48x80 LST at window 16: 15 blocks, a last batch of 3
+at batch 4, which the JAX package pads and the port's host pipeline steps
+at its own rows, one 0 K block masked by coverage) so that the JAX side,
 which compiles at the suite's XLA opt level 0, stays quick. Tolerances: the
 float32 steps agree to rtol 1e-5 / atol 2e-4 K (summation order of the
 convs and resize matmuls, as tests/test_torch_int8_serving.py holds the

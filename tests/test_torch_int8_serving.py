@@ -421,8 +421,9 @@ def test_mid_and_up2_impl_are_checked(rng, weights, stats):
 
 
 def _granule(rng):
-    """A small synthetic granule: 16x16 LST windows, 6 blocks (a zero-padded
-    tail batch at batch 4), one 0 K block masked by coverage."""
+    """A small synthetic granule: 16x16 LST windows, 6 blocks (a last batch
+    of 2 at batch 4: JAX pads it, the port does not), one 0 K block masked
+    by coverage."""
     lst = (296.0 + 20.0 * rng.random((32, 48))).astype(np.float32)
     ndvi = (0.1 + 0.7 * rng.random((128, 192))).astype(np.float32)
     lst[:16, :16] = 0.0

@@ -34,7 +34,7 @@ from chip_smoke import (DP_ALPHA, DP_GAMMA, DP_MEAN, DP_STD, dp_batch, run_dp_wo
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 NARROW = (8, 16, 32, 64)
 SPEC = dict(world=2, device="cpu", downchannels=list(NARROW), batch=4, hw=32, seed=0,
-            threads=1, bn=True, granule_batch=4, keep_mosaic=True)
+            threads=1, bn=True, granule_batch=4, keep_mosaic=True, tail_batch=6)
 STATS = os.path.join(ROOT, "data", "statistics_testset.json")
 WEIGHTS = os.path.join(ROOT, "weights", "modelB_1009")
 
@@ -46,12 +46,23 @@ def _granule():
             (0.2 + 0.5 * rng.random((512, 512))).astype(np.float32))
 
 
+def _tail_granule():
+    """A 64x192 LST / 256x768 NDVI granule: 3 blocks, one batch at batch 6,
+    which two ranks split as 2 rows each, one of them zero padding."""
+    rng = np.random.default_rng(5)
+    return ((300 + 5 * rng.random((64, 192))).astype(np.float32),
+            (0.2 + 0.5 * rng.random((256, 768))).astype(np.float32))
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dp")
     lst, ndvi = _granule()
     np.savez(tmp / "granule.npz", lst=lst, ndvi=ndvi)
-    return run_dp_workers(dict(SPEC, granule=str(tmp / "granule.npz")), str(tmp), timeout=120)
+    lst, ndvi = _tail_granule()
+    np.savez(tmp / "tail.npz", lst=lst, ndvi=ndvi)
+    return run_dp_workers(dict(SPEC, granule=str(tmp / "granule.npz"),
+                               tail_granule=str(tmp / "tail.npz")), str(tmp), timeout=120)
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +184,20 @@ def test_predict_granule_with_a_mesh_equals_no_mesh(ranks):
     for r in ranks:
         assert r["mosaic"].shape == want.shape == (512, 512)
         np.testing.assert_array_equal(r["mosaic"], want)
+
+
+def test_predict_granule_mesh_pads_the_tail_to_the_group_only(ranks):
+    """3 blocks at batch 6 over 2 ranks: the batch is padded to 4 rows, not
+    to 6, so each rank steps 2; the mosaic is bit-equal to predict_granule
+    without a mesh, which steps the 3 blocks unpadded."""
+    lst, ndvi = _tail_granule()
+    want = predict_granule(load_variables(WEIGHTS), lst, ndvi, Statistics.from_json(STATS),
+                           batch_size=SPEC["tail_batch"], compute_dtype=torch.float32,
+                           pad_impl="explicit", device="cpu")
+    for r in ranks:
+        assert int(r["tail_rows"]) == 2
+        assert r["tail_mosaic"].shape == want.shape == (256, 768)
+        np.testing.assert_array_equal(r["tail_mosaic"], want)
 
 
 def test_predict_granule_mesh_refusals():

@@ -5,7 +5,8 @@ counters of ``predict_granule`` in each of its paths, ``prepare_batch`` and
 counts with no open root.
 
 The granule is 32x48 LST at window 16 (2x3 = 6 blocks) with a 128x192
-NDVI, served at batch 8, so its one batch is padded by 2 rows."""
+NDVI, served at batch 8, so its one batch is its last: stepped at its own 6
+rows, with no padding."""
 
 import os
 import threading
@@ -107,11 +108,50 @@ def test_host_pipeline_root_stages_and_counts(granule, stats):
     want = (128 * 192 * F32                        # the NDVI clip
             + n * (lst_block + ndvi_block)         # the tile copies
             + n * WINDOW * WINDOW                  # the coverage test's mask (bool)
-            + n * ndvi_block                       # out
-            + 2 * (lst_block + ndvi_block)         # the padding's zeros
-            + BATCH * (lst_block + ndvi_block)     # the padded batch
+            + n * ndvi_block                       # out (the batch is a view of the tiles)
             + n * ndvi_block)                      # the untiled mosaic
-    assert root["counts"] == {"blocks": n, "rows": BATCH, "host_bytes": want}
+    assert root["counts"] == {"blocks": n, "rows": n, "host_bytes": want}
+
+
+def _recording(step, seen):
+    """``step`` that appends the rows of each batch it is given to ``seen``."""
+    def rec(params, lst, ndvi):
+        seen.append((lst.shape[0], ndvi.shape[0]))
+        return step(params, lst, ndvi)
+    return rec
+
+
+@pytest.mark.parametrize("overlap", [0, 4])
+@pytest.mark.parametrize("kind", ["stub", "float32"])
+def test_the_last_batch_is_stepped_at_its_own_rows(granule, stats, variables, kind, overlap):
+    """6 blocks (12 origins at overlap 4) at batch 4 (8) leave a last batch of
+    2 (4) blocks: every step call sees exactly its real rows, the ``rows``
+    counter counts them, and the mosaic is bit-equal to the same granule at
+    a batch that divides the block count."""
+    from sifsr_tpu_torch.models.fused import InferenceModelB2
+
+    if kind == "stub":
+        step, params = _stub_step, None
+    else:
+        step = inference.make_sr_step(stats, torch.float32, "cpu")
+        params = InferenceModelB2.from_variables(variables).to("cpu", torch.float32)
+    n, batch = (6, 4) if overlap == 0 else (12, 8)
+    tracing.enable()
+    got = {}
+    for bs in (batch, n):
+        seen = []
+        tracing.clear()
+        out = inference.predict_granule({}, *granule, stats, batch_size=bs, window=WINDOW,
+                                        factor=FACTOR, overlap=overlap,
+                                        sr_step=_recording(step, seen), step_params=params,
+                                        device="cpu")
+        (root,) = _roots()
+        assert root["counts"]["blocks"] == root["counts"]["rows"] == n
+        got[bs] = out, seen
+    assert got[batch][1] == [(batch, batch), (n - batch, n - batch)]
+    assert got[n][1] == [(n, n)]
+    assert got[n][0].shape == (128, 192) and np.all(got[n][0] > 0.0)
+    np.testing.assert_array_equal(got[batch][0], got[n][0])
 
 
 def test_stage_spans_cover_the_root(granule, stats, variables):
@@ -133,8 +173,9 @@ def test_overlap_path_opens_the_root_and_its_stages(granule, stats):
     (root,) = _roots()
     _check_tree(root)
     assert {s["name"] for s in root["spans"]} == STAGES
-    # origins at stride 12 over 32x48: rows 0, 12, 16; columns 0, 12, 24, 32
-    assert root["counts"]["blocks"] == 12 and root["counts"]["rows"] == 16
+    # origins at stride 12 over 32x48: rows 0, 12, 16; columns 0, 12, 24, 32;
+    # batches of 8 and 4, neither padded
+    assert root["counts"]["blocks"] == 12 and root["counts"]["rows"] == 12
     assert root["counts"]["host_bytes"] > 2 * 128 * 192 * 8        # the two float64 sums
 
 
@@ -167,11 +208,10 @@ def test_wire_host_pipeline_counts_encode_and_decode(granule, stats):
             + 3 * 2 * codes + codes                  # encode: three float temporaries, the codes
             + n * block                              # the tile copies
             + n * WINDOW * WINDOW                    # the coverage test's mask
-            + n * fwin * fwin * F32                  # out
-            + (2 + BATCH) * block                    # the padding's zeros, the padded batch
-            + 2 * BATCH * fwin * fwin * F32          # decode: the cast and the product
+            + n * fwin * fwin * F32                  # out (the batch is a view of the tiles)
+            + 2 * n * fwin * fwin * F32              # decode: the cast and the product
             + n * fwin * fwin * F32)                 # the untiled mosaic
-    assert root["counts"] == {"blocks": n, "rows": BATCH, "host_bytes": want}
+    assert root["counts"] == {"blocks": n, "rows": n, "host_bytes": want}
 
 
 def test_profiler_annotations_without_enable(granule, stats):
