@@ -12,6 +12,11 @@ curve PNGs. --resume picks up from the latest epoch checkpoint under
 ``<save_path>/checkpoints``. --streaming decodes each batch on demand through
 the native thread pool (``StreamingModisDataset``); --pad-impl fused trains
 with the zero-padded convs plus border corrections of ``models.unet``.
+
+A params file with ``"model": "SwinIR"`` and a ``swinir_parameters`` section
+(``paramsSwinIR.json``: SwinIR-M x4) trains SwinIR through the same loop,
+steps, recipes and checkpoints; --remat and --pad-impl fused are ModelB_2
+options and raise ``ValueError`` there.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from sifsr_tpu_torch.data.datasets import ModisDataset, StreamingModisDataset
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import resolve_device
 from sifsr_tpu_torch.train.checkpoint import save_final
-from sifsr_tpu_torch.train.loop import train_loop
+from sifsr_tpu_torch.train.loop import build_model, train_loop
 from sifsr_tpu_torch.train.step import RECIPES
 
 __all__ = ["main", "plot_loss"]
@@ -95,6 +100,7 @@ def main(argv=None):
         config = dataclasses.replace(config, remat=True)
     if args.pad_impl != "explicit":
         config = dataclasses.replace(config, pad_impl=args.pad_impl)
+    model = build_model(config)
     stats = Statistics.from_json(args.statistics)
 
     save_path = config.save.save_path
@@ -112,8 +118,8 @@ def main(argv=None):
     print(f"train={len(train_ds)} val={len(val_ds)}")
 
     ckpt_dir = os.path.join(save_path, "checkpoints") if args.resume else None
-    state, metrics = train_loop(config, train_ds, val_ds, checkpoint_dir=ckpt_dir,
-                                device=device)
+    state, metrics = train_loop(config, train_ds, val_ds, model=model,
+                                checkpoint_dir=ckpt_dir, device=device)
 
     os.makedirs(save_path, exist_ok=True)
     with open(args.params) as f:

@@ -15,7 +15,10 @@ import dataclasses
 import json
 from collections.abc import Sequence
 
-__all__ = ["DatasetConfig", "ModelConfig", "HyperParams", "SaveConfig", "TrainConfig", "load_params_json"]
+__all__ = ["DatasetConfig", "ModelConfig", "SwinIRConfig", "HyperParams", "SaveConfig",
+           "TrainConfig", "NETWORKS", "load_params_json"]
+
+NETWORKS = ("ModelB_2", "SwinIR")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +40,27 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SwinIRConfig:
+    """SwinIR's widths (``models.swinir``), named as ``network_swinir.py``'s
+    arguments; the defaults are SwinIR-M x4 (classical SR), with ``in_chans``
+    the 2 guide channels' 4x4 sub-pixels."""
+    upscale: int = 4
+    in_chans: int = 32
+    embed_dim: int = 180
+    depths: Sequence[int] = (6, 6, 6, 6, 6, 6)
+    num_heads: Sequence[int] = (6, 6, 6, 6, 6, 6)
+    window_size: int = 8
+    mlp_ratio: float = 2.0
+    num_feat: int = 64
+
+
+# network_swinir.py's choices that models.swinir implements and no other
+_SWINIR_FIXED = {"upsampler": "pixelshuffle", "resi_connection": "1conv", "qkv_bias": True,
+                 "patch_norm": True, "ape": False, "img_range": 1.0, "drop_path_rate": 0.0,
+                 "num_out_ch": 1}
+
+
+@dataclasses.dataclass(frozen=True)
 class HyperParams:
     batch_size: int = 8
     learning_rate: float = 1e-3
@@ -55,7 +79,8 @@ class SaveConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     dataset: DatasetConfig = DatasetConfig()
-    model: ModelConfig = ModelConfig()
+    # the network trained, by the type of its widths: ModelB_2 or SwinIR
+    model: ModelConfig | SwinIRConfig = ModelConfig()
     hyper: HyperParams = HyperParams()
     save: SaveConfig = SaveConfig()
     recipe: str = "predef_filters"  # 'predef_filters' | 'gradftm' | 'scale_invariance'
@@ -89,26 +114,43 @@ def load_params_json(path: str, recipe: str = "predef_filters") -> TrainConfig:
     Field names/sections follow the reference schema exactly
     (paramsB.json / SURVEY.md §2 #19); unknown sections (modelA_parameters,
     device) are ignored: the entry points take an explicit ``device``.
+    A top-level ``"model": "SwinIR"`` trains SwinIR: ``model`` is then a
+    ``SwinIRConfig`` from the ``swinir_parameters`` section
+    (``paramsSwinIR.json``); without it the network is ModelB_2.
     """
     with open(path) as f:
         data = json.load(f)
+    network = data.get("model", "ModelB_2")
+    if network not in NETWORKS:
+        raise ValueError(f"{path}: unknown model {network!r}; expected one of {NETWORKS}")
+    sw = data.get("swinir_parameters", {})
+    for key, value in _SWINIR_FIXED.items():
+        if key in sw and sw[key] != value:
+            raise ValueError(f"{path}: swinir_parameters.{key} is {sw[key]!r}; the port "
+                             f"implements {value!r} only")
     ds = data.get("dataset_parameter", {})
     hp = data.get("hyperparameters", {})
     mp = data.get("modelB_parameters", {})
     sp = data.get("save_parameters", {})
-    return TrainConfig(
-        dataset=DatasetConfig(
-            time=ds.get("time", "day"),
-            transf=ds.get("transf", "norm"),
-        ),
-        model=ModelConfig(
+    if network == "SwinIR":
+        model = SwinIRConfig(**{
+            f.name: tuple(sw[f.name]) if f.name in ("depths", "num_heads") else sw[f.name]
+            for f in dataclasses.fields(SwinIRConfig) if f.name in sw})
+    else:
+        model = ModelConfig(
             in_channels=mp.get("in_channels", 2),
             downchannels=tuple(mp.get("downchannels", (16, 32, 64, 128))),
             padding_mode=mp.get("padding_mode", "replicate"),
             activation=mp.get("activation", "ReLU"),
             bilinear=bool(mp.get("bilinear", True)),
             n_bridge_blocks=mp.get("n_bridge_blocks", 1),
+        )
+    return TrainConfig(
+        dataset=DatasetConfig(
+            time=ds.get("time", "day"),
+            transf=ds.get("transf", "norm"),
         ),
+        model=model,
         hyper=HyperParams(
             batch_size=hp.get("batch_size", 8),
             learning_rate=hp.get("learning_rate", 1e-3),

@@ -36,6 +36,8 @@ which no published model uses.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -241,6 +243,28 @@ class ModelB2(nn.Module):
         self.ub2 = UpBlock(d[2], d[1] // up, pm, bilinear, pi)
         self.ub3 = UpBlock(d[1], d[0], pm, bilinear, pi)
         self.outlay = Conv3x3(d[0], 1, bias=True, padding_mode=pm, pad_impl=pi)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Fresh initialisation as the JAX model's: conv kernels, and the
+        transposed convs of the ConvTranspose decoder, LeCun-normal (a normal
+        of variance 1/fan_in, fan_in = input channels x kernel taps,
+        truncated at two standard deviations), biases zero, BatchNorm scale
+        one and shift zero, running statistics (0, 1). Drawn on the CPU from
+        ``generator`` in the modules' order; the draws differ from JAX's."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                    fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                    # 0.8796...: the standard deviation of a unit normal truncated at +-2
+                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                    w = torch.empty(m.weight.shape, dtype=torch.float32)
+                    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
+                                          generator=generator)
+                    m.weight.copy_(w)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                elif isinstance(m, nn.BatchNorm2d):
+                    m.reset_parameters()
 
     def _forward(self, x: torch.Tensor, remat: bool) -> torch.Tensor:
         def run(block, *args):

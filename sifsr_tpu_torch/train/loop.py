@@ -15,7 +15,7 @@ from typing import Callable
 
 import torch
 
-from sifsr_tpu_torch.config import TrainConfig
+from sifsr_tpu_torch.config import SwinIRConfig, TrainConfig
 from sifsr_tpu_torch.data.datasets import (
     ArrayDataset,
     degrade_batch_scale_invariance,
@@ -23,13 +23,14 @@ from sifsr_tpu_torch.data.datasets import (
 )
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import resolve_device
+from sifsr_tpu_torch.models.swinir import SwinIR
 from sifsr_tpu_torch.models.unet import ModelB2
 from sifsr_tpu_torch.train.checkpoint import CheckpointManager
 from sifsr_tpu_torch.train.early_stopping import EarlyStopping
 from sifsr_tpu_torch.train.state import SifTrainState, create_train_state
 from sifsr_tpu_torch.train.step import make_eval_step, make_train_step
 
-__all__ = ["train_loop"]
+__all__ = ["build_model", "train_loop"]
 
 _METRIC_KEYS = {
     "predef_filters": ("loss", "ds_loss", "percep_loss", "psnr", "ssim"),
@@ -50,11 +51,45 @@ def _make_batch_prep(recipe: str, stats: Statistics, device: torch.device) -> Ca
     return functools.partial(prepare_batch, device=device)
 
 
+def build_model(config: TrainConfig) -> torch.nn.Module:
+    """The network ``config.model`` gives the widths of, at ``config``'s
+    precision: SwinIR from a ``SwinIRConfig``, else ModelB_2.
+    ``remat``, ``pad_impl='fused'`` and bf16 are ModelB_2's options: with
+    SwinIR they raise ``ValueError``."""
+    if config.precision not in ("highest", "default", "bf16"):
+        raise ValueError(f"unknown precision {config.precision!r}")
+    precision = "highest" if config.precision == "highest" else "default"
+    if isinstance(config.model, SwinIRConfig):
+        if config.remat:
+            raise ValueError("remat (--remat) is a ModelB_2 option: SwinIR has no "
+                             "block-by-block rematerialisation")
+        if config.pad_impl != "explicit":
+            raise ValueError(f"pad_impl {config.pad_impl!r} (--pad-impl) is a ModelB_2 "
+                             "option: SwinIR's convs are zero-padded")
+        if config.precision == "bf16":
+            raise ValueError("precision 'bf16' is a ModelB_2 option: SwinIR trains in "
+                             "float32 ('highest' or 'default')")
+        sw = config.model
+        return SwinIR(upscale=sw.upscale, in_chans=sw.in_chans, embed_dim=sw.embed_dim,
+                      depths=tuple(sw.depths), num_heads=tuple(sw.num_heads),
+                      window_size=sw.window_size, mlp_ratio=sw.mlp_ratio,
+                      num_feat=sw.num_feat, precision=precision)
+    return ModelB2(
+        in_channels=config.model.in_channels,
+        downchannels=tuple(config.model.downchannels),
+        padding_mode=config.model.padding_mode,
+        precision=precision,
+        bilinear=config.model.bilinear,
+        dtype=torch.bfloat16 if config.precision == "bf16" else torch.float32,
+        pad_impl=config.pad_impl,
+    )
+
+
 def train_loop(
     config: TrainConfig,
     train_ds: ArrayDataset,
     val_ds: ArrayDataset,
-    model: ModelB2 | None = None,
+    model: torch.nn.Module | None = None,
     state: SifTrainState | None = None,
     checkpoint_dir: str | None = None,
     log_fn: Callable[[str], None] = print,
@@ -64,26 +99,17 @@ def train_loop(
     metrics dict).
 
     If ``checkpoint_dir`` is set, each epoch is persisted and an interrupted
-    run resumes from the latest saved epoch automatically. A fresh model is
+    run resumes from the latest saved epoch automatically. Without ``model``
+    or ``state`` the network is ``build_model(config)``; a fresh model is
     initialised from a generator seeded with ``config.seed``.
     """
     dev = resolve_device(device)
     hp = config.hyper
     stats = train_ds.stats
 
-    if config.precision not in ("highest", "default", "bf16"):
-        raise ValueError(f"unknown precision {config.precision!r}")
     if state is not None:
         model = state.model
-    model = model or ModelB2(
-        in_channels=config.model.in_channels,
-        downchannels=tuple(config.model.downchannels),
-        padding_mode=config.model.padding_mode,
-        precision="highest" if config.precision == "highest" else "default",
-        bilinear=config.model.bilinear,
-        dtype=torch.bfloat16 if config.precision == "bf16" else torch.float32,
-        pad_impl=config.pad_impl,
-    )
+    model = model or build_model(config)
     if state is None:
         state = create_train_state(
             model, hp.learning_rate,

@@ -44,7 +44,6 @@ from sifsr_tpu_torch.losses.losses import (
     sif_loss_gradftm,
     sif_loss_predef,
 )
-from sifsr_tpu_torch.models.unet import ModelB2
 from sifsr_tpu_torch.parallel.mesh import average_tensors, convert_batchnorm, global_range
 from sifsr_tpu_torch.train.state import SifTrainState
 
@@ -88,7 +87,7 @@ def _step_metrics(recipe, total, parts, sr, batch, with_metrics, mesh=None):
 
 
 def make_train_step(
-    model: ModelB2,
+    model: torch.nn.Module,
     recipe: str,
     alpha: float,
     gamma: float,
@@ -99,8 +98,9 @@ def make_train_step(
     remat: bool = False,
 ):
     """Build the train step: (state, batch) -> (state, metrics dict). The
-    state's model and optimiser are updated in place; ``batch`` holds tensors
-    on the model's device.
+    state's model (``models.unet.ModelB2`` or ``models.swinir.SwinIR``: NHWC
+    (N, H, W, 2) in, (N, H, W, 1) out) and optimiser are updated in place;
+    ``batch`` holds tensors on the model's device.
 
     ``mesh``: the data-parallel group (module docstring); ``batch`` is then
     this rank's shard (``parallel.shard_batch``, or the global batch through
@@ -110,7 +110,7 @@ def make_train_step(
     Under ``tracing`` each call is a ``train_step`` root: the host's time
     to enqueue the forward, the losses, the backward, Adam and the metrics.
 
-    ``remat``: the model rematerialises block by block
+    ``remat`` (ModelB_2 only): the model rematerialises block by block
     (``ModelB2.forward(x, remat=True)``): only the blocks' inputs are held
     across the backward pass, at about one extra forward and the same
     numerics. The recomputation would update the BatchNorm running
@@ -149,7 +149,7 @@ def make_train_step(
 
 
 def make_eval_step(
-    model: ModelB2,
+    model: torch.nn.Module,
     recipe: str,
     alpha: float,
     gamma: float,
@@ -158,9 +158,10 @@ def make_eval_step(
     with_metrics: bool = True,
     mesh=None,
 ):
-    """Build the eval step: (state, batch) -> metrics dict (BatchNorm on its
-    running statistics, no gradient). ``mesh``: ``batch`` is this rank's
-    shard, and the metrics are the global batch's."""
+    """Build the eval step: (state, batch) -> metrics dict (the model in
+    eval mode, ModelB_2's BatchNorm on its running statistics; no
+    gradient). ``mesh``: ``batch`` is this rank's shard, and the metrics are
+    the global batch's."""
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}; expected one of {RECIPES}")
     exact = model.precision == "highest"
