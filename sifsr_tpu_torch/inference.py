@@ -11,7 +11,14 @@ granule block by block at batch 1 on the host (predict.py:84-103). Here:
 On a CUDA device the batch loop is pipelined over three streams: the upload
 of batch i+1 (pinned host memory, its own stream) and the download of batch
 i-1 overlap the compute of batch i, with ``pipeline_depth`` batches in
-flight (``mode='host_pipeline'``).
+flight (``mode='host_pipeline'``). The int8 step of
+``models.int8_serving`` replays there one CUDA graph of the whole step per
+row count: one launch where the step makes about 30, so a batch of a few
+blocks no longer waits on the host's enqueue. Its output is the caller's,
+a copy made on the compute stream, so the batches in flight never share
+it. The graphs' memory does not grow with the row counts seen: one set of
+static inputs and output of the most rows seen, one memory pool for every
+graph.
 
 Under ``tracing`` each call is a ``predict_granule`` root with the stage
 spans ``tile`` (the NDVI clip, the float32 cast, tiling, the coverage mask,
@@ -23,7 +30,8 @@ host waiting on the device) and ``mosaic`` (decoding, scattering, masking
 and untiling), and the counters ``blocks`` (real blocks), ``rows`` (batch
 rows stepped: the real blocks on one device, this rank's rows, padding
 included, under a mesh) and ``host_bytes`` (the bytes of every host array
-the call creates; torch's cached pinned buffers are not counted).
+the call creates; torch's cached pinned buffers are not counted). The
+int8 step adds ``graph_replays`` and ``graph_captures`` on CUDA.
 
 ``device_tiling`` instead uploads the granule once, tiles it, masks by
 coverage, runs the batches and assembles the mosaic on the device, and

@@ -45,6 +45,10 @@ layers, inbloc.conv1 on one channel-interleaved input (kernel E), the skip
 concats through kernel L and the outlay through kernel F. Each computes the
 function of the kernel it stands in for (D, J, the generic conv), so the
 ``alt`` step's output equals the default step's bit for bit.
+
+On a CUDA device every configuration of the step replays one CUDA graph of
+the whole step per row count (``_GraphedStep``): the same kernels, one
+launch from the host instead of about 30, bit-equal to the eager step.
 """
 
 from __future__ import annotations
@@ -52,8 +56,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sifsr_tpu_torch import tracing
 from sifsr_tpu_torch.device import full_f32_convs, resolve_device
 from sifsr_tpu_torch.kernels import (
+    KERNELS,
     conv_i8_exact,
     conv_i8_exact_dual,
     conv_i8_generic,
@@ -69,6 +75,7 @@ from sifsr_tpu_torch.kernels import (
     upsample_phases,
 )
 from sifsr_tpu_torch.kernels.conv_px import prow_leaf, up2_coeffs, up2_coeffs_mxu
+from sifsr_tpu_torch.kernels.resize_phases import _device_tables
 from sifsr_tpu_torch.models.fused import fold_batchnorm, upsample_bilinear_x2_nhwc
 from sifsr_tpu_torch.models.packed import (
     _mid_conv,
@@ -83,6 +90,7 @@ from sifsr_tpu_torch.models.packed import (
 from sifsr_tpu_torch.models.quantized import _quantize_kernel
 from sifsr_tpu_torch.models.quantized_packed import _conv_i8_mid, _double_mid, _down, _quant
 from sifsr_tpu_torch.ops.quantile import quantile_linear
+from sifsr_tpu_torch.ops.resize import _matrix
 
 __all__ = ["calibrate", "int8_serving_params", "build_int8_serving_params",
            "prow_mid_params", "make_int8_sr_step"]
@@ -386,6 +394,125 @@ def _prow_mid(pmid: dict, pm: torch.Tensor, dual_kernel=conv_prow_dual_planes) -
     return up2(conv_prow_up2_pack, pmid["ub2"]["conv2"], dual(pmid["ub2"], upu1, s1))
 
 
+def _leaves(nodes, out: list) -> list:
+    """The leaves under ``nodes`` (parameter subtrees or leaves), depth
+    first in insertion order."""
+    for v in nodes:
+        if v.__class__ is dict:
+            _leaves(v.values(), out)
+        else:
+            out.append(v)
+    return out
+
+
+def _cached_tables(lst: torch.Tensor, mid: str) -> list:
+    """The device tables the step takes from module caches for LST blocks
+    like ``lst``, fetched as the step's calls fetch them (kernel A's from
+    ``resize_phases._device_tables``, the ``xla`` chain's x2 matrices from
+    ``ops.resize._matrix``). A graph holds them, so that a cache's eviction
+    cannot free memory the graph reads."""
+    h, w, dev = lst.shape[1], lst.shape[2], lst.device
+    held = [_device_tables(h, w, 4, "cubic", dev, None)]
+    if mid == "xla":               # the phase mean is at 2h: db3 at h/2, ub1 at h
+        held.append(_device_tables(2 * h, 2 * w, 2, "linear_ac", dev, None))
+        for a, b in ((h // 2, h), (w // 2, w), (h, 2 * h), (w, 2 * w)):
+            held.append(_matrix(a, b, "linear_ac", torch.float32, dev))
+    return held
+
+
+class _GraphedStep:
+    """The int8 step on a CUDA device: one CUDA graph of the whole step per
+    row count, replayed.
+
+    A call at a row count with no graph runs the step eagerly and returns
+    that output; then it captures the step at that count, reading views of
+    the static inputs and writing a view of the static output. A later call
+    at that count copies its inputs into the static inputs, replays the
+    graph on the current stream and returns a copy of the static output,
+    made on that stream: the caller owns it, and no later call writes it.
+
+    The graphs are keyed by the blocks' shapes and by the parameters they
+    were captured with: the identity of every leaf of the tree the step
+    reads, its device tensors and its Python numbers, each held so that its
+    id stays its own while the graphs live. Memory held does not
+    grow with the row counts seen: the static inputs and output are one
+    buffer set of the most rows seen so far, every graph is captured into
+    one shared memory pool, and the replays run one after another on one
+    stream, so each graph's intermediates may take the memory of
+    another's. New parameters, new block shapes or more rows than the
+    buffers hold drop every graph, the buffers and the pool (the next
+    capture frees the pool's memory), and the graphs are captured anew.
+
+    Under ``tracing`` a replay counts ``graph_replays`` and a capture
+    ``graph_captures``. A replay adds to each kernel's ``launches`` what the
+    capture launched, so the counts read as the eager step's."""
+
+    def __init__(self, eager, dev: torch.device, mid: str):
+        self.eager, self.dev, self.mid = eager, dev, mid
+        self.reads = ("in1", "in2", "u31", "u32", "ol", "s", "pm_scale",
+                      "pmid" if mid == "prow" else "mid")
+        self.graphs: dict = {}       # rows -> (CUDAGraph, ((kernel, launches), ...))
+        self.key = None
+        self.rows = 0
+        self.held: tuple = ()
+        self.lst = self.ndvi = self.out = self.pool = self.stream = None
+
+    def _key(self, params, lst, ndvi):
+        leaves = _leaves(map(params.__getitem__, self.reads), [])
+        return (tuple(lst.shape[1:]), tuple(ndvi.shape[1:]), tuple(map(id, leaves))), leaves
+
+    @torch.no_grad()
+    def __call__(self, params, lst_blocks, ndvi_blocks):
+        lst = torch.as_tensor(lst_blocks, dtype=torch.float32, device=self.dev)
+        ndvi = torch.as_tensor(ndvi_blocks, dtype=torch.float32, device=self.dev)
+        n = lst.shape[0]
+        key, leaves = self._key(params, lst, ndvi)
+        graph = self.graphs.get(n) if key == self.key and ndvi.shape[0] == n else None
+        if graph is None:
+            out = self.eager(params, lst, ndvi)
+            self._capture(params, key, leaves, lst, out)
+            return out
+        stream = torch.cuda.current_stream(self.dev)
+        if stream != self.stream:
+            if self.stream is not None:
+                stream.wait_stream(self.stream)
+            self.stream = stream
+        self.lst[:n].copy_(lst)
+        self.ndvi[:n].copy_(ndvi)
+        graph[0].replay()
+        for kernel, launches in graph[1]:
+            kernel.launches += launches
+        tracing.count("graph_replays", 1)
+        return self.out[:n].clone()
+
+    def _capture(self, params, key, leaves, lst, out) -> None:
+        n = lst.shape[0]
+        if key != self.key or n > self.rows:
+            rows = max(n, self.rows) if key == self.key else n
+            if self.graphs:
+                torch.cuda.synchronize(self.dev)
+            # the old set goes before the new one is allocated
+            self.graphs, self.lst, self.ndvi, self.out, self.pool = {}, None, None, None, None
+            self.lst = torch.empty((rows, *key[0]), dtype=torch.float32, device=self.dev)
+            self.ndvi = torch.empty((rows, *key[1]), dtype=torch.float32, device=self.dev)
+            self.out = torch.empty((rows, *out.shape[1:]), dtype=out.dtype, device=self.dev)
+            self.pool = torch.cuda.graph_pool_handle()
+            self.key, self.rows, self.stream = key, rows, None
+            self.held = (leaves, _cached_tables(self.lst, self.mid))
+        before = [k.launches for k in KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.out[:n].copy_(self.eager(params, self.lst[:n], self.ndvi[:n]))
+            launched = tuple((k, k.launches - b) for k, b in zip(KERNELS, before)
+                             if k.launches != b)
+        finally:                    # a capture launches nothing
+            for k, b in zip(KERNELS, before):
+                k.launches = b
+        self.graphs[n] = (graph, launched)
+        tracing.count("graph_captures", 1)
+
+
 def make_int8_sr_step(stats, mid: str = "prow", kernels: str = "default",
                       device: str | torch.device = "cuda"):
     """The int8 twin of ``inference.make_sr_step``:
@@ -394,7 +521,16 @@ def make_int8_sr_step(stats, mid: str = "prow", kernels: str = "default",
     default, kernels G-K) or 'xla' (the JAX comparison chain). kernels:
     'default', or 'alt' for the comparison step that runs inbloc.conv1
     through kernel E, the prow skip concats through L and the outlay through
-    F; its output equals the default step's bit for bit."""
+    F; its output equals the default step's bit for bit.
+
+    On a CUDA device the step replays one CUDA graph of the whole step per
+    row count (``_GraphedStep``): the first call at a row count runs
+    eagerly and captures, later calls copy their inputs in, replay, and
+    return a copy of the output that is the caller's. Memory held is one
+    set of static inputs and output of the most rows seen and one memory
+    pool shared by every graph, so it does not grow with the row counts
+    seen. On the CPU the step is the eager step. Either way ``step.eager``
+    is the eager step, bit-equal per row."""
     if mid not in ("prow", "xla"):
         raise ValueError(f"mid must be 'prow' or 'xla', got {mid!r}")
     if kernels not in ("default", "alt"):
@@ -442,4 +578,7 @@ def make_int8_sr_step(stats, mid: str = "prow", kernels: str = "default",
             return conv_i8_outlay(olp, ol["q"], ol_sc, ol_b)
         return conv_i8_generic(olp, ol["q"], ol_sc, ol_b, relu=False)[..., 0]
 
-    return sr_step
+    sr_step.eager = sr_step
+    if dev.type != "cuda":
+        return sr_step
+    return _GraphedStep(sr_step, dev, mid)

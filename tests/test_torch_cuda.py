@@ -1138,3 +1138,198 @@ def test_int8_prow_step_small_batches_cuda(prow_full_batch, n):
         got = step(params, lst[start:start + n], ndvi[start:start + n])
         assert got.shape == (n, 256, 256)
         assert torch.equal(got, full[start:start + n]), (n, start)
+
+
+# the __global__ functions the int8 prow step launches
+INT8_STEP_KERNELS = ("upsample_phases_kernel", "conv_in1_mma_kernel", "conv16_mma_kernel",
+                     "conv16_outlay_mma_kernel", "conv_dual_mma_kernel", "conv_prow_mma_kernel",
+                     "conv_up2_mma_kernel")
+
+
+@pytest.fixture(scope="module")
+def int8_card():
+    """(stats, state dict, the prow parameters as ``predict --pallas``
+    builds them, a seeded batch of 324 LST and NDVI blocks on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built by nvcc for sm_90a)")
+    import os
+
+    from sifsr_tpu_torch.cli.predict import load_variables, make_quantized_step
+    from sifsr_tpu_torch.data.statistics import Statistics
+
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    sd = load_variables(os.path.join(root, "weights", "modelB_1009"))
+    stats = Statistics.from_json(os.path.join(root, "data", "statistics_testset.json"))
+    rng = np.random.default_rng(22)
+    lst = (296.0 + 20.0 * rng.random((324, 64, 64))).astype(np.float32)
+    ndvi = (0.1 + 0.7 * rng.random((324, 256, 256))).astype(np.float32)
+    _, params = make_quantized_step(sd, lst[0], ndvi[0], stats, True, device="cuda")
+    return stats, sd, params, torch.from_numpy(lst).cuda(), torch.from_numpy(ndvi).cuda()
+
+
+def _counted(fn, *args):
+    """fn(*args) inside a traced ``predict_granule`` root: (its output, the
+    root's counters)."""
+    from sifsr_tpu_torch import tracing
+
+    tracing.enable()
+    try:
+        with tracing.root("predict_granule"):
+            out = fn(*args)
+    finally:
+        tracing.disable()
+    return out, tracing.records()[-1]["counts"]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 9, 64, 324])
+@pytest.mark.parametrize("mid,kernels", [("prow", "default"), ("prow", "alt"), ("xla", "default")])
+def test_int8_graphed_step_equals_eager_cuda(int8_card, mid, kernels, n):
+    """At each row count the first call runs eagerly and captures, later
+    calls replay on other rows: each output equals the eager step's on the
+    same rows, bit for bit."""
+    from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+
+    stats, _, params, lst, ndvi = int8_card
+    step = make_int8_sr_step(stats, mid=mid, kernels=kernels, device="cuda")
+    for i, start in enumerate((0, 324 - n, (324 - n) // 2)):
+        rows = slice(start, start + n)
+        got, counts = _counted(step, params, lst[rows], ndvi[rows])
+        assert counts.get("graph_captures", 0) == (i == 0)
+        assert counts.get("graph_replays", 0) == (i > 0)
+        assert got.shape == (n, 256, 256)
+        assert torch.equal(got, step.eager(params, lst[rows], ndvi[rows])), (i, start)
+
+
+def test_int8_graphed_step_rows_out_of_order_cuda(int8_card):
+    """Row counts 9, 1, 4, 1, 9 on other rows each call: every output equals
+    the eager step's, and stays so after the later calls (it is the
+    caller's, not a view of the graphs' static output)."""
+    from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+
+    stats, _, params, lst, ndvi = int8_card
+    step = make_int8_sr_step(stats, device="cuda")
+    outs = []
+    for k, n in enumerate((9, 1, 4, 1, 9)):
+        rows = slice(31 * k, 31 * k + n)
+        outs.append((rows, step(params, lst[rows], ndvi[rows])))
+    for rows, got in outs:
+        assert torch.equal(got, step.eager(params, lst[rows], ndvi[rows])), rows
+
+
+def test_int8_graphed_step_follows_new_parameters_cuda(int8_card):
+    """Another parameter tree captures anew and the output follows it; so
+    does a leaf swapped into the same tree; the first tree again captures
+    anew and reads as before."""
+    from sifsr_tpu_torch.models.int8_serving import build_int8_serving_params, make_int8_sr_step
+
+    stats, sd, params, lst, ndvi = int8_card
+    other = build_int8_serving_params(sd, lst[5:13].cpu().numpy(), ndvi[5:13].cpu().numpy(),
+                                      stats, headroom=1.2, device="cuda")
+    step = make_int8_sr_step(stats, device="cuda")
+    x = (lst[:4], ndvi[:4])
+    first = step(params, *x)
+    for tree, captures in ((params, 0), (other, 1), (other, 0)):
+        got, counts = _counted(step, tree, *x)
+        assert counts.get("graph_captures", 0) == captures
+        assert torch.equal(got, step.eager(tree, *x))
+    assert not torch.equal(got, first)
+    other["ol"]["bias"] = other["ol"]["bias"] + 1.0      # in place: same tree, new leaf
+    got, counts = _counted(step, other, *x)
+    assert counts.get("graph_captures", 0) == 1
+    assert torch.equal(got, step.eager(other, *x))
+    got, counts = _counted(step, params, *x)
+    assert counts.get("graph_captures", 0) == 1 and torch.equal(got, first)
+
+
+def test_int8_graphed_step_in_predict_granule_cuda(int8_card):
+    """Three batches (4, 4 and 1 blocks) at pipeline depth 2: the graphed
+    step's mosaic equals the eager step's bit for bit on every call, so no
+    step output is overwritten while its copy to the host is in flight."""
+    from sifsr_tpu_torch.inference import predict_granule
+    from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+
+    stats, _, params, _, _ = int8_card
+    rng = np.random.default_rng(23)
+    lst = (296.0 + 20.0 * rng.random((192, 192))).astype(np.float32)
+    ndvi = (0.1 + 0.7 * rng.random((768, 768))).astype(np.float32)
+    step = make_int8_sr_step(stats, device="cuda")
+    kw = dict(batch_size=4, pipeline_depth=2, step_params=params, device="cuda")
+    want = predict_granule({}, lst, ndvi, stats, sr_step=step.eager, **kw)
+    for _ in range(3):                     # captures at 4 and 1 rows, then replays
+        np.testing.assert_array_equal(predict_granule({}, lst, ndvi, stats, sr_step=step, **kw),
+                                      want)
+
+
+def test_int8_graphed_step_memory_is_bounded_cuda(int8_card):
+    """Calls at 1..64 rows, twice (the first pass grows the buffers at every
+    call, the second captures 63 graphs beside the 64-row one): the memory
+    the graphs hold is at most twice the eager step's peak at 64 rows."""
+    import gc
+
+    from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+
+    stats, _, params, lst, ndvi = int8_card
+    step = make_int8_sr_step(stats, device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step.eager(params, lst[:64], ndvi[:64])
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(2):
+        for n in range(1, 65):
+            step(params, lst[:n], ndvi[:n])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved
+    assert 0 < held <= 2 * eager_peak, (held, eager_peak)
+
+
+def test_int8_graphed_step_counts_launches_as_eager_cuda(int8_card):
+    """The kernels' ``launches`` after the first call (eager, then the
+    capture) are one eager call's, and after k replays k eager calls'."""
+    from sifsr_tpu_torch import kernels
+    from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+
+    stats, _, params, lst, ndvi = int8_card
+    x = (params, lst[:9], ndvi[:9])
+    step = make_int8_sr_step(stats, device="cuda")
+
+    def launches(fn, k):
+        kernels.reset_launches()
+        for _ in range(k):
+            fn(*x)
+        return {f.__name__: f.launches for f in kernels.KERNELS}
+
+    assert launches(step, 1) == launches(step.eager, 1)
+    eager = launches(step.eager, 3)
+    assert launches(step, 3) == eager
+    assert sum(eager.values()) == 3 * 19
+
+
+def test_int8_graph_replays_show_in_the_profiler_cuda(int8_card):
+    """A ``torch.profiler`` window over replays of a graph captured before
+    it records each of the step's kernels by its ``__global__`` name, as
+    many times as the ``launches`` counters count."""
+    from sifsr_tpu_torch import kernels
+    from sifsr_tpu_torch.models.int8_serving import make_int8_sr_step
+
+    stats, _, params, lst, ndvi = int8_card
+    step = make_int8_sr_step(stats, device="cuda")
+    x = (params, lst[:4], ndvi[:4])
+    step(*x)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            step(*x)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() != torch.autograd.DeviceType.CPU and not e.is_user_annotation()]
+    seen = [k for name in names for k in INT8_STEP_KERNELS if k in name]
+    assert len(seen) == sum(f.launches for f in kernels.KERNELS) == 3 * 19
+    assert set(seen) == set(INT8_STEP_KERNELS)

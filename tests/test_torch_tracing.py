@@ -167,6 +167,29 @@ def test_stage_spans_cover_the_root(granule, stats, variables):
     assert inside >= 0.9 * (root["end_ns"] - root["start_ns"])
 
 
+def test_the_int8_step_stays_eager_on_the_cpu(granule, stats, variables):
+    """On the CPU the int8 step is its eager step: no CUDA graph is captured
+    or replayed, so the root counts ``graph_replays`` and ``graph_captures``
+    as 0 (neither is counted)."""
+    from sifsr_tpu_torch.models import int8_serving
+
+    lst_b, ndvi_b, _ = inference.tile_granule(*granule, WINDOW, FACTOR)
+    params = int8_serving.build_int8_serving_params(variables, lst_b[:2],
+                                                    np.clip(ndvi_b[:2], -1.0, 1.0), stats,
+                                                    device="cpu")
+    step = int8_serving.make_int8_sr_step(stats, device="cpu")
+    assert step.eager is step
+    tracing.enable()
+    out = _predict(granule, stats, sr_step=step, step_params=params)
+    (root,) = _roots()
+    _check_tree(root)
+    assert {s["name"] for s in root["spans"]} == STAGES
+    counts = root["counts"]
+    assert counts.get("graph_replays", 0) == counts.get("graph_captures", 0) == 0
+    assert counts["blocks"] == counts["rows"] == 6
+    assert out.shape == (128, 192) and np.all(np.isfinite(out))
+
+
 def test_overlap_path_opens_the_root_and_its_stages(granule, stats):
     tracing.enable()
     _predict(granule, stats, overlap=4)
