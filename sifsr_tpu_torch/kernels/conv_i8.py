@@ -1,4 +1,5 @@
-"""Kernels B-F and the generic int8 conv: replicate-pad 3x3 int8 convs.
+"""Kernels B-F and the generic int8 conv: replicate-pad 3x3 int8 convs, and
+the int8 number format that every int8 path of the port shares.
 
 Counterparts, CUDA source ``csrc/conv_i8.cu``. B-F run on the int8 tensor
 cores in persistent blocks whose grid and shared memory
@@ -20,8 +21,14 @@ other shapes run on the dp4a loop of ``csrc/conv_tile.cuh``:
   de-normalise fused, float32 (N,H,W) output;
 - ``conv_i8_generic``: the XLA int8 conv of
   ``sifsr_tpu/models/quantized_packed.py::_conv_i8_generic`` (mid chain), of
-  ``models/quantized.py::_conv_i8`` and the outlay conv of
+  ``models/quantized.py::int8_conv`` and the outlay conv of
   ``pallas_serving.py:494-524``, float32 output.
+
+The number format has its rules here, once: ``quantize_kernel`` (weights:
+per output channel, symmetric), ``activation_scale`` (a calibrated
+activation's static scale), ``quantize_activation`` (a float tensor at its
+scale) and ``requant`` (a kernel's epilogue). The ``models/`` builders and
+``conv_px.prow_leaf`` take them from here.
 
 The TPU kernels run in the 2x2 space-to-depth packed domain as pixel-pair
 rows; these take the unpacked NHWC int8 tensors the packed ones stand for
@@ -36,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,7 +54,28 @@ __all__ = [
     "conv_i8_outlay", "conv_i8_generic",
     "conv_i8_exact_plain", "conv_i8_exact_dual_plain", "conv_i8_in1_split_plain",
     "conv_i8_in1_plain", "conv_i8_outlay_plain", "conv_i8_generic_plain",
+    "quantize_kernel", "activation_scale", "quantize_activation", "requant",
 ]
+
+
+# ------------------------------------------------------------ number format
+
+def quantize_kernel(kernel) -> tuple[np.ndarray, np.ndarray]:
+    """HWIO float kernel -> (int8 kernel, per-output-channel float32 scale):
+    ``scale = max|w_k| / 127`` in float64 (1 for an all-zero channel), the
+    values rounded half to even and clipped to [-127, 127], the scale
+    narrowed to float32."""
+    kernel = np.asarray(kernel, np.float64)
+    scale = np.abs(kernel).max(axis=(0, 1, 2)) / 127.0
+    scale = np.where(scale == 0, 1.0, scale)
+    q = np.clip(np.round(kernel / scale), -127, 127).astype(np.int8)
+    return q, scale.astype(np.float32)
+
+
+def activation_scale(amax: float, headroom: float) -> float:
+    """The static scale of an activation whose calibrated max|x| is
+    ``amax``: ``amax / 127 * headroom``, in Python floats."""
+    return amax / 127.0 * headroom
 
 
 # ------------------------------------------------------------ plain versions
@@ -70,6 +99,13 @@ def requant(y: torch.Tensor, relu: bool) -> torch.Tensor:
     if relu:
         y = torch.clamp_min(y, 0.0)
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+
+
+def quantize_activation(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(x / scale), -127, 127) -> int8; ``scale`` a float32 tensor on
+    x's device (a true division, as in the JAX package: a Python-float
+    divisor would become a multiplication by its reciprocal on CUDA)."""
+    return requant(x / scale, False)
 
 
 def _dequant(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

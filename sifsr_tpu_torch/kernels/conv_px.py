@@ -57,6 +57,7 @@ from sifsr_tpu_torch.kernels.conv_i8 import (
     conv3x3_i32,
     conv_i8_exact_dual_plain,
     conv_i8_exact_plain,
+    quantize_kernel,
     requant,
 )
 from sifsr_tpu_torch.kernels.resize_phases import _coeff_arrays, _tables, phase_passes
@@ -88,9 +89,7 @@ def prow_leaf(kernel, bias, s_in, s_out=None, post_scale=1.0) -> dict:
     pixel slots; the expressions are the same NumPy ones in the same order
     (``float * float32 array`` stays float32, the bias is float64 until the
     final cast), so the scales are bit-equal."""
-    from sifsr_tpu_torch.models.quantized import _quantize_kernel
-
-    q, sw = _quantize_kernel(kernel)
+    q, sw = quantize_kernel(kernel)
     comb = float(s_in) * sw * float(post_scale)
     b = np.asarray(bias, np.float64) * float(post_scale)
     if s_out is not None:

@@ -238,9 +238,9 @@ def to_jax_variables(state_dict) -> dict:
 
 
 def _vgg_convs():
-    from sifsr_tpu_torch.models.vgg import _CFG
+    from sifsr_tpu_torch.models.vgg import VGG16_CFG
 
-    return [(name, idx) for name, _, idx in _CFG if idx is not None]
+    return [(name, idx) for name, _, idx in VGG16_CFG if idx is not None]
 
 
 def from_jax_vgg16(variables: dict) -> "OrderedDict[str, torch.Tensor]":

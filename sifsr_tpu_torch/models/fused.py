@@ -26,8 +26,8 @@ from torch import nn
 from sifsr_tpu_torch.models.unet import DOWNCHANNELS, Conv3x3, replicate_conv_fused
 from sifsr_tpu_torch.ops.resize import upsample_bilinear_x2, upsample_bilinear_x2_nhwc
 
-__all__ = ["InferenceModelB2", "fold_batchnorm", "upsample_bilinear_x2_nhwc",
-           "replicate_conv_fused"]
+__all__ = ["InferenceModelB2", "fold_batchnorm", "fold_batchnorm_numpy",
+           "upsample_bilinear_x2_nhwc", "replicate_conv_fused"]
 
 _BN_EPS = 1e-5
 
@@ -66,6 +66,17 @@ def fold_batchnorm(state_dict: dict) -> dict:
     out["outlay"] = {"conv": {"kernel": sd["outlay.weight"].permute(2, 3, 1, 0).contiguous(),
                               "bias": sd["outlay.bias"]}}
     return out
+
+
+def fold_batchnorm_numpy(state_dict: dict) -> dict:
+    """``fold_batchnorm``'s tree as float32 numpy arrays on the host: what
+    the int8 builders quantise and pack."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node.detach().cpu().numpy()
+
+    return walk(fold_batchnorm(state_dict))
 
 
 class _FusedConv(nn.Module):

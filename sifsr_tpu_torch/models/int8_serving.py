@@ -15,9 +15,10 @@ mislead here). Per batch (N, 64, 64) K LST + (N, 256, 256) NDVI:
      the 2x2 pools and the align-corners x2 upsamples fused into the convs'
      epilogues, the skip concats never formed; ub2.conv2 ends in the final
      x2 to the ``up`` scale (kernel K);
-   - ``mid='xla'``: the calibrated int8 convs of ``models.quantized_packed``
-     with float32 tensors between them (the JAX ``mid='xla'`` chain), then
-     the align-corners x2 quantised to the ``up`` scale (kernel A);
+   - ``mid='xla'``: the calibrated int8 convs of ``models.quantized``
+     (its ``down_block`` and ``up_block``) with float32 tensors between
+     them (the JAX ``mid='xla'`` chain), then the align-corners x2
+     quantised to the ``up`` scale (kernel A);
 5. ub3.conv1 over concat(up, s0) without forming the concat (kernel C),
    ub3.conv2 (kernel B);
 6. the outlay, a replicate-pad 16->1 int8 conv with the Kelvin de-normalise
@@ -30,11 +31,13 @@ The JAX package works on the 2x2 space-to-depth packed tensors of the
 256²-level layers and on p-pixel rows in the mid chain; the port's kernels
 take the unpacked NHWC tensors. The packed and unpacked convs are the same
 function with the same int8 weights and per-channel scales, so the
-parameters are quantised from the unpacked folded kernels.
+parameters are quantised from the unpacked folded kernels, with the weight
+rule of ``kernels.conv_i8`` (``quantize_kernel``).
 
-Everything is calibrated statically: ``_f32_packed_mirror`` runs the float32
-packed graph on a few patches and records max|x| of each tensor that gets
-an int8 scale (scale = max/127 * headroom). The ``prow`` parameters bind
+Everything is calibrated statically: ``models.packed.calibration_record``
+runs the float32 packed forward (``packed_forward``) on a few patches and
+records max|x| of each tensor it observes, the tensors that get an int8
+scale (scale = max/127 * headroom). The ``prow`` parameters bind
 the x2 tables to the LST block size they were built for; ``up2_impl`` picks
 their form, 'mxu' (integer numerators, one rounding) or 'vpu' (float32
 coefficients, the three roundings of ``upsample_phases``).
@@ -57,7 +60,7 @@ import numpy as np
 import torch
 
 from sifsr_tpu_torch import tracing
-from sifsr_tpu_torch.device import full_f32_convs, resolve_device
+from sifsr_tpu_torch.device import resolve_device
 from sifsr_tpu_torch.kernels import (
     KERNELS,
     conv_i8_exact,
@@ -74,114 +77,16 @@ from sifsr_tpu_torch.kernels import (
     conv_prow_up2_pack,
     upsample_phases,
 )
+from sifsr_tpu_torch.kernels.conv_i8 import activation_scale, quantize_activation, quantize_kernel
 from sifsr_tpu_torch.kernels.conv_px import prow_leaf, up2_coeffs, up2_coeffs_mxu
 from sifsr_tpu_torch.kernels.resize_phases import _device_tables
-from sifsr_tpu_torch.models.fused import fold_batchnorm, upsample_bilinear_x2_nhwc
-from sifsr_tpu_torch.models.packed import (
-    _mid_conv,
-    _packed_concat,
-    _packed_conv,
-    _packed_resize,
-    _phase_matrices,
-    _space_to_depth,
-    _to_numpy_tree,
-    pack_serving_params,
-)
-from sifsr_tpu_torch.models.quantized import _quantize_kernel
-from sifsr_tpu_torch.models.quantized_packed import _conv_i8_mid, _double_mid, _down, _quant
-from sifsr_tpu_torch.ops.quantile import quantile_linear
+from sifsr_tpu_torch.models.fused import fold_batchnorm_numpy
+from sifsr_tpu_torch.models.packed import calibration_record
+from sifsr_tpu_torch.models.quantized import down_block, int8_layers, up_block
 from sifsr_tpu_torch.ops.resize import _matrix
 
-__all__ = ["calibrate", "int8_serving_params", "build_int8_serving_params",
-           "prow_mid_params", "make_int8_sr_step"]
-
-
-# ---------------------------------------------------------------- calibration
-
-@torch.no_grad()
-def _f32_packed_mirror(pp: dict, sample_lst, sample_ndvi, stats, quantile=None,
-                       device: str | torch.device = "cpu"):
-    """Run the float32 packed forward on calibration patches, recording max|x|
-    (or the ``quantile`` of |x|) of every tensor that gets an int8 scale.
-    Returns (record dict, mid-chain input maxes dict keyed by tree path)."""
-    dev = torch.device(device)
-    rec: dict = {}
-    mid_rec: dict = {}
-
-    def _amax(x):
-        if quantile is None:
-            return float(x.abs().max())
-        return float(quantile_linear(x.abs().reshape(-1), quantile))
-
-    def conv_mid(x, tree, path, relu=True):
-        mid_rec[path] = _amax(x)
-        return _mid_conv(x, tree, relu)
-
-    with full_f32_convs():
-        lst_n = (torch.as_tensor(sample_lst, dtype=torch.float32, device=dev)
-                 - stats.mean_lst) / stats.std_lst
-        ndvi_n = (torch.as_tensor(sample_ndvi, dtype=torch.float32, device=dev)
-                  - stats.mean_ndvi) / stats.std_ndvi
-        h = lst_n.shape[1]
-        lst_up_p = _packed_resize(lst_n[..., None], _phase_matrices(h, 4 * h, "cubic"))
-        ndvi_p = _space_to_depth(ndvi_n[..., None])
-
-        mid, pk = pp["mid"], pp["packed"]
-        c0 = 16
-        x = _packed_concat(lst_up_p, 1, ndvi_p, 1)
-        rec["in1"] = _amax(x)
-        x = _packed_conv(x, *pk["in_conv1"], 2)
-        rec["in2"] = _amax(x)
-        s0p = _packed_conv(x, *pk["in_conv2"], c0)
-        rec["s0"] = _amax(s0p)
-        n, hh, ww, _ = s0p.shape
-
-        def double_mid(x, tree, base):
-            x = conv_mid(x, tree["conv1"]["conv"], base + ("conv1", "conv"))
-            return conv_mid(x, tree["conv2"]["conv"], base + ("conv2", "conv"))
-
-        def down_body(x, tree, base):
-            x = x + double_mid(x, tree["res"], base + ("res",))
-            return conv_mid(x, tree["lastconv"]["conv"], base + ("lastconv", "conv"))
-
-        def down(x, tree, base):
-            nn_, h_, w_, c_ = x.shape
-            x = x.reshape(nn_, h_ // 2, 2, w_ // 2, 2, c_).mean(dim=(2, 4))
-            return down_body(x, tree, base)
-
-        def rec_max(key, x):
-            rec[key] = _amax(x)
-            return x
-
-        s1 = down_body(s0p.reshape(n, hh, ww, 4, c0).mean(dim=3), mid["db1"], ("db1",))
-        rec_max("m_s1", s1)
-        s2 = down(s1, mid["db2"], ("db2",))
-        rec_max("m_s2", s2)
-        t = down(s2, mid["db3"], ("db3",))
-        rec_max("m_t3", t)
-        t = double_mid(torch.cat([rec_max("m_upt3", upsample_bilinear_x2_nhwc(t)), s2], -1),
-                       mid["ub1"]["convbloc"], ("ub1", "convbloc"))
-        rec_max("m_u1", t)
-        t = double_mid(torch.cat([rec_max("m_upu1", upsample_bilinear_x2_nhwc(t)), s1], -1),
-                       mid["ub2"]["convbloc"], ("ub2", "convbloc"))
-        rec_max("m_u2", t)
-        up_p = _packed_resize(t, _phase_matrices(t.shape[1], 2 * t.shape[1], "linear_ac"))
-        rec["up"] = _amax(up_p)
-        u31 = _packed_conv(_packed_concat(up_p, c0, s0p, c0), *pk["ub3_conv1"], 2 * c0)
-        rec["u32"] = _amax(u31)
-        u32 = _packed_conv(u31, *pk["ub3_conv2"], c0)
-        rec["ol"] = _amax(u32)
-    return rec, mid_rec
-
-
-def calibrate(variables: dict, sample_lst, sample_ndvi, stats, calib_quantile=None,
-              device: str | torch.device = "cuda"):
-    """(record, mid record) of ``_f32_packed_mirror`` for a ModelB2 state
-    dict on calibration patches, sample_lst (N,64,64) K, sample_ndvi
-    (N,256,256)."""
-    dev = resolve_device(device)
-    return _f32_packed_mirror(pack_serving_params(variables), sample_lst, sample_ndvi,
-                              stats, calib_quantile, dev)
+__all__ = ["int8_serving_params", "build_int8_serving_params", "prow_mid_params",
+           "make_int8_sr_step"]
 
 
 # ------------------------------------------------------------ parameter build
@@ -194,6 +99,11 @@ def _to_device(node, dev: torch.device):
     if isinstance(node, (int, float)):
         return node
     return torch.as_tensor(np.asarray(node), device=dev)
+
+
+def _kb(node):
+    """(kernel, bias) of a folded layer."""
+    return node["conv"]["kernel"], node["conv"]["bias"]
 
 
 def prow_mid_params(folded: dict, mid_rec: dict, s: dict, headroom: float, hp: int,
@@ -215,10 +125,7 @@ def prow_mid_params(folded: dict, mid_rec: dict, s: dict, headroom: float, hp: i
         raise ValueError(f"up2_impl must be 'mxu' or 'vpu', got {up2_impl!r}")
 
     def cal(*path):
-        return mid_rec[tuple(path)] / 127.0 * headroom
-
-    def kb(node):
-        return node["conv"]["kernel"], node["conv"]["bias"]
+        return activation_scale(mid_rec[tuple(path)], headroom)
 
     def attach_up2(leaf, size, s_mid, s_up):
         """The x2 tables under the keys the step passes to kernels I and K:
@@ -229,9 +136,9 @@ def prow_mid_params(folded: dict, mid_rec: dict, s: dict, headroom: float, hp: i
 
     def down_leaves(name):
         tree = folded[name]
-        k1, b1 = kb(tree["res"]["conv1"])
-        k2, b2 = kb(tree["res"]["conv2"])
-        kl, bl = kb(tree["lastconv"])
+        k1, b1 = _kb(tree["res"]["conv1"])
+        k2, b2 = _kb(tree["res"]["conv2"])
+        kl, bl = _kb(tree["lastconv"])
         s_in = cal(name, "res", "conv1", "conv")
         s_c2 = cal(name, "res", "conv2", "conv")
         s_lc = cal(name, "lastconv", "conv")
@@ -249,8 +156,8 @@ def prow_mid_params(folded: dict, mid_rec: dict, s: dict, headroom: float, hp: i
 
     def up_leaves(name, s_x, s_z):
         tree = folded[name]["convbloc"]
-        k1, b1 = kb(tree["conv1"])
-        k2, b2 = kb(tree["conv2"])
+        k1, b1 = _kb(tree["conv1"])
+        k2, b2 = _kb(tree["conv2"])
         s_c2 = cal(name, "convbloc", "conv2", "conv")
         s_out = s[{"ub1": "m_u1", "ub2": "m_u2"}[name]]
         half = k1.shape[2] // 2                     # channels 0:half = up path, half: = skip
@@ -281,44 +188,41 @@ def int8_serving_params(variables: dict, rec: dict, mid_rec: dict, headroom: flo
     ``build_pallas_serving_params``): ``mid`` for ``mid='xla'`` and
     ``pmid`` for ``mid='prow'``."""
     dev = resolve_device(device)
-    folded = _to_numpy_tree(fold_batchnorm(variables))
-    s = {k: v / 127.0 * headroom for k, v in rec.items()}
+    folded = fold_batchnorm_numpy(variables)
+    s = {k: activation_scale(v, headroom) for k, v in rec.items()}
 
-    def kb(node):
-        return node["conv"]["kernel"], node["conv"]["bias"]
-
-    ol_k, ol_b = kb(folded["outlay"])
-    q, sc = _quantize_kernel(ol_k)
+    ol_k, ol_b = _kb(folded["outlay"])
+    q, sc = quantize_kernel(ol_k)
     ol = {"q": q, "scale": sc, "bias": np.asarray(ol_b, np.float32),
           "in_scale": np.float32(s["ol"])}
 
-    w1, b1 = kb(folded["inbloc"]["conv1"])
-    q1, sw1 = _quantize_kernel(w1)
+    w1, b1 = _kb(folded["inbloc"]["conv1"])
+    q1, sw1 = quantize_kernel(w1)
     in1 = {
         "w": q1,
         "scale": (s["in1"] * sw1 / s["in2"]).astype(np.float32),
         "bias": (np.asarray(b1, np.float64) / s["in2"]).astype(np.float32),
         "in_scale": np.float32(s["in1"]),
     }
-    in2 = prow_leaf(*kb(folded["inbloc"]["conv2"]), s["in2"], s["s0"])
+    in2 = prow_leaf(*_kb(folded["inbloc"]["conv2"]), s["in2"], s["s0"])
 
     # ub3.conv1 split halves: input channels 0:16 = up path, 16:32 = skip s0
-    w31, b31 = kb(folded["ub3"]["convbloc"]["conv1"])
-    qa, swa = _quantize_kernel(w31[:, :, :16])
-    qb, swb = _quantize_kernel(w31[:, :, 16:])
+    w31, b31 = _kb(folded["ub3"]["convbloc"]["conv1"])
+    qa, swa = quantize_kernel(w31[:, :, :16])
+    qb, swb = quantize_kernel(w31[:, :, 16:])
     u31 = {
         "wx": qa, "wz": qb,
         "scale_x": (s["up"] * swa / s["u32"]).astype(np.float32),
         "scale_z": (s["s0"] * swb / s["u32"]).astype(np.float32),
         "bias": (np.asarray(b31, np.float64) / s["u32"]).astype(np.float32),
     }
-    u32 = prow_leaf(*kb(folded["ub3"]["convbloc"]["conv2"]), s["u32"], s["ol"])
+    u32 = prow_leaf(*_kb(folded["ub3"]["convbloc"]["conv2"]), s["u32"], s["ol"])
 
     def walk_mid(node, base):
         if "kernel" in node:
-            q, sc = _quantize_kernel(node["kernel"])
+            q, sc = quantize_kernel(node["kernel"])
             return {"q": q, "scale": sc, "bias": np.asarray(node["bias"], np.float32),
-                    "in_scale": np.float32(mid_rec[base] / 127.0 * headroom)}
+                    "in_scale": np.float32(activation_scale(mid_rec[base], headroom))}
         return {k: walk_mid(v, base + (k,)) for k, v in node.items()}
 
     mid = {k: walk_mid(folded[k], (k,)) for k in ("db1", "db2", "db3", "ub1", "ub2")}
@@ -340,7 +244,8 @@ def build_int8_serving_params(variables: dict, sample_lst, sample_ndvi, stats,
     """ModelB2 state dict + calibration patches -> the int8 step's parameters,
     for LST blocks of the patches' size.
     calib_quantile: None uses max|x| per tensor; a quantile clips the tail."""
-    rec, mid_rec = calibrate(variables, sample_lst, sample_ndvi, stats, calib_quantile, device)
+    rec, mid_rec = calibration_record(variables, sample_lst, sample_ndvi, stats, calib_quantile,
+                                      device)
     return int8_serving_params(variables, rec, mid_rec, headroom, device,
                                lst_size=np.asarray(sample_lst).shape[1], up2_impl=up2_impl)
 
@@ -349,19 +254,19 @@ def build_int8_serving_params(variables: dict, sample_lst, sample_ndvi, stats,
 
 def _xla_mid(mid: dict, pm: torch.Tensor) -> torch.Tensor:
     """db1..db3, ub1, ub2 from the int8 phase mean (at db1's input scale) to
-    ub2's float32 output (``pallas_serving.py:586-598``)."""
-    db1 = mid["db1"]
-    leaf = db1["res"]["conv1"]["conv"]
+    ub2's float32 output (``pallas_serving.py:586-598``): the blocks of
+    ``models.quantized`` on the int8 convs of ``mid``."""
+    conv = int8_layers(mid)
+    leaf = mid["db1"]["res"]["conv1"]["conv"]
     s_db1 = leaf["in_scale"]
     # pm is already int8 at db1's input scale: the conv takes it unquantised
     r = conv_i8_generic(pm, leaf["q"], s_db1 * leaf["scale"], leaf["bias"], True)
-    r = _conv_i8_mid(r, db1["res"]["conv2"]["conv"])
-    s1m = _conv_i8_mid(pm.to(torch.float32) * s_db1 + r, db1["lastconv"]["conv"])
-    s2 = _down(s1m, mid["db2"])
-    t = _down(s2, mid["db3"])
-    t = _double_mid(torch.cat([upsample_bilinear_x2_nhwc(t), s2], -1), mid["ub1"]["convbloc"])
-    return _double_mid(torch.cat([upsample_bilinear_x2_nhwc(t), s1m], -1),
-                       mid["ub2"]["convbloc"])
+    r = conv(r, ("db1", "res", "conv2", "conv"))
+    s1m = conv(pm.to(torch.float32) * s_db1 + r, ("db1", "lastconv", "conv"))
+    s2 = down_block(conv, s1m, "db2")
+    t = down_block(conv, s2, "db3")
+    t = up_block(conv, t, s2, "ub1")
+    return up_block(conv, t, s1m, "ub2")
 
 
 def _prow_mid(pmid: dict, pm: torch.Tensor, dual_kernel=conv_prow_dual_planes) -> torch.Tensor:
@@ -556,7 +461,7 @@ def make_int8_sr_step(stats, mid: str = "prow", kernels: str = "default",
         lst_n = (lst - mean_lst) / std_lst
         ndvi_n = (ndvi - mean_ndvi) / std_ndvi
         lst_q = upsample_phases(lst_n[..., None], 4, "cubic", scale=s["in1"])[..., 0]
-        ndvi_q = _quant(ndvi_n, in1["in_scale"])
+        ndvi_q = quantize_activation(ndvi_n, in1["in_scale"])
         if alt:
             s1 = conv_i8_in1(torch.stack([lst_q, ndvi_q], dim=-1), in1["w"], in1["scale"],
                              in1["bias"])

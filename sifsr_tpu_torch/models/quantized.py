@@ -1,15 +1,14 @@
-"""The int8 serving path of ``predict --int8``: weight rule, calibration,
-forward and step.
+"""The int8 serving path of ``predict --int8``: the forward skeleton, its
+int8 layers, calibration and step.
 
 Port of ``sifsr_tpu/models/quantized.py``. The BN-folded ModelB2 is served
-with
+in the int8 format of ``kernels.conv_i8`` (the one owner of its rules):
 
-- weights: per-output-channel symmetric int8 (``scale = max|w_k| / 127``
-  computed in float64 and narrowed to float32, values rounded half-to-even
-  and clipped to [-127, 127]), quantised once from the folded kernels;
-- activations: int8 per layer, at the calibrated static ``in_scale`` when the
-  leaf has one (``round(x / s_x)``, a division by a 0-d device tensor), else
-  at a dynamic per-sample scale ``max|x| / 127``;
+- weights: per-output-channel symmetric int8 (``quantize_kernel``),
+  quantised once from the folded kernels;
+- activations: int8 per layer (``quantize_activation``), at the calibrated
+  static ``in_scale`` when the leaf has one, else at a dynamic per-sample
+  scale ``max|x| / 127``;
 - convs: replicate-pad int8 x int8 with int32 sums, then dequantise, bias and
   ReLU in float32, intermediates float32.
 
@@ -19,58 +18,88 @@ int8 conv kernel with the float32 epilogue (``kernels.conv_i8.conv_i8_generic``)
 the kernel takes whole 4-channel words, so inbloc.conv1's two input channels
 are zero-padded to four.
 
+ModelB2's graph on unpacked NHWC tensors is written once,
+``modelb2_forward(conv, x)``, with the layer as a parameter: ``conv(x, path,
+relu=True)`` runs the conv at ``path`` of the folded tree. ``int8_forward``
+passes the int8 convs of a parameter tree (``int8_layers``);
+``calibrate_activation_scales`` passes float32 replicate-pad convs that
+record their inputs. ``models.int8_serving``'s ``mid='xla'`` chain runs the
+same blocks (``down_block``, ``up_block``) on its own tree.
+
 A leaf is ``{'q': int8 HWIO, 'scale': (K,), 'bias': (K,)[, 'in_scale': ()]}``,
 tensors on the serving device.
 """
 
 from __future__ import annotations
 
+import functools
+import operator
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sifsr_tpu_torch.device import full_f32_convs, resolve_device
-from sifsr_tpu_torch.kernels.conv_i8 import conv_i8_generic
-from sifsr_tpu_torch.models.fused import fold_batchnorm, upsample_bilinear_x2_nhwc
+from sifsr_tpu_torch.kernels.conv_i8 import (
+    activation_scale,
+    conv_i8_generic,
+    quantize_activation,
+    quantize_kernel,
+)
+from sifsr_tpu_torch.models.fused import (
+    fold_batchnorm,
+    fold_batchnorm_numpy,
+    upsample_bilinear_x2_nhwc,
+)
+from sifsr_tpu_torch.ops.pooling import avg_pool_2x2_nhwc
 from sifsr_tpu_torch.ops.quantile import quantile_linear
 from sifsr_tpu_torch.ops.resize import upsample_bicubic
 
-__all__ = ["quantize_serving_params", "calibrate_activation_scales", "int8_forward",
-           "make_int8_sr_step"]
+__all__ = ["int8_leaf", "quantize_serving_params", "with_in_scales", "int8_conv", "int8_layers",
+           "down_block", "up_block", "modelb2_forward", "int8_forward",
+           "calibrate_activation_scales", "make_int8_sr_step"]
 
 
-def _quantize_kernel(kernel) -> tuple[np.ndarray, np.ndarray]:
-    """HWIO float kernel -> (int8 kernel, per-output-channel float32 scale)."""
-    kernel = np.asarray(kernel, np.float64)
-    scale = np.abs(kernel).max(axis=(0, 1, 2)) / 127.0
-    scale = np.where(scale == 0, 1.0, scale)
-    q = np.clip(np.round(kernel / scale), -127, 127).astype(np.int8)
-    return q, scale.astype(np.float32)
+def int8_leaf(kernel, bias, dev: torch.device) -> dict:
+    """A float HWIO kernel and its bias -> the leaf {'q': int8 HWIO, 'scale':
+    (K,), 'bias': (K,)} on ``dev``."""
+    q, s = quantize_kernel(kernel)
+    return {"q": torch.from_numpy(q).to(dev), "scale": torch.from_numpy(s).to(dev),
+            "bias": torch.as_tensor(np.asarray(bias, np.float32)).to(dev)}
 
 
 def quantize_serving_params(variables: dict, device: str | torch.device = "cuda") -> dict:
     """ModelB2 state dict -> BN-folded, weight-quantised tree on ``device``:
-    each conv becomes {'q': int8 HWIO, 'scale': (K,), 'bias': (K,)}."""
+    each conv an ``int8_leaf``."""
     dev = resolve_device(device)
 
     def walk(node):
         if "kernel" in node:
-            q, s = _quantize_kernel(node["kernel"].numpy())
-            return {"q": torch.from_numpy(q).to(dev), "scale": torch.from_numpy(s).to(dev),
-                    "bias": node["bias"].to(dev, torch.float32)}
+            return int8_leaf(node["kernel"], node["bias"], dev)
         return {k: walk(v) for k, v in node.items()}
 
-    return walk(fold_batchnorm(variables))
+    return walk(fold_batchnorm_numpy(variables))
 
 
-def _quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """clip(round(x / scale), -127, 127) -> int8; ``scale`` a float32 tensor on
-    x's device (a true division, as in the JAX package: a Python-float
-    divisor would become a multiplication by its reciprocal on CUDA)."""
-    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+def with_in_scales(qparams: dict, amax: dict, headroom: float, dev: torch.device) -> dict:
+    """``qparams`` with a static ``in_scale`` (0-d float32 on ``dev``) in
+    every leaf: ``activation_scale`` of the max|x| that ``amax`` holds
+    under the leaf's path."""
+    def attach(node, path=()):
+        if "q" in node:
+            return dict(node, in_scale=torch.tensor(activation_scale(amax[path], headroom),
+                                                    dtype=torch.float32, device=dev))
+        return {k: attach(v, path + (k,)) for k, v in node.items()}
+
+    return attach(qparams)
 
 
-def _conv_i8(x: torch.Tensor, leaf: dict, relu: bool = True) -> torch.Tensor:
+def _at(tree: dict, path: tuple):
+    """The node of ``tree`` at ``path``, a tuple of keys."""
+    return functools.reduce(operator.getitem, path, tree)
+
+
+def int8_conv(x: torch.Tensor, leaf: dict, relu: bool = True) -> torch.Tensor:
     """NHWC float -> int8 -> replicate-pad int8 conv -> dequantise -> bias
     [-> ReLU], float32 out (``quantized.py:66-98``).
 
@@ -84,7 +113,7 @@ def _conv_i8(x: torch.Tensor, leaf: dict, relu: bool = True) -> torch.Tensor:
         s_x = leaf["in_scale"]
     else:
         s_x = torch.clamp_min(xf.abs().amax(dim=(1, 2, 3), keepdim=True), 1e-12) / 127.0
-    x_q = _quant(xf, s_x)
+    x_q = quantize_activation(xf, s_x)
     q = leaf["q"]
     pad = -q.shape[2] % 4
     if pad:                       # whole 4-channel words: zero channels add nothing
@@ -98,37 +127,50 @@ def _conv_i8(x: torch.Tensor, leaf: dict, relu: bool = True) -> torch.Tensor:
     return torch.clamp_min(y, 0.0) if relu else y
 
 
-def _double(x, tree):
-    x = _conv_i8(x, tree["conv1"]["conv"])
-    return _conv_i8(x, tree["conv2"]["conv"])
+def int8_layers(params: dict):
+    """The ``conv`` of ``modelb2_forward`` for an int8 tree: (x, path, relu)
+    -> ``int8_conv`` of the leaf at ``path`` of ``params``."""
+    def conv(x, path, relu=True):
+        return int8_conv(x, _at(params, path), relu)
+    return conv
 
 
-def _pool2(x: torch.Tensor) -> torch.Tensor:
-    n, h, w, c = x.shape
-    return x.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+def _double(conv, x, base):
+    x = conv(x, base + ("conv1", "conv"))
+    return conv(x, base + ("conv2", "conv"))
 
 
-def _down(x, tree):
-    x = _pool2(x)
-    x = x + _double(x, tree["res"])
-    return _conv_i8(x, tree["lastconv"]["conv"])
+def down_block(conv, x, name: str):
+    """DownBlock ``name``: 2x2 pool, residual DoubleConv, lastconv."""
+    x = avg_pool_2x2_nhwc(x)
+    x = x + _double(conv, x, (name, "res"))
+    return conv(x, (name, "lastconv", "conv"))
 
 
-def _up(x, skip, tree):
-    return _double(torch.cat([upsample_bilinear_x2_nhwc(x), skip], dim=-1), tree["convbloc"])
+def up_block(conv, x, skip, name: str):
+    """UpBlock ``name``: DoubleConv of concat(bilinear x2 of x, skip)."""
+    return _double(conv, torch.cat([upsample_bilinear_x2_nhwc(x), skip], dim=-1),
+                   (name, "convbloc"))
+
+
+def modelb2_forward(conv, x: torch.Tensor) -> torch.Tensor:
+    """ModelB2's graph on NHWC x (N, H, W, 2) -> (N, H, W, 1), each layer
+    ``conv(x, path, relu=True)`` for its path in the folded tree
+    (``('db1', 'res', 'conv1', 'conv')``, ...)."""
+    s0 = _double(conv, x, ("inbloc",))
+    s1 = down_block(conv, s0, "db1")
+    s2 = down_block(conv, s1, "db2")
+    x = down_block(conv, s2, "db3")
+    x = up_block(conv, x, s2, "ub1")
+    x = up_block(conv, x, s1, "ub2")
+    x = up_block(conv, x, s0, "ub3")
+    return conv(x, ("outlay", "conv"), relu=False)
 
 
 @torch.no_grad()
 def int8_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Quantised BN-folded forward; x (N, H, W, 2) float32 -> (N, H, W, 1)."""
-    s0 = _double(x, params["inbloc"])
-    s1 = _down(s0, params["db1"])
-    s2 = _down(s1, params["db2"])
-    x = _down(s2, params["db3"])
-    x = _up(x, s2, params["ub1"])
-    x = _up(x, s1, params["ub2"])
-    x = _up(x, s0, params["ub3"])
-    return _conv_i8(x, params["outlay"]["conv"], relu=False)
+    return modelb2_forward(int8_layers(params), x)
 
 
 def _normalised_input(lst, ndvi, stats, dev) -> torch.Tensor:
@@ -156,61 +198,31 @@ def make_int8_sr_step(stats, device: str | torch.device = "cuda"):
 def calibrate_activation_scales(variables: dict, qparams: dict, sample_lst, sample_ndvi, stats,
                                 headroom: float = 1.05, calib_quantile: float | None = None,
                                 device: str | torch.device = "cuda") -> dict:
-    """Run the float32 BN-folded forward on calibration patches, record
-    max|input| of every conv, and return ``qparams`` with a static
-    ``in_scale`` (0-d float32 tensor) in every leaf.
+    """Run ``modelb2_forward`` in float32 on the BN-folded tree and
+    calibration patches, record max|input| of every conv, and return
+    ``qparams`` with a static ``in_scale`` (0-d float32 tensor) in every
+    leaf.
 
     sample_lst (N,64,64) Kelvin, sample_ndvi (N,256,256). calib_quantile:
     None records max|x| per conv input; a quantile (e.g. 0.9999) clips that
     tail for tighter scales."""
     dev = resolve_device(device)
     folded = fold_batchnorm(variables)
-    scales: dict = {}
-
-    def record(path, arr):
-        if calib_quantile is None:
-            m = float(arr.abs().max())
-        else:
-            m = float(quantile_linear(arr.abs().reshape(-1), calib_quantile))
-        scales[path] = m / 127.0 * headroom
+    amax: dict = {}
 
     def conv_f32(xx, path, relu=True):
-        node = folded
-        for k in path:
-            node = node[k]
-        record(path, xx)
+        """The float32 replicate-pad conv of the folded layer at ``path``,
+        recording its input."""
+        if calib_quantile is None:
+            amax[path] = float(xx.abs().max())
+        else:
+            amax[path] = float(quantile_linear(xx.abs().reshape(-1), calib_quantile))
+        node = _at(folded, path)
         xp = F.pad(xx.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
         yy = F.conv2d(xp, node["kernel"].to(dev).permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
         yy = yy + node["bias"].to(dev)
         return torch.clamp_min(yy, 0.0) if relu else yy
 
-    def double_f32(xx, base):
-        xx = conv_f32(xx, base + ("conv1", "conv"))
-        return conv_f32(xx, base + ("conv2", "conv"))
-
-    def down_f32(xx, base):
-        xx = _pool2(xx)
-        xx = xx + double_f32(xx, base + ("res",))
-        return conv_f32(xx, base + ("lastconv", "conv"))
-
-    def up_f32(xx, skip, base):
-        return double_f32(torch.cat([upsample_bilinear_x2_nhwc(xx), skip], dim=-1),
-                          base + ("convbloc",))
-
     with full_f32_convs():
-        s0 = double_f32(_normalised_input(sample_lst, sample_ndvi, stats, dev), ("inbloc",))
-        s1 = down_f32(s0, ("db1",))
-        s2 = down_f32(s1, ("db2",))
-        t = down_f32(s2, ("db3",))
-        t = up_f32(t, s2, ("ub1",))
-        t = up_f32(t, s1, ("ub2",))
-        t = up_f32(t, s0, ("ub3",))
-        conv_f32(t, ("outlay", "conv"), relu=False)
-
-    def attach(node, path=()):
-        if "q" in node:
-            return dict(node, in_scale=torch.tensor(scales[path], dtype=torch.float32,
-                                                    device=dev))
-        return {k: attach(v, path + (k,)) for k, v in node.items()}
-
-    return attach(qparams)
+        modelb2_forward(conv_f32, _normalised_input(sample_lst, sample_ndvi, stats, dev))
+    return with_in_scales(qparams, amax, headroom, dev)

@@ -1,14 +1,14 @@
 """int8 x space-to-depth packed serving: the two serving optimisations of the
-JAX package composed, and the XLA int8 mid chain of ``mid='xla'``.
+JAX package composed.
 
 Port of ``sifsr_tpu/models/quantized_packed.py``. Every conv of the
-BN-folded ModelB2 is quantised to int8 (per-output-channel weights, an
-activation scale a layer: the calibrated static ``in_scale`` when the leaf
-has one, else a dynamic per-sample ``max|x| / 127``); each quantises its
-float32 input (``round(x / s_x)``, a division, half-to-even, clipped to
-[-127, 127]), runs a replicate-pad int8 conv with int32 sums and dequantises
-``acc * (s_x * scale) + bias`` (ReLU). The level-0 layers (inbloc, ub3,
-outlay) have packed (3,3,4C,4K) weights, as in the JAX tree.
+BN-folded ModelB2 is quantised to int8 in the format of ``kernels.conv_i8``
+(per-output-channel weights, an activation scale a layer: the calibrated
+static ``in_scale`` when the leaf has one, else a dynamic per-sample
+``max|x| / 127``); each quantises its float32 input, runs a replicate-pad
+int8 conv with int32 sums and dequantises ``acc * (s_x * scale) + bias``
+(ReLU). The level-0 layers (inbloc, ub3, outlay) have packed (3,3,4C,4K)
+weights, as in the JAX tree.
 
 The JAX package leaves these convs to XLA. ``F.conv2d`` has no integer path
 on CUDA, and a float32 cuDNN conv is not exact (Winograd/FFT algorithms, and
@@ -23,42 +23,32 @@ the packed tree un-packed (``unpacked_int8_params``: once by the caller, or
 on every call where the step is given the packed tree, as JAX's is): the
 same 18 convs at the same shapes. What stays packed is the input: the cubic
 x4 into the packed layout, as JAX's step makes it, then un-packed.
+``calibrate_packed_scales`` takes its scales from
+``models.packed.calibration_record``, the record of the int8 step.
 
 A leaf is ``{'q': int8 HWIO, 'scale': (K,), 'bias': (K,)[, 'in_scale':
-()]}``, tensors on the serving device. ``models.int8_serving``'s
-``mid='xla'`` chain imports its functions from here: they are those of
-``models.quantized``, and with a static ``in_scale`` its ``_conv_i8`` is
-``_conv_i8_mid``.
+()]}``, tensors on the serving device.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from sifsr_tpu_torch.device import resolve_device
 from sifsr_tpu_torch.models.packed import (
-    _depth_to_space,
-    _packed_concat,
-    _packed_inputs,
-    _space_to_depth,
+    calibration_record,
+    depth_to_space,
     pack_serving_params,
+    packed_concat,
+    packed_inputs,
+    space_to_depth,
 )
-from sifsr_tpu_torch.models.quantized import _conv_i8 as _conv_i8_mid
-from sifsr_tpu_torch.models.quantized import _double as _double_mid
-from sifsr_tpu_torch.models.quantized import _down, _quant, _quantize_kernel, int8_forward
+from sifsr_tpu_torch.models.quantized import int8_forward, int8_leaf, with_in_scales
 
-__all__ = ["_quant", "_conv_i8_mid", "_double_mid", "_down", "quantize_packed_params",
-           "unpacked_int8_params", "int8_packed_forward", "calibrate_packed_scales",
-           "make_int8_packed_sr_step"]
+__all__ = ["quantize_packed_params", "unpacked_int8_params", "int8_packed_forward",
+           "calibrate_packed_scales", "make_int8_packed_sr_step"]
 
 _PACKED = ("in_conv1", "in_conv2", "ub3_conv1", "ub3_conv2", "outlay")
-
-
-def _qleaf(kernel, bias, dev: torch.device) -> dict:
-    q, s = _quantize_kernel(kernel)
-    return {"q": torch.from_numpy(q).to(dev), "scale": torch.from_numpy(s).to(dev),
-            "bias": torch.as_tensor(np.asarray(bias, np.float32)).to(dev)}
 
 
 def quantize_packed_params(variables: dict, device: str | torch.device = "cuda") -> dict:
@@ -72,13 +62,13 @@ def quantize_packed_params(variables: dict, device: str | torch.device = "cuda")
 
     def walk_mid(node):
         if "kernel" in node:
-            return _qleaf(node["kernel"], node["bias"], dev)
+            return int8_leaf(node["kernel"], node["bias"], dev)
         return {k: walk_mid(v) for k, v in node.items()}
 
     # the level-0 layers run in packed form: their unpacked copies are not
     # part of the tree, so calibration covers exactly the consumed convs
     mid = {k: v for k, v in pp["mid"].items() if k not in ("inbloc", "ub3", "outlay")}
-    return {"mid": walk_mid(mid), "packed": {k: _qleaf(*pp["packed"][k], dev) for k in _PACKED}}
+    return {"mid": walk_mid(mid), "packed": {k: int8_leaf(*pp["packed"][k], dev) for k in _PACKED}}
 
 
 def _unpack_conv_weights(wp: torch.Tensor) -> torch.Tensor:
@@ -138,37 +128,28 @@ def int8_packed_forward(params: dict, lst_up_packed: torch.Tensor,
     width = params["inbloc"]["conv1"]["conv"]["q"].shape[3]
     if width != c0:
         raise ValueError(f"c0={c0}, but the tree's inbloc is {width} channels wide")
-    x = _depth_to_space(_packed_concat(lst_up_packed, 1, ndvi_packed, 1), 2)
-    return _space_to_depth(int8_forward(params, x))
+    x = depth_to_space(packed_concat(lst_up_packed, 1, ndvi_packed, 1), 2)
+    return space_to_depth(int8_forward(params, x))
 
 
 def calibrate_packed_scales(variables: dict, qparams: dict, sample_lst, sample_ndvi, stats,
                             headroom: float = 1.05,
                             device: str | torch.device = "cuda") -> dict:
-    """Run the float32 packed forward (TF32 off) on calibration patches,
-    record max|x| of each conv's input, and return ``qparams`` with a static
-    ``in_scale`` = max / 127 * headroom (0-d float32 on ``device``) in every
-    leaf. sample_lst (N,h,h) K, sample_ndvi (N,4h,4h)."""
-    # a function-level import: int8_serving imports this module's chain
-    from sifsr_tpu_torch.models.int8_serving import calibrate
-
+    """Take ``calibration_record`` (the float32 packed forward, TF32 off)
+    on calibration patches, max|x| of each conv's input, and return
+    ``qparams`` with a static ``in_scale`` = max / 127 * headroom (0-d
+    float32 on ``device``) in every leaf. sample_lst (N,h,h) K, sample_ndvi
+    (N,4h,4h)."""
     dev = resolve_device(device)
-    rec, mid_rec = calibrate(variables, sample_lst, sample_ndvi, stats, device=dev)
-    # the packed convs' inputs under the mirror's record keys; ub3.conv1
-    # reads concat(up, s0)
+    rec, mid_rec = calibration_record(variables, sample_lst, sample_ndvi, stats, device=dev)
+    # the packed convs' inputs under the record's keys; ub3.conv1 reads
+    # concat(up, s0)
     packed = {"in_conv1": rec["in1"], "in_conv2": rec["in2"],
               "ub3_conv1": max(rec["up"], rec["s0"]), "ub3_conv2": rec["u32"],
               "outlay": rec["ol"]}
     amax = {("packed", k): v for k, v in packed.items()}
     amax.update({("mid",) + path: v for path, v in mid_rec.items()})
-
-    def attach(node, path=()):
-        if "q" in node:
-            return dict(node, in_scale=torch.tensor(amax[path] / 127.0 * headroom,
-                                                    dtype=torch.float32, device=dev))
-        return {k: attach(v, path + (k,)) for k, v in node.items()}
-
-    return attach(qparams)
+    return with_in_scales(qparams, amax, headroom, dev)
 
 
 def make_int8_packed_sr_step(stats, device: str | torch.device = "cuda"):
@@ -181,12 +162,12 @@ def make_int8_packed_sr_step(stats, device: str | torch.device = "cuda"):
     layout, as JAX's step makes them, and un-packed into ``int8_forward``:
     ``conv_i8_generic`` 18 times a batch and no other kernel."""
     dev = resolve_device(device)
-    inputs = _packed_inputs(stats, dev)
+    inputs = packed_inputs(stats, dev)
 
     @torch.no_grad()
     def sr_step(params, lst_blocks, ndvi_blocks):
         lst_up_p, ndvi_p = inputs(lst_blocks, ndvi_blocks)
-        x = _depth_to_space(_packed_concat(lst_up_p, 1, ndvi_p, 1), 2)
+        x = depth_to_space(packed_concat(lst_up_p, 1, ndvi_p, 1), 2)
         sr = int8_forward(_int8_tree(params), x)[..., 0]
         return sr * stats.std_lst + stats.mean_lst
 

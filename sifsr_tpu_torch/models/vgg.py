@@ -20,10 +20,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["LPIPS_LAYERS", "VGG16Features", "convert_torchvision_vgg16"]
+__all__ = ["LPIPS_LAYERS", "VGG16_CFG", "VGG16Features", "convert_torchvision_vgg16"]
 
 # (name, out_channels, torchvision features index)
-_CFG = [
+VGG16_CFG = [
     ("conv1_1", 64, 0), ("conv1_2", 64, 2), ("pool", None, None),
     ("conv2_1", 128, 5), ("conv2_2", 128, 7), ("pool", None, None),
     ("conv3_1", 256, 10), ("conv3_2", 256, 12), ("conv3_3", 256, 14), ("pool", None, None),
@@ -42,7 +42,7 @@ class VGG16Features(nn.Module):
     def __init__(self):
         super().__init__()
         layers, self._taps, c_in = [], {}, 3
-        for name, ch, _ in _CFG:
+        for name, ch, _ in VGG16_CFG:
             if name == "pool":
                 layers.append(nn.MaxPool2d(2, 2))
                 continue
@@ -71,7 +71,7 @@ def convert_torchvision_vgg16(state_dict: dict) -> dict:
     """
     prefix = "features." if any(k.startswith("features.") for k in state_dict) else ""
     out = {}
-    for name, _, idx in _CFG:
+    for name, _, idx in VGG16_CFG:
         if idx is None:
             continue
         for part in ("weight", "bias"):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["norm_l4_downsample", "avg_pool_2x2"]
+__all__ = ["norm_l4_downsample", "avg_pool_2x2", "avg_pool_2x2_nhwc"]
 
 
 def norm_l4_downsample(x: torch.Tensor, factor: int = 4) -> torch.Tensor:
@@ -26,3 +26,10 @@ def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """AvgPool2d(kernel=2, stride=2) on (..., H, W) (reference model.py:504)."""
     *lead, h, w = x.shape
     return x.reshape(*lead, h // 2, 2, w // 2, 2).mean(dim=(-3, -1))
+
+
+def avg_pool_2x2_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(kernel=2, stride=2) on NHWC (N, H, W, C): the DownBlocks'
+    pool in the serving models' layout."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))

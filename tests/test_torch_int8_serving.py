@@ -24,10 +24,10 @@ from sifsr_tpu.pallas.conv_px import nhwc_to_rows
 from sifsr_tpu_torch.cli.predict import load_variables
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.inference import predict_granule
+from sifsr_tpu_torch.kernels.conv_i8 import quantize_activation, quantize_kernel
 from sifsr_tpu_torch.models import int8_serving
 from sifsr_tpu_torch.models.fused import fold_batchnorm
-from sifsr_tpu_torch.models.packed import pack_conv_weights
-from sifsr_tpu_torch.models.quantized import _quantize_kernel
+from sifsr_tpu_torch.models.packed import calibration_record, pack_conv_weights
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 WEIGHTS = os.path.join(ROOT, "weights", "modelB_1009")
@@ -79,7 +79,7 @@ def test_quantize_kernel_bit_equal(rng, weights):
     kernels.append(rng.normal(size=(3, 3, 8, 5)).astype(np.float32))
     kernels.append(np.zeros((3, 3, 2, 3), np.float32))        # zero channel -> scale 1
     for k in kernels:
-        q, s = _quantize_kernel(k)
+        q, s = quantize_kernel(k)
         jq, js = jax_quantize_kernel(k)
         assert q.dtype == np.int8 and s.dtype == np.float32
         np.testing.assert_array_equal(q, jq)
@@ -96,8 +96,8 @@ def test_packed_quantisation_equals_unpacked(weights, layer):
     the port's unpacked int8 convs run the TPU kernels' weights exactly."""
     k = _folded_kernels(weights[0])[layer]
     bias = np.zeros(k.shape[-1], np.float32)
-    qp, sp = _quantize_kernel(pack_conv_weights(k, bias)[0])
-    q, s = _quantize_kernel(k)
+    qp, sp = quantize_kernel(pack_conv_weights(k, bias)[0])
+    q, s = quantize_kernel(k)
     np.testing.assert_array_equal(sp, np.tile(s, 4))
     np.testing.assert_array_equal(qp, pack_conv_weights(q.astype(np.float32), bias)[0].astype(np.int8))
 
@@ -108,8 +108,8 @@ def test_packed_quantisation_of_split_halves(weights):
     k = _folded_kernels(weights[0])[("ub3", "convbloc", "conv1", "conv")]
     wp = pack_conv_weights(k, np.zeros(16, np.float32))[0].reshape(3, 3, 4, 32, 64)
     for packed_half, half in ((wp[:, :, :, :16], k[:, :, :16]), (wp[:, :, :, 16:], k[:, :, 16:])):
-        qp, sp = _quantize_kernel(packed_half.reshape(3, 3, 64, 64))
-        q, s = _quantize_kernel(half)
+        qp, sp = quantize_kernel(packed_half.reshape(3, 3, 64, 64))
+        q, s = quantize_kernel(half)
         np.testing.assert_array_equal(sp, np.tile(s, 4))
         want = pack_conv_weights(q.astype(np.float32), np.zeros(16, np.float32))[0]
         np.testing.assert_array_equal(qp, want.astype(np.int8))
@@ -119,7 +119,7 @@ def test_calibration_record_matches_jax(rng, weights, stats):
     lst, ndvi = _patches(rng, 2, 32)
     pp = jax.device_get(jax_serving.pack_serving_params(weights[1]))
     jrec, jmid = jax_serving._f32_packed_mirror(pp, lst, ndvi, stats[1])
-    rec, mid = int8_serving.calibrate(weights[0], lst, ndvi, stats[0], device="cpu")
+    rec, mid = calibration_record(weights[0], lst, ndvi, stats[0], device="cpu")
     assert rec.keys() == jrec.keys() and mid.keys() == jmid.keys()
     for k in jrec:
         np.testing.assert_allclose(rec[k], jrec[k], rtol=1e-5, err_msg=k)
@@ -158,7 +158,6 @@ def test_int8_step_matches_jax_xla_mid(rng, weights, stats):
 def _port_phase_mean(params, stats, lst, ndvi):
     """The port's input to the mid chain: kernels A, D and B of the step."""
     from sifsr_tpu_torch.kernels import conv_i8_exact, conv_i8_in1_split, upsample_phases
-    from sifsr_tpu_torch.models.quantized_packed import _quant
 
     def norm(x, mean, std):
         return (torch.from_numpy(x) - torch.tensor(mean)) / torch.tensor(std)
@@ -166,7 +165,7 @@ def _port_phase_mean(params, stats, lst, ndvi):
     in1, in2 = params["in1"], params["in2"]
     lst_q = upsample_phases(norm(lst, stats.mean_lst, stats.std_lst)[..., None], 4, "cubic",
                             scale=params["s"]["in1"])[..., 0]
-    ndvi_q = _quant(norm(ndvi, stats.mean_ndvi, stats.std_ndvi), in1["in_scale"])
+    ndvi_q = quantize_activation(norm(ndvi, stats.mean_ndvi, stats.std_ndvi), in1["in_scale"])
     s1 = conv_i8_in1_split(lst_q, ndvi_q, in1["w"], in1["scale"], in1["bias"])
     return conv_i8_exact(s1, in2["w"], in2["scale"], in2["bias"], pm_scale=params["pm_scale"])[1]
 

@@ -30,7 +30,7 @@ from sifsr_tpu_torch.kernels import (
     conv_i8_in1_split,
     upsample_phases,
 )
-from sifsr_tpu_torch.models.quantized_packed import _conv_i8_mid
+from sifsr_tpu_torch.models.quantized import int8_conv
 
 N, H = 2, 64  # SR-level size of an LST 32² block: 128² at 256² scale / 4
 
@@ -229,7 +229,7 @@ def test_conv_i8_mid_matches_jax(rng, cin, cout, relu):
     want = np.asarray(jax_conv_i8_mid(jnp.asarray(x), {
         "q": jnp.asarray(q), "scale": jnp.asarray(scale), "bias": jnp.asarray(bias),
         "in_scale": jnp.float32(in_scale)}, relu))
-    got = _conv_i8_mid(torch.from_numpy(x), {
+    got = int8_conv(torch.from_numpy(x), {
         "q": torch.from_numpy(q), "scale": torch.from_numpy(scale),
         "bias": torch.from_numpy(bias), "in_scale": torch.tensor(in_scale)}, relu)
     np.testing.assert_array_equal(got.numpy(), want)
