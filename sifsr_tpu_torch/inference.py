@@ -3,15 +3,23 @@
 Port of ``sifsr_tpu/inference.py``. The reference predicts a 1200x1200 LST
 granule block by block at batch 1 on the host (predict.py:84-103). Here:
 
-1. host: tile the granule into 64x64 LST / 256x256 NDVI blocks (one reshape);
+1. host: tile the granule into 64x64 LST / 256x256 NDVI blocks, copied once
+   (the float32 cast and the block layout together) straight into the
+   buffer the batches upload from, pinned memory on CUDA, and the NDVI
+   clipped there in place;
 2. device: normalise -> bicubic x4 (matmul) -> U-Net -> de-normalise, over a
    whole batch of blocks at once;
-3. host: scatter the SR blocks back into the 4800x4800 mosaic.
+3. host: write each downloaded batch straight into the 4800x4800 mosaic.
 
 On a CUDA device the batch loop is pipelined over three streams: the upload
-of batch i+1 (pinned host memory, its own stream) and the download of batch
-i-1 overlap the compute of batch i, with ``pipeline_depth`` batches in
-flight (``mode='host_pipeline'``). The int8 step of
+of batch i+1 (from the pinned staging, its own stream) and the download of
+batch i-1 (into a pinned buffer) overlap the compute of batch i, with
+``pipeline_depth`` batches in flight (``mode='host_pipeline'``). The staging
+and the download buffers come from torch's caching host allocator, which
+hands a buffer out again only once the copies recorded on it are done: the
+host arrays a call on CUDA creates are its coverage mask and the mosaic it
+returns, a new array on every call (and the wire's codes under
+``wire='int'``). The int8 step of
 ``models.int8_serving`` replays there one CUDA graph of the whole step per
 row count: one launch where the step makes about 30, so a batch of a few
 blocks no longer waits on the host's enqueue. Its output is the caller's,
@@ -21,17 +29,22 @@ static inputs and output of the most rows seen, one memory pool for every
 graph.
 
 Under ``tracing`` each call is a ``predict_granule`` root with the stage
-spans ``tile`` (the NDVI clip, the float32 cast, tiling, the coverage mask,
-the output's allocation), ``pad`` (each batch's contiguous copy; under a
-mesh, the last batch's zero padding to a multiple of the group's size),
-``upload`` (the pinned staging copy and the host-to-device enqueue),
-``step`` (the serving step and the device-to-host enqueue), ``wait`` (the
-host waiting on the device) and ``mosaic`` (decoding, scattering, masking
-and untiling), and the counters ``blocks`` (real blocks), ``rows`` (batch
-rows stepped: the real blocks on one device, this rank's rows, padding
-included, under a mesh) and ``host_bytes`` (the bytes of every host array
-the call creates; torch's cached pinned buffers are not counted). The
-int8 step adds ``graph_replays`` and ``graph_captures`` on CUDA.
+spans ``tile`` (the staging's allocation, its one copy of the inputs, the
+NDVI's clip in place, the coverage mask, the mosaic's allocation), ``pad``
+(each batch's row slice of the staging; under a mesh this rank's shard,
+its padding rows zeroed in the staging), ``upload`` (the host-to-device
+enqueue from the staging), ``step`` (the serving step and the
+device-to-host enqueue), ``wait`` (the host waiting on the device) and
+``mosaic`` (writing each download into the mosaic, decoding the wire's
+codes on the way, zeroing the blocks that fail coverage, releasing the
+staging), and the counters ``blocks`` (real
+blocks), ``rows`` (batch rows stepped: the real blocks on one device, this
+rank's rows, padding included, under a mesh), ``staged_rows`` (the rows
+stepped straight from the staging: uploaded from it without a copy on
+CUDA, read in place on the CPU) and ``host_bytes`` (the bytes of every
+host array the call creates, the CPU's plain staging included; torch's
+cached pinned buffers are not counted). The int8 step adds
+``graph_replays`` and ``graph_captures`` on CUDA.
 
 ``device_tiling`` instead uploads the granule once, tiles it, masks by
 coverage, runs the batches and assembles the mosaic on the device, and
@@ -88,6 +101,30 @@ def untile_mosaic(blocks: np.ndarray, grid: tuple[int, int]) -> np.ndarray:
     gh, gw = grid
     fwin = blocks.shape[-1]
     return blocks.reshape(gh, gw, fwin, fwin).transpose(0, 2, 1, 3).reshape(gh * fwin, gw * fwin)
+
+
+def _grid_runs(start: int, stop: int, gw: int):
+    """Blocks ``start:stop`` of a row-major grid ``gw`` blocks wide, as runs
+    ``(i, j, rows, cols)``: the blocks ``i:j`` fill the grid rows ``rows`` at
+    the columns ``cols``, one partial grid row or whole grid rows."""
+    i = start
+    while i < stop:
+        r, c = divmod(i, gw)
+        k = (stop - i) // gw if c == 0 else 0
+        if k:
+            j, rows, cols = i + k * gw, slice(r, r + k), slice(0, gw)
+        else:
+            j = min(stop, i - c + gw)
+            rows, cols = slice(r, r + 1), slice(c, c + j - i)
+        yield i, j, rows, cols
+        i = j
+
+
+def _grid_of(blocks: np.ndarray, rows: slice, cols: slice) -> np.ndarray:
+    """A run's (R·C, b, b) blocks as the (R, b, C, b) view of the grid rows
+    and columns they fill (``_grid_runs``)."""
+    shape = (rows.stop - rows.start, cols.stop - cols.start, *blocks.shape[1:])
+    return blocks.reshape(shape).transpose(0, 2, 1, 3)
 
 
 def _fresh(a: np.ndarray, *sources) -> np.ndarray:
@@ -161,9 +198,14 @@ def _u16_bits(a: np.ndarray) -> np.ndarray:
     return a.view(np.int16) if a.dtype == np.uint16 else a
 
 
+def _put_decoded(dst: np.ndarray, codes: np.ndarray) -> None:
+    """The wire's int16 bit patterns of uint16 Kelvin/0.02 into float32 K."""
+    np.multiply(codes.view(np.uint16), np.float32(WIRE_LST_STEP), out=dst, dtype=np.float32)
+
+
 def _decode_wire_out(a: np.ndarray) -> np.ndarray:
-    out = a.view(np.uint16).astype(np.float32) * WIRE_LST_STEP
-    tracing.count("host_bytes", 2 * out.nbytes)    # the cast and the product
+    out = _fresh(np.empty(a.shape, np.float32))
+    _put_decoded(out, a)
     return out
 
 
@@ -188,11 +230,44 @@ def _wire_step(sr_step, dev: torch.device):
     return step
 
 
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(_fresh(np.ascontiguousarray(_u16_bits(a)), a))
+def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A host tensor on ``dev``: itself on the CPU; on CUDA a copy enqueued
+    from pinned memory, from ``t`` itself where it is pinned (a staging
+    buffer: ``pin_memory()`` returns it unchanged), else from a pinned copy."""
     if dev.type != "cuda":
         return t
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _array_to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return _to_device(torch.from_numpy(_fresh(np.ascontiguousarray(a), a)), dev)
+
+
+def _staging(rows: int, block: int, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A host buffer of ``rows`` (block, block) rows that the batches are
+    stepped from: on CUDA pinned memory from torch's caching host allocator
+    (not counted), on the CPU a plain fresh array."""
+    cuda = dev.type == "cuda"
+    t = torch.empty((rows, block, block), dtype=dtype, pin_memory=cuda)
+    if not cuda:
+        tracing.count("host_bytes", t.numel() * t.element_size())
+    return t
+
+
+def _batches(n: int, batch_size: int, mesh) -> list[tuple[int, int, int, int]]:
+    """``(start, stop, a, b)`` of each batch: its blocks ``start:stop`` and
+    the staging rows ``a:b`` this device steps. On one device those are the
+    blocks' own rows; under a mesh they are this rank's equal shard of the
+    batch zero-padded to the group's next multiple, its padding the rows
+    past the n blocks' (only the last batch is padded: ``batch_size``
+    splits evenly over the group)."""
+    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    out = []
+    for start in range(0, n, batch_size):
+        stop = min(start + batch_size, n)
+        shard = -(-(stop - start) // size)
+        out.append((start, stop, start + rank * shard, start + (rank + 1) * shard))
+    return out
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -218,7 +293,7 @@ def _run_device_tiling(step, params, lst_g: np.ndarray, ndvi_g: np.ndarray, wind
     k = -(-nt // bs)
     pad = k * bs - nt
     with tracing.span("upload"):
-        lst_d, ndvi_d = _to_device(lst_g, dev), _to_device(ndvi_g, dev)
+        lst_d, ndvi_d = _array_to_device(lst_g, dev), _array_to_device(ndvi_g, dev)
     with tracing.span("tile"):
         lst_t = (lst_d[: gh * window, : gw * window].reshape(gh, window, gw, window)
                  .permute(0, 2, 1, 3).reshape(nt, window, window))
@@ -377,6 +452,8 @@ class _Pipeline:
             self.d2h = torch.cuda.Stream(device)
 
     def submit(self, start, stop, step, params, lst_b, ndvi_b):
+        if tracing.enabled() and (not self.cuda or (lst_b.is_pinned() and ndvi_b.is_pinned())):
+            tracing.count("staged_rows", lst_b.shape[0])
         if not self.cuda:
             with tracing.span("upload"):
                 lst_d, ndvi_d = _to_device(lst_b, self.device), _to_device(ndvi_b, self.device)
@@ -511,16 +588,20 @@ def predict_granule(
     if wire == "int" and mesh is not None:
         raise ValueError("wire='int' is a single-device transfer optimisation; "
                          "use wire=None with mesh")
+    clip_staged = ndvi_clip
     with tracing.span("tile"):
-        if ndvi_clip:
+        if ndvi_clip and (wire == "int" or device_tiling):   # they take the clipped granule
             ndvi_granule = _fresh(np.clip(ndvi_granule, -1.0, 1.0))  # predict.py:88-89
+            clip_staged = False
         if wire == "int":
             lst_granule, ndvi_granule = encode_wire(lst_granule, ndvi_granule)
-            batch_step, decode_out = _wire_step(sr_step, dev), _decode_wire_out
+            lst_granule = _u16_bits(lst_granule)
+            batch_step, staged, decode_out = _wire_step(sr_step, dev), torch.int16, _decode_wire_out
         else:
-            lst_granule = _fresh(np.asarray(lst_granule, np.float32), lst_granule)
-            ndvi_granule = _fresh(np.asarray(ndvi_granule, np.float32), ndvi_granule)
-            batch_step, decode_out = sr_step, np.asarray
+            batch_step, staged, decode_out = sr_step, torch.float32, np.asarray
+            if device_tiling:
+                lst_granule = _fresh(np.asarray(lst_granule, np.float32), lst_granule)
+                ndvi_granule = _fresh(np.asarray(ndvi_granule, np.float32), ndvi_granule)
     if mesh is not None:
         if batch_size % mesh.size:
             raise ValueError(f"batch_size {batch_size} does not split over {mesh.size} devices")
@@ -529,29 +610,34 @@ def predict_granule(
         def batch_step(params, lst_b, ndvi_b):  # noqa: F811: this rank's rows in, all out
             return gather_rows(local_step(params, lst_b, ndvi_b), mesh)
 
-    def run_batches(lst_blocks, ndvi_blocks, n, consume):
-        pipe = _Pipeline(dev, pipeline_depth,
-                         lambda start, stop, out: consume(start, stop, decode_out(out)))
-        for start in range(0, n, batch_size):
-            stop = min(start + batch_size, n)
+    def stage(n, fill):
+        """The staging of n blocks and the batches over it: ``fill(lst, ndvi)``
+        copies the blocks into their rows, casting as it goes; the NDVI rows
+        are clipped in place (predict.py:88-89: torch's vectorised clamp on
+        the contiguous rows is several times numpy's clip into a strided
+        view, and clipping a float64 before or after its float32 cast gives
+        the same float32); the rows past the blocks (a mesh's padding) are
+        zeroed. Also the coverage test of the staged LST blocks."""
+        batches = _batches(n, batch_size, mesh)
+        rows = max([n] + [b for *_, b in batches])
+        lst_rows, ndvi_rows = _staging(rows, window, staged, dev), _staging(rows, fwin, staged, dev)
+        lst_np, ndvi_np = lst_rows.numpy(), ndvi_rows.numpy()
+        fill(lst_np, ndvi_np)
+        if clip_staged:
+            ndvi_rows[:n].clamp_(-1.0, 1.0)
+        lst_np[n:], ndvi_np[n:] = 0, 0
+        keep = _fresh(lst_np[:n] == 0).mean(axis=(1, 2)) <= coverage
+        return (lst_rows, ndvi_rows, batches), keep
+
+    def run_batches(staging, consume):
+        lst_rows, ndvi_rows, batches = staging
+        pipe = _Pipeline(dev, pipeline_depth, consume)
+        for start, stop, a, b in batches:
             with tracing.span("pad"):
-                lst_b = _fresh(np.ascontiguousarray(lst_blocks[start:stop]), lst_blocks)
-                ndvi_b = _fresh(np.ascontiguousarray(ndvi_blocks[start:stop]), ndvi_blocks)
-                if mesh is not None:     # equal shards: pad to the group's next multiple
-                    shard = -(-(stop - start) // mesh.size)
-                    pad = shard * mesh.size - (stop - start)
-                    if pad:
-                        lst_b = _fresh(np.concatenate(
-                            [lst_b, _fresh(np.zeros((pad, window, window), lst_b.dtype))]))
-                        ndvi_b = _fresh(np.concatenate(
-                            [ndvi_b, _fresh(np.zeros((pad, fwin, fwin), ndvi_b.dtype))]))
-                    rows = slice(mesh.rank * shard, (mesh.rank + 1) * shard)
-                    lst_b, ndvi_b = lst_b[rows], ndvi_b[rows]
-            tracing.count("rows", lst_b.shape[0])
+                lst_b, ndvi_b = lst_rows[a:b], ndvi_rows[a:b]
+            tracing.count("rows", b - a)
             pipe.submit(start, stop, batch_step, step_params, lst_b, ndvi_b)
         pipe.finish()
-        with tracing.span("pad"):
-            lst_b = ndvi_b = None     # the last batch's release is padding's cost too
 
     if device_tiling:
         if mesh is not None:
@@ -568,25 +654,31 @@ def predict_granule(
             return decode_out(mosaic)
 
     if overlap == 0:
+        gh, gw = lst_granule.shape[0] // window, lst_granule.shape[1] // window
+        n = gh * gw
+
+        def fill(lst_np, ndvi_np):     # the cast and the layout in one pass
+            rows, cols = slice(0, gh), slice(0, gw)
+            np.copyto(_grid_of(lst_np[:n], rows, cols),
+                      lst_granule[: gh * window, : gw * window].reshape(gh, window, gw, window))
+            np.copyto(_grid_of(ndvi_np[:n], rows, cols),
+                      ndvi_granule[: gh * fwin, : gw * fwin].reshape(gh, fwin, gw, fwin))
+
         with tracing.span("tile"):
-            lst_blocks, ndvi_blocks, grid = tile_granule(lst_granule, ndvi_granule, window,
-                                                         factor)
-            _fresh(lst_blocks, lst_granule)
-            _fresh(ndvi_blocks, ndvi_granule)
-            n = lst_blocks.shape[0]
-            keep = _fresh(lst_blocks == 0.0).mean(axis=(1, 2)) <= coverage
-            out = _fresh(np.zeros((n, fwin, fwin), dtype=np.float32))
+            staging, keep = stage(n, fill)
+            mosaic = _fresh(np.empty((gh * fwin, gw * fwin), np.float32))
+            out4 = mosaic.reshape(gh, fwin, gw, fwin)
         tracing.count("blocks", n)
+        put_out = _put_decoded if wire == "int" else np.copyto
 
-        def consume(start, stop, sr):
-            out[start:stop] = sr[: stop - start]
+        def consume(start, stop, sr):   # a batch's download, straight into the mosaic
+            for i, j, rows, cols in _grid_runs(start, stop, gw):
+                put_out(out4[rows, :, cols], _grid_of(sr[i - start:j - start], rows, cols))
 
-        run_batches(lst_blocks, ndvi_blocks, n, consume)
+        run_batches(staging, consume)
         with tracing.span("mosaic"):
-            out[~keep] = 0.0
-            mosaic = _fresh(untile_mosaic(out, grid), out)
-            # the call's host arrays are released in this stage, not after it
-            del out, lst_blocks, ndvi_blocks, lst_granule, ndvi_granule
+            out4.transpose(0, 2, 1, 3)[~keep.reshape(gh, gw)] = 0.0
+            del staging         # the staging goes back to its allocator in this stage
         return mosaic
 
     # ---- overlapped tiles with trapezoid blending
@@ -602,14 +694,14 @@ def predict_granule(
         xs.append(w_lim - window)
     origins = [(y, x) for y in ys for x in xs]
 
+    def fill_origins(lst_np, ndvi_np):
+        for k, (y, x) in enumerate(origins):
+            np.copyto(lst_np[k], lst_granule[y : y + window, x : x + window])
+            np.copyto(ndvi_np[k], ndvi_granule[factor * y : factor * (y + window),
+                                               factor * x : factor * (x + window)])
+
     with tracing.span("tile"):
-        lst_blocks = _fresh(np.stack([lst_granule[y : y + window, x : x + window]
-                                      for y, x in origins]))
-        ndvi_blocks = _fresh(np.stack(
-            [ndvi_granule[factor * y : factor * (y + window), factor * x : factor * (x + window)]
-             for y, x in origins]
-        ))
-        keep = _fresh(lst_blocks == 0.0).mean(axis=(1, 2)) <= coverage
+        staging, keep = stage(len(origins), fill_origins)
 
         ramp = overlap * factor
         taper_1d = np.ones(fwin, np.float32)
@@ -623,6 +715,7 @@ def predict_granule(
     tracing.count("blocks", len(origins))
 
     def consume(start, stop, sr):
+        sr = decode_out(sr)
         for k in range(stop - start):
             if not keep[start + k]:
                 continue
@@ -631,8 +724,9 @@ def predict_granule(
             acc[sl] += _fresh(sr[k] * taper)
             wacc[sl] += taper
 
-    run_batches(lst_blocks, ndvi_blocks, len(origins), consume)
+    run_batches(staging, consume)
     with tracing.span("mosaic"):
+        del staging
         covered = _fresh(wacc > 0)
         out = _fresh(np.where(covered, _fresh(acc / _fresh(np.maximum(wacc, 1e-12))), 0.0))
         return _fresh(out.astype(np.float32))

@@ -1333,3 +1333,92 @@ def test_int8_graph_replays_show_in_the_profiler_cuda(int8_card):
     seen = [k for name in names for k in INT8_STEP_KERNELS if k in name]
     assert len(seen) == sum(f.launches for f in kernels.KERNELS) == 3 * 19
     assert set(seen) == set(INT8_STEP_KERNELS)
+
+
+@pytest.fixture(scope="module")
+def granule_steps():
+    """(stats, {"prow": the int8 step as ``predict --pallas`` builds it,
+    "float32": the float32 step of ``--f32``} as (step, params), a seeded
+    1200² LST granule and its 4800² NDVI, some of it past [-1, 1])."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built by nvcc for sm_90a)")
+    import os
+
+    from sifsr_tpu_torch.cli.predict import load_variables, make_quantized_step
+    from sifsr_tpu_torch.data.statistics import Statistics
+    from sifsr_tpu_torch.inference import make_sr_step
+    from sifsr_tpu_torch.models.fused import InferenceModelB2
+
+    root = os.path.join(os.path.dirname(__file__), os.pardir)
+    sd = load_variables(os.path.join(root, "weights", "modelB_1009"))
+    stats = Statistics.from_json(os.path.join(root, "data", "statistics_testset.json"))
+    rng = np.random.default_rng(24)
+    lst = (292.0 + 26.0 * rng.random((1200, 1200))).astype(np.float32)
+    ndvi = (-0.1 + 1.05 * rng.random((4800, 4800))).astype(np.float32)
+    steps = {"prow": make_quantized_step(sd, lst[:64, :64], np.clip(ndvi[:256, :256], -1, 1),
+                                         stats, True, device="cuda"),
+             "float32": (make_sr_step(stats, torch.float32, "cuda"),
+                         InferenceModelB2.from_variables(sd).to("cuda", torch.float32))}
+    return stats, steps, lst, ndvi
+
+
+def _composed_cuda(step, params, lst, ndvi, batch_size):
+    """The plain composition: clip, ``tile_granule``, the step over the same
+    batches (cuDNN's float32 convs may sum in another order at another
+    batch), the coverage mask, ``untile_mosaic``."""
+    from sifsr_tpu_torch.inference import tile_granule, untile_mosaic
+
+    lst_b, ndvi_b, grid = tile_granule(np.asarray(lst, np.float32),
+                                       np.clip(ndvi, -1.0, 1.0).astype(np.float32))
+    lst_d = torch.from_numpy(np.ascontiguousarray(lst_b)).cuda()
+    ndvi_d = torch.from_numpy(np.ascontiguousarray(ndvi_b)).cuda()
+    out = torch.cat([step(params, lst_d[i:i + batch_size], ndvi_d[i:i + batch_size])
+                     for i in range(0, len(lst_b), batch_size)]).cpu().numpy()
+    out[~((lst_b == 0).mean(axis=(1, 2)) <= 1.0)] = 0.0
+    return untile_mosaic(out, grid)
+
+
+@pytest.mark.parametrize("blocks,batch_size", [(1, 324), (4, 324), (9, 324), (9, 4),
+                                               (324, 324), (324, 100)])
+@pytest.mark.parametrize("kind", ["prow", "float32"])
+def test_predict_granule_stages_straight_cuda(granule_steps, kind, blocks, batch_size):
+    """Areas cut from the granule as ``int8-aoi`` cuts them (strided views;
+    the whole granule at 324 blocks, its partial edge dropped), batches of
+    324 and batches that split grid rows: the mosaic equals the plain
+    composition bit for bit, every row is stepped straight from the pinned
+    staging, and the call's only fresh host arrays are the coverage mask and
+    the mosaic. A second call on another area returns a new array and
+    leaves the first call's mosaic as it was."""
+    from sifsr_tpu_torch import tracing
+    from sifsr_tpu_torch.inference import predict_granule
+
+    stats, steps, lst, ndvi = granule_steps
+    step, params = steps[kind]
+    side = {1: 64, 4: 128, 9: 192, 324: 1200}[blocks]
+
+    def area(y, x):
+        return lst[y:y + side, x:x + side], ndvi[4 * y:4 * (y + side), 4 * x:4 * (x + side)]
+
+    def predict(a):
+        return predict_granule({}, *a, stats, batch_size=batch_size, sr_step=step,
+                               step_params=params, device="cuda")
+
+    first_area = area(0, 0) if blocks == 324 else area(37, 101)
+    tracing.enable()
+    try:
+        tracing.clear()
+        first = predict(first_area)
+        counts = [r for r in tracing.records() if r["name"] == "predict_granule"][-1]["counts"]
+    finally:
+        tracing.disable()
+        tracing.clear()
+    assert counts["blocks"] == counts["rows"] == counts["staged_rows"] == blocks
+    assert counts["host_bytes"] == first.nbytes + blocks * 64 * 64
+    want = _composed_cuda(step, params, *first_area, batch_size)
+    assert first.shape == want.shape == (int(blocks ** 0.5) * 256,) * 2
+    np.testing.assert_array_equal(first, want)
+    second_area = (lst[::-1], ndvi[::-1]) if blocks == 324 else area(500, 612)
+    second = predict(second_area)
+    assert second is not first and not np.shares_memory(first, second)
+    np.testing.assert_array_equal(first, want)
+    np.testing.assert_array_equal(second, _composed_cuda(step, params, *second_area, batch_size))

@@ -105,12 +105,12 @@ def test_host_pipeline_root_stages_and_counts(granule, stats):
     assert all(s["parent"] == root["id"] for s in root["spans"])
     n, fwin = 6, WINDOW * FACTOR
     lst_block, ndvi_block = WINDOW * WINDOW * F32, fwin * fwin * F32
-    want = (128 * 192 * F32                        # the NDVI clip
-            + n * (lst_block + ndvi_block)         # the tile copies
+    # the NDVI clip and the cast go straight into the staging, each batch is
+    # a view of it, and each download goes straight into the mosaic
+    want = (n * (lst_block + ndvi_block)           # the staging (plain on the CPU)
             + n * WINDOW * WINDOW                  # the coverage test's mask (bool)
-            + n * ndvi_block                       # out (the batch is a view of the tiles)
-            + n * ndvi_block)                      # the untiled mosaic
-    assert root["counts"] == {"blocks": n, "rows": n, "host_bytes": want}
+            + n * ndvi_block)                      # the mosaic
+    assert root["counts"] == {"blocks": n, "rows": n, "staged_rows": n, "host_bytes": want}
 
 
 def _recording(step, seen):
@@ -214,9 +214,9 @@ def test_device_tiling_opens_the_root_and_its_stages(granule, stats, wire):
     clip = 128 * 192 * F32
     if wire is None:
         assert root["counts"]["host_bytes"] == clip
-    else:        # encode: three float temporaries and the code, each input; decode: two
+    else:        # encode: three float temporaries and the code, each input; decode: one
         codes = (32 * 48 + 128 * 192) * 2
-        want = clip + 3 * 2 * codes + codes + 2 * 128 * 192 * F32
+        want = clip + 3 * 2 * codes + codes + 128 * 192 * F32
         assert root["counts"]["host_bytes"] == want
 
 
@@ -229,12 +229,10 @@ def test_wire_host_pipeline_counts_encode_and_decode(granule, stats):
     block = (WINDOW * WINDOW + fwin * fwin) * 2      # one block pair on the wire
     want = (128 * 192 * F32                          # the NDVI clip
             + 3 * 2 * codes + codes                  # encode: three float temporaries, the codes
-            + n * block                              # the tile copies
+            + n * block                              # the staged codes (plain on the CPU)
             + n * WINDOW * WINDOW                    # the coverage test's mask
-            + n * fwin * fwin * F32                  # out (the batch is a view of the tiles)
-            + 2 * n * fwin * fwin * F32              # decode: the cast and the product
-            + n * fwin * fwin * F32)                 # the untiled mosaic
-    assert root["counts"] == {"blocks": n, "rows": n, "host_bytes": want}
+            + n * fwin * fwin * F32)                 # the mosaic, decoded into in place
+    assert root["counts"] == {"blocks": n, "rows": n, "staged_rows": n, "host_bytes": want}
 
 
 def test_profiler_annotations_without_enable(granule, stats):
