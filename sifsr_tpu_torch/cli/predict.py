@@ -37,30 +37,33 @@ from sifsr_tpu_torch.models.convert import from_jax_variables, load_msgpack_vari
 __all__ = ["load_variables", "make_quantized_step", "main"]
 
 
-def _no_swinir(what: str) -> ValueError:
-    return ValueError(f"{what} is a SwinIR model: SwinIR has no serving step yet "
+def _no_serving_step(what: str, network: str) -> ValueError:
+    return ValueError(f"{what} is a {network} model: {network} has no serving step yet "
                       "(cli.predict, cli.serve and cli.model_perf serve ModelB_2); "
                       "cli.train trains it")
 
 
-def _is_swinir_run(params_json: str) -> bool:
+def _trained_network(params_json: str) -> str | None:
+    """The ``"model"`` a run's params file names, where it names one."""
     if not os.path.exists(params_json):
-        return False
+        return None
     with open(params_json) as f:
-        return json.load(f).get("model") == "SwinIR"
+        return json.load(f).get("model")
 
 
 def load_variables(model_dir: str, model_name: str = "modelB") -> dict:
     """ModelB2 state dict from ``<model_dir>/<model_name>_variables.msgpack``
     (the flax tree), else from a reference ``<model_name>_state_dict.pt``
     (keys holding "factor", left by an older model revision, are dropped as
-    the reference's predict.py:56-64 does). A SwinIR run's files raise
-    ``ValueError``, since only ModelB_2 has a serving step: its
-    ``<model_name>_train_params.json`` says ``"model": "SwinIR"``, or its
-    state dict holds SwinIR's ``conv_first``."""
+    the reference's predict.py:56-64 does). The files of a network with no
+    serving step raise ``ValueError``, naming it, since only ModelB_2 has
+    one: where ``<model_name>_train_params.json`` says ``"model": "SwinIR"``
+    or ``"HAT"``, or the state dict holds their ``conv_first`` (HAT's also
+    its ``overlap_attn``)."""
     params = os.path.join(model_dir, f"{model_name}_train_params.json")
-    if _is_swinir_run(params):
-        raise _no_swinir(params)
+    network = _trained_network(params)
+    if network not in (None, "ModelB_2"):
+        raise _no_serving_step(params, network)
     msgpack = os.path.join(model_dir, f"{model_name}_variables.msgpack")
     torch_sd = os.path.join(model_dir, f"{model_name}_state_dict.pt")
     if os.path.exists(msgpack):
@@ -68,7 +71,8 @@ def load_variables(model_dir: str, model_name: str = "modelB") -> dict:
     if os.path.exists(torch_sd):
         sd = torch.load(torch_sd, map_location="cpu", weights_only=True)
         if "conv_first.weight" in sd:
-            raise _no_swinir(torch_sd)
+            hat = any(".overlap_attn." in k for k in sd)
+            raise _no_serving_step(torch_sd, "HAT" if hat else "SwinIR")
         return {k: v for k, v in sd.items() if "factor" not in k}
     raise FileNotFoundError(f"no weights under {model_dir}")
 

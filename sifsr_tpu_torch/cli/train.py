@@ -14,9 +14,10 @@ the native thread pool (``StreamingModisDataset``); --pad-impl fused trains
 with the zero-padded convs plus border corrections of ``models.unet``.
 
 A params file with ``"model": "SwinIR"`` and a ``swinir_parameters`` section
-(``paramsSwinIR.json``: SwinIR-M x4) trains SwinIR through the same loop,
-steps, recipes and checkpoints; --remat and --pad-impl fused are ModelB_2
-options and raise ``ValueError`` there.
+(``paramsSwinIR.json``: SwinIR-M x4), or with ``"model": "HAT"`` and a
+``hat_parameters`` section (``paramsHAT.json``: HAT x4), trains that network
+through the same loop, steps, recipes and checkpoints; --remat and
+--pad-impl fused are ModelB_2 options and raise ``ValueError`` there.
 """
 
 from __future__ import annotations

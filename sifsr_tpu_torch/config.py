@@ -15,10 +15,10 @@ import dataclasses
 import json
 from collections.abc import Sequence
 
-__all__ = ["DatasetConfig", "ModelConfig", "SwinIRConfig", "HyperParams", "SaveConfig",
-           "TrainConfig", "NETWORKS", "load_params_json"]
+__all__ = ["DatasetConfig", "ModelConfig", "SwinIRConfig", "HATConfig", "HyperParams",
+           "SaveConfig", "TrainConfig", "NETWORKS", "load_params_json"]
 
-NETWORKS = ("ModelB_2", "SwinIR")
+NETWORKS = ("ModelB_2", "SwinIR", "HAT")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +54,33 @@ class SwinIRConfig:
     num_feat: int = 64
 
 
-# network_swinir.py's choices that models.swinir implements and no other
-_SWINIR_FIXED = {"upsampler": "pixelshuffle", "resi_connection": "1conv", "qkv_bias": True,
-                 "patch_norm": True, "ape": False, "img_range": 1.0, "drop_path_rate": 0.0,
-                 "num_out_ch": 1}
+@dataclasses.dataclass(frozen=True)
+class HATConfig:
+    """HAT's widths (``models.hat``), named as ``hat_arch.py``'s arguments;
+    the defaults are HAT x4 (classical SR, ``HAT_SRx4``), with ``in_chans``
+    the 2 guide channels' 4x4 sub-pixels."""
+    upscale: int = 4
+    in_chans: int = 32
+    embed_dim: int = 180
+    depths: Sequence[int] = (6, 6, 6, 6, 6, 6)
+    num_heads: Sequence[int] = (6, 6, 6, 6, 6, 6)
+    window_size: int = 16
+    compress_ratio: int = 3
+    squeeze_factor: int = 30
+    conv_scale: float = 0.01
+    overlap_ratio: float = 0.5
+    mlp_ratio: float = 2.0
+    num_feat: int = 64
+
+
+# the choices of network_swinir.py and hat_arch.py that models.swinir and
+# models.hat implement and no other
+_SWIN_FIXED = {"upsampler": "pixelshuffle", "resi_connection": "1conv", "qkv_bias": True,
+               "patch_norm": True, "ape": False, "img_range": 1.0, "drop_path_rate": 0.0,
+               "num_out_ch": 1}
+# each transformer's section of the params file and its widths
+_TRANSFORMERS = {"SwinIR": ("swinir_parameters", SwinIRConfig),
+                 "HAT": ("hat_parameters", HATConfig)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +102,8 @@ class SaveConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     dataset: DatasetConfig = DatasetConfig()
-    # the network trained, by the type of its widths: ModelB_2 or SwinIR
-    model: ModelConfig | SwinIRConfig = ModelConfig()
+    # the network trained, by the type of its widths: ModelB_2, SwinIR or HAT
+    model: ModelConfig | SwinIRConfig | HATConfig = ModelConfig()
     hyper: HyperParams = HyperParams()
     save: SaveConfig = SaveConfig()
     recipe: str = "predef_filters"  # 'predef_filters' | 'gradftm' | 'scale_invariance'
@@ -116,26 +139,29 @@ def load_params_json(path: str, recipe: str = "predef_filters") -> TrainConfig:
     device) are ignored: the entry points take an explicit ``device``.
     A top-level ``"model": "SwinIR"`` trains SwinIR: ``model`` is then a
     ``SwinIRConfig`` from the ``swinir_parameters`` section
-    (``paramsSwinIR.json``); without it the network is ModelB_2.
+    (``paramsSwinIR.json``); ``"model": "HAT"`` trains HAT, a ``HATConfig``
+    from the ``hat_parameters`` section (``paramsHAT.json``); without either
+    the network is ModelB_2.
     """
     with open(path) as f:
         data = json.load(f)
     network = data.get("model", "ModelB_2")
     if network not in NETWORKS:
         raise ValueError(f"{path}: unknown model {network!r}; expected one of {NETWORKS}")
-    sw = data.get("swinir_parameters", {})
-    for key, value in _SWINIR_FIXED.items():
-        if key in sw and sw[key] != value:
-            raise ValueError(f"{path}: swinir_parameters.{key} is {sw[key]!r}; the port "
-                             f"implements {value!r} only")
     ds = data.get("dataset_parameter", {})
     hp = data.get("hyperparameters", {})
     mp = data.get("modelB_parameters", {})
     sp = data.get("save_parameters", {})
-    if network == "SwinIR":
-        model = SwinIRConfig(**{
+    if network in _TRANSFORMERS:
+        section, widths = _TRANSFORMERS[network]
+        sw = data.get(section, {})
+        for key, value in _SWIN_FIXED.items():
+            if key in sw and sw[key] != value:
+                raise ValueError(f"{path}: {section}.{key} is {sw[key]!r}; the port "
+                                 f"implements {value!r} only")
+        model = widths(**{
             f.name: tuple(sw[f.name]) if f.name in ("depths", "num_heads") else sw[f.name]
-            for f in dataclasses.fields(SwinIRConfig) if f.name in sw})
+            for f in dataclasses.fields(widths) if f.name in sw})
     else:
         model = ModelConfig(
             in_channels=mp.get("in_channels", 2),

@@ -41,6 +41,11 @@ a softmax, with a backward of its own that writes q, k and v's gradients
 into one buffer. Under ``tracing`` each call, forward and backward, is a
 ``swin.attention`` span, and each forward adds the counters ``tokens`` (LR
 tokens) and ``swin_windows`` (windows x Swin layers run) to the open root.
+
+``models.hat`` builds HAT on this module's window helpers, its window
+attention and its head and tail; ``WindowAttentionFn`` also takes queries
+against keys and values of another token count (HAT's overlapping
+cross-attention), under a span its caller names.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ from torch import nn
 
 from sifsr_tpu_torch import tracing
 
-__all__ = ["SwinIR", "WindowAttentionFn", "relative_position_index", "shift_mask"]
+__all__ = ["SwinIR", "WindowAttention", "WindowAttentionFn", "Mlp", "LN_EPS",
+           "relative_position_index", "shift_mask", "window_partition", "window_reverse"]
 
 MASK_VALUE = -100.0          # network_swinir.py's additive region mask
 LEAKY_SLOPE = 0.01           # nn.LeakyReLU's default, as published
@@ -70,15 +76,15 @@ def relative_position_index(window: int) -> torch.Tensor:
     return rel[..., 0] * (2 * window - 1) + rel[..., 1]
 
 
-def _partition(x: torch.Tensor, window: int) -> torch.Tensor:
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
     """(B, H, W, C) -> (B * nW, window², C), windows in row-major order."""
     b, h, w, c = x.shape
     x = x.view(b, h // window, window, w // window, window, c)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, c)
 
 
-def _reverse(windows: torch.Tensor, window: int, b: int, h: int, w: int) -> torch.Tensor:
-    """The inverse of ``_partition``."""
+def window_reverse(windows: torch.Tensor, window: int, b: int, h: int, w: int) -> torch.Tensor:
+    """The inverse of ``window_partition``."""
     x = windows.view(b, h // window, w // window, window, window, -1)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
 
@@ -93,58 +99,80 @@ def shift_mask(h: int, w: int, window: int, shift: int) -> torch.Tensor:
         for ws in cuts:
             img[:, hs, ws, :] = region
             region += 1
-    ids = _partition(img, window)[..., 0]
+    ids = window_partition(img, window)[..., 0]
     diff = ids[:, None, :] - ids[:, :, None]
     return torch.zeros_like(diff).masked_fill_(diff != 0, MASK_VALUE)
 
 
+def _heads(q: torch.Tensor, kv: torch.Tensor | None, heads: int):
+    """(q, k, v), each (B_, heads, tokens, head_dim): views of a packed
+    (B_, N, 3 C) q | k | v (``kv`` None), or of (B_, Nq, C) queries and
+    (B_, Nk, 2 C) k | v."""
+    if kv is None:
+        b_, n, c3 = q.shape
+        return q.view(b_, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)
+    b_, nq, c = q.shape
+    k, v = kv.view(b_, kv.shape[1], 2, heads, c // heads).permute(2, 0, 3, 1, 4)
+    return q.view(b_, nq, heads, c // heads).transpose(1, 2), k, v
+
+
 class WindowAttentionFn(torch.autograd.Function):
     """softmax((scale q) kᵀ + bias [+ mask]) v in every window and head.
-    ``qkv``: (B_, N, 3 C), the qkv projection's output, q | k | v
-    each heads x head_dim wide; ``bias``: (heads, N, N); ``mask``: (nW, N,
-    N) or None, B_ a multiple of nW. Returns (B_, N, C), heads concatenated.
-    The scores' softmax is kept for the backward, which writes q, k and v's
-    gradients into one (B_, N, 3 C) buffer."""
+    ``q``: the qkv projection's output (B_, N, 3 C), q | k | v, with ``kv``
+    None; or queries (B_, Nq, C) and ``kv`` (B_, Nk, 2 C), k | v. Each part
+    is heads x head_dim wide. ``bias``: (heads, Nq, Nk); ``mask``: (nW, Nq,
+    Nk) or None, B_ a multiple of nW. Returns (B_, Nq, C), heads
+    concatenated. Forward and backward are each a ``name`` span. The scores'
+    softmax is kept for the backward, which writes q, k and v's gradients
+    into one buffer for a packed input, into two otherwise."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, mask, heads: int, scale: float):
-        with tracing.span("swin.attention"):
-            b_, n, c3 = qkv.shape
-            d = c3 // (3 * heads)
-            q, k, v = qkv.view(b_, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-            q = q * scale
-            attn = torch.matmul(q, k.transpose(-2, -1))
+    def forward(ctx, q, kv, bias, mask, heads: int, scale: float, name: str = "swin.attention"):
+        with tracing.span(name):
+            qh, k, v = _heads(q, kv, heads)
+            b_, _, nq, d = qh.shape
+            nk = k.shape[2]
+            qh = qh * scale
+            attn = torch.matmul(qh, k.transpose(-2, -1))
             attn += bias
             if mask is not None:
                 nw = mask.shape[0]
-                attn.view(b_ // nw, nw, heads, n, n).add_(mask[None, :, None])
+                attn.view(b_ // nw, nw, heads, nq, nk).add_(mask[None, :, None])
             attn = torch.softmax(attn, dim=-1)
             out = torch.matmul(attn, v)
-            ctx.save_for_backward(qkv, attn)
-            ctx.heads, ctx.scale = heads, scale
-            return out.transpose(1, 2).reshape(b_, n, c3 // 3)
+            ctx.save_for_backward(q, kv, attn)
+            ctx.heads, ctx.scale, ctx.name = heads, scale, name
+            return out.transpose(1, 2).reshape(b_, nq, heads * d)
 
     @staticmethod
     def backward(ctx, dout):
-        with tracing.span("swin.attention"):
-            qkv, attn = ctx.saved_tensors
+        with tracing.span(ctx.name):
+            q, kv, attn = ctx.saved_tensors
             heads, scale = ctx.heads, ctx.scale
-            b_, n, c3 = qkv.shape
-            d = c3 // (3 * heads)
-            q, k, v = qkv.view(b_, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-            do = dout.reshape(b_, n, heads, d).transpose(1, 2)
-            dqkv = qkv.new_empty(b_, n, 3, heads, d)
-            dq, dk, dv = dqkv.permute(2, 0, 3, 1, 4)
+            qh, k, v = _heads(q, kv, heads)
+            b_, _, nq, d = qh.shape
+            do = dout.reshape(b_, nq, heads, d).transpose(1, 2)
+            if kv is None:
+                dqkv = q.new_empty(b_, nq, 3, heads, d)
+                dq, dk, dv = dqkv.permute(2, 0, 3, 1, 4)
+            else:
+                dqs = q.new_empty(b_, nq, heads, d)
+                dkv = kv.new_empty(b_, kv.shape[1], 2, heads, d)
+                dq = dqs.transpose(1, 2)
+                dk, dv = dkv.permute(2, 0, 3, 1, 4)
             dv.copy_(torch.matmul(attn.transpose(-2, -1), do))
             dp = torch.matmul(do, v.transpose(-2, -1))
             ds = attn * (dp - (dp * attn).sum(-1, keepdim=True))
-            dbias = ds.sum(0) if ctx.needs_input_grad[1] else None
+            dbias = ds.sum(0) if ctx.needs_input_grad[2] else None
             dq.copy_(torch.matmul(ds, k)).mul_(scale)
-            dk.copy_(torch.matmul(ds.transpose(-2, -1), q * scale))
-            return dqkv.view(b_, n, c3), dbias, None, None, None
+            dk.copy_(torch.matmul(ds.transpose(-2, -1), qh * scale))
+            if kv is None:
+                return dqkv.view(b_, nq, -1), None, dbias, None, None, None, None
+            return (dqs.view(b_, nq, -1), dkv.view(b_, kv.shape[1], -1), dbias, None, None,
+                    None, None)
 
 
-class _Mlp(nn.Module):
+class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
@@ -154,7 +182,7 @@ class _Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
-class _WindowAttention(nn.Module):
+class WindowAttention(nn.Module):
     def __init__(self, dim: int, window: int, heads: int):
         super().__init__()
         self.heads, self.scale = heads, (dim // heads) ** -0.5
@@ -169,7 +197,7 @@ class _WindowAttention(nn.Module):
         n = x.shape[1]
         bias = self.relative_position_bias_table[self.relative_position_index]
         bias = bias.view(n, n, -1).permute(2, 0, 1)
-        return self.proj(WindowAttentionFn.apply(self.qkv(x), bias, mask, self.heads,
+        return self.proj(WindowAttentionFn.apply(self.qkv(x), None, bias, mask, self.heads,
                                                  self.scale))
 
 
@@ -178,9 +206,9 @@ class _SwinLayer(nn.Module):
         super().__init__()
         self.window, self.shift = window, shift
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = _WindowAttention(dim, window, heads)
+        self.attn = WindowAttention(dim, window, heads)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = _Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x, hw: tuple[int, int], mask):
         h, w = hw
@@ -188,8 +216,8 @@ class _SwinLayer(nn.Module):
         y = self.norm1(x).view(b, h, w, c)
         if self.shift:
             y = torch.roll(y, shifts=(-self.shift, -self.shift), dims=(1, 2))
-        y = self.attn(_partition(y, self.window), mask if self.shift else None)
-        y = _reverse(y, self.window, b, h, w)
+        y = self.attn(window_partition(y, self.window), mask if self.shift else None)
+        y = window_reverse(y, self.window, b, h, w)
         if self.shift:
             y = torch.roll(y, shifts=(self.shift, self.shift), dims=(1, 2))
         x = x + y.reshape(b, h * w, c)
@@ -276,7 +304,8 @@ class SwinIR(nn.Module):
                     for p in (m.weight, m.bias):
                         p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
                                                               generator=generator))
-                elif isinstance(m, _WindowAttention):
+                elif isinstance(getattr(m, "relative_position_bias_table", None),
+                                nn.Parameter):
                     t = m.relative_position_bias_table
                     t.copy_(_trunc_normal(t.shape, generator))
 
@@ -288,7 +317,8 @@ class SwinIR(nn.Module):
 
     def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         if remat:
-            raise ValueError("SwinIR has no rematerialisation (remat is a ModelB_2 option)")
+            raise ValueError(f"{type(self).__name__} has no rematerialisation (remat is a "
+                             "ModelB_2 option)")
         n, hh, ww, _ = x.shape
         r, win = self.upscale, self.window
         x = F.pixel_unshuffle(x.permute(0, 3, 1, 2), r)

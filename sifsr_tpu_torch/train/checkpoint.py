@@ -11,9 +11,10 @@ whole run.
 The epoch checkpoints of the two packages are not interchangeable. The final
 weights are: ``save_final`` writes the reference's ``<name>_state_dict.pt``,
 which this package's ``cli.predict.load_variables`` and the JAX package's
-``models.convert.load_torch_checkpoint`` both read. A SwinIR run's files
-have the same names and layout (its state dict, ``network_swinir.py``'s
-keys); ``load_variables`` refuses them, since SwinIR has no serving step.
+``models.convert.load_torch_checkpoint`` both read. A SwinIR or HAT run's
+files have the same names and layout (its state dict, ``network_swinir.py``'s
+or ``hat_arch.py``'s keys); ``load_variables`` refuses them, since neither
+network has a serving step.
 """
 
 from __future__ import annotations

@@ -9,13 +9,14 @@ downstream tooling (plot_loss, read_losses) ports over unchanged.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 from typing import Callable
 
 import torch
 
-from sifsr_tpu_torch.config import SwinIRConfig, TrainConfig
+from sifsr_tpu_torch.config import HATConfig, SwinIRConfig, TrainConfig
 from sifsr_tpu_torch.data.datasets import (
     ArrayDataset,
     degrade_batch_scale_invariance,
@@ -23,6 +24,7 @@ from sifsr_tpu_torch.data.datasets import (
 )
 from sifsr_tpu_torch.data.statistics import Statistics
 from sifsr_tpu_torch.device import resolve_device
+from sifsr_tpu_torch.models.hat import HAT
 from sifsr_tpu_torch.models.swinir import SwinIR
 from sifsr_tpu_torch.models.unet import ModelB2
 from sifsr_tpu_torch.train.checkpoint import CheckpointManager
@@ -53,27 +55,26 @@ def _make_batch_prep(recipe: str, stats: Statistics, device: torch.device) -> Ca
 
 def build_model(config: TrainConfig) -> torch.nn.Module:
     """The network ``config.model`` gives the widths of, at ``config``'s
-    precision: SwinIR from a ``SwinIRConfig``, else ModelB_2.
-    ``remat``, ``pad_impl='fused'`` and bf16 are ModelB_2's options: with
-    SwinIR they raise ``ValueError``."""
+    precision: SwinIR from a ``SwinIRConfig``, HAT from a ``HATConfig``,
+    else ModelB_2. ``remat``, ``pad_impl='fused'`` and bf16 are ModelB_2's
+    options: with SwinIR or HAT they raise ``ValueError``."""
     if config.precision not in ("highest", "default", "bf16"):
         raise ValueError(f"unknown precision {config.precision!r}")
     precision = "highest" if config.precision == "highest" else "default"
-    if isinstance(config.model, SwinIRConfig):
+    if isinstance(config.model, (SwinIRConfig, HATConfig)):
+        net = "SwinIR" if isinstance(config.model, SwinIRConfig) else "HAT"
         if config.remat:
-            raise ValueError("remat (--remat) is a ModelB_2 option: SwinIR has no "
+            raise ValueError(f"remat (--remat) is a ModelB_2 option: {net} has no "
                              "block-by-block rematerialisation")
         if config.pad_impl != "explicit":
             raise ValueError(f"pad_impl {config.pad_impl!r} (--pad-impl) is a ModelB_2 "
-                             "option: SwinIR's convs are zero-padded")
+                             f"option: {net}'s convs are zero-padded")
         if config.precision == "bf16":
-            raise ValueError("precision 'bf16' is a ModelB_2 option: SwinIR trains in "
+            raise ValueError(f"precision 'bf16' is a ModelB_2 option: {net} trains in "
                              "float32 ('highest' or 'default')")
-        sw = config.model
-        return SwinIR(upscale=sw.upscale, in_chans=sw.in_chans, embed_dim=sw.embed_dim,
-                      depths=tuple(sw.depths), num_heads=tuple(sw.num_heads),
-                      window_size=sw.window_size, mlp_ratio=sw.mlp_ratio,
-                      num_feat=sw.num_feat, precision=precision)
+        widths = {k: tuple(v) if k in ("depths", "num_heads") else v
+                  for k, v in dataclasses.asdict(config.model).items()}
+        return (SwinIR if net == "SwinIR" else HAT)(**widths, precision=precision)
     return ModelB2(
         in_channels=config.model.in_channels,
         downchannels=tuple(config.model.downchannels),

@@ -98,9 +98,9 @@ def make_train_step(
     remat: bool = False,
 ):
     """Build the train step: (state, batch) -> (state, metrics dict). The
-    state's model (``models.unet.ModelB2`` or ``models.swinir.SwinIR``: NHWC
-    (N, H, W, 2) in, (N, H, W, 1) out) and optimiser are updated in place;
-    ``batch`` holds tensors on the model's device.
+    state's model (``models.unet.ModelB2``, ``models.swinir.SwinIR`` or
+    ``models.hat.HAT``: NHWC (N, H, W, 2) in, (N, H, W, 1) out) and optimiser
+    are updated in place; ``batch`` holds tensors on the model's device.
 
     ``mesh``: the data-parallel group (module docstring); ``batch`` is then
     this rank's shard (``parallel.shard_batch``, or the global batch through

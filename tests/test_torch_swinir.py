@@ -326,3 +326,74 @@ def test_attention_spans_and_counters():
     got = [e for e in prof.events() if e.name == "sifsr.swin.attention"]
     assert len(got) == 2 * layers
     tracing.clear()
+
+
+class _PackedWindowAttentionFn(torch.autograd.Function):
+    """``WindowAttentionFn`` for one packed qkv alone, under a fixed span:
+    the function SwinIR's numerics were set by, before it also took queries
+    against keys and values of another count."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, heads: int, scale: float):
+        b_, n, c3 = qkv.shape
+        d = c3 // (3 * heads)
+        q, k, v = qkv.view(b_, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+        q = q * scale
+        attn = torch.matmul(q, k.transpose(-2, -1))
+        attn += bias
+        if mask is not None:
+            nw = mask.shape[0]
+            attn.view(b_ // nw, nw, heads, n, n).add_(mask[None, :, None])
+        attn = torch.softmax(attn, dim=-1)
+        out = torch.matmul(attn, v)
+        ctx.save_for_backward(qkv, attn)
+        ctx.heads, ctx.scale = heads, scale
+        return out.transpose(1, 2).reshape(b_, n, c3 // 3)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, attn = ctx.saved_tensors
+        heads, scale = ctx.heads, ctx.scale
+        b_, n, c3 = qkv.shape
+        d = c3 // (3 * heads)
+        q, k, v = qkv.view(b_, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+        do = dout.reshape(b_, n, heads, d).transpose(1, 2)
+        dqkv = qkv.new_empty(b_, n, 3, heads, d)
+        dq, dk, dv = dqkv.permute(2, 0, 3, 1, 4)
+        dv.copy_(torch.matmul(attn.transpose(-2, -1), do))
+        dp = torch.matmul(do, v.transpose(-2, -1))
+        ds = attn * (dp - (dp * attn).sum(-1, keepdim=True))
+        dbias = ds.sum(0) if ctx.needs_input_grad[1] else None
+        dq.copy_(torch.matmul(ds, k)).mul_(scale)
+        dk.copy_(torch.matmul(ds.transpose(-2, -1), q * scale))
+        return dqkv.view(b_, n, c3), dbias, None, None, None
+
+
+def _packed_attention_forward(self, x, mask):
+    n = x.shape[1]
+    bias = self.relative_position_bias_table[self.relative_position_index]
+    bias = bias.view(n, n, -1).permute(2, 0, 1)
+    return self.proj(_PackedWindowAttentionFn.apply(self.qkv(x), bias, mask, self.heads,
+                                                    self.scale))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_numerics_equal_the_packed_only_function_bit_for_bit(case, monkeypatch):
+    """The attention function that also serves HAT's cross-attention leaves
+    SwinIR's forward, every leaf's gradient and the input's gradient bit for
+    bit as they were with the packed-only function."""
+    from sifsr_tpu_torch.models import swinir
+
+    p = CASES[case]
+    x = torch.randn(2, 64, 64, 2, generator=torch.Generator().manual_seed(2))
+    g = torch.randn(2, 64, 64, 1, generator=torch.Generator().manual_seed(3))
+    runs = []
+    for packed_only in (False, True):
+        if packed_only:
+            monkeypatch.setattr(swinir.WindowAttention, "forward", _packed_attention_forward)
+        model, _ = _loaded(p)
+        xp = x.clone().requires_grad_(True)
+        y = model(xp)
+        (y * g).sum().backward()
+        runs.append([y.detach(), xp.grad] + [w.grad for w in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

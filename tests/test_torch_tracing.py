@@ -355,3 +355,64 @@ def test_threads_keep_their_own_open_spans():
         _check_tree(r)
         assert [s["name"] for s in r["spans"]] == [name + ".stage"]
         assert r["counts"] == {name: 1}
+
+
+def _hat_step_roots(n=2, lr=16, with_profiler=False):
+    """Two traced HAT ``predef_filters`` steps at a small size (2 groups of
+    2 HABs, windows of 4 on a 16² LR grid, key windows of 6²): the
+    ``train_step`` roots, and the profiler's events when one recorded."""
+    from sifsr_tpu_torch.models.hat import HAT
+
+    model = HAT(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=4,
+                squeeze_factor=6, num_feat=8)
+    state = create_train_state(model, 2e-4, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+    step = make_train_step(model, "predef_filters", 0.99, -0.5, 300.0, 8.0)
+    rng = np.random.default_rng(0)
+    batch = {"lst": rng.normal(size=(n, lr, lr, 1)).astype(np.float32),
+             "ndvi": rng.normal(size=(n, 4 * lr, 4 * lr, 1)).astype(np.float32)}
+    if with_profiler:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            step(state, prepare_batch(batch, "cpu"))
+        return _roots("train_step"), prof.events()
+    tracing.enable()
+    for _ in range(2):
+        step(state, prepare_batch(batch, "cpu"))
+    return _roots("train_step"), None
+
+
+def test_hat_step_opens_its_spans_and_counts_its_work():
+    """Each HAT step: one ``swin.attention`` span per HAB forward and one
+    backward, as many ``hat.cab`` spans, one ``hat.ocab_attention`` per
+    group each way; the counters read the windows of every HAB
+    (``swin_windows``) and OCAB (``ocab_windows``), the samples of every CAB
+    (``cab_blocks``) and the LR tokens."""
+    roots, _ = _hat_step_roots()
+    assert len(roots) == 2
+    habs, groups, n, windows = 4, 2, 2, (16 // 4) ** 2
+    for r in roots:
+        _check_tree(r)
+        names = [s["name"] for s in r["spans"]]
+        assert names.count("swin.attention") == 2 * habs
+        assert names.count("hat.cab") == 2 * habs
+        assert names.count("hat.ocab_attention") == 2 * groups
+        assert len(names) == 4 * habs + 2 * groups
+        assert r["counts"] == {"tokens": n * 16 * 16, "swin_windows": n * windows * habs,
+                               "ocab_windows": n * windows * groups, "cab_blocks": n * habs}
+
+
+def test_hat_ocab_ranges_lie_outside_the_window_attention_ranges():
+    """On the profiler's timeline no ``sifsr.hat.ocab_attention`` range lies
+    inside a ``sifsr.swin.attention`` range, nor a ``sifsr.hat.cab`` range
+    inside either: no kernel is counted by two of the attention metrics."""
+    _, events = _hat_step_roots(with_profiler=True)
+
+    def ranges(name):
+        return [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
+
+    swin, ocab, cab = (ranges(f"sifsr.{n}")
+                       for n in ("swin.attention", "hat.ocab_attention", "hat.cab"))
+    assert (len(swin), len(ocab), len(cab)) == (8, 4, 8)
+    for inner in ocab + cab:
+        for outer in swin + (ocab if inner in cab else []):
+            assert not (outer[0] <= inner[0] and inner[1] <= outer[1]), (inner, outer)
