@@ -277,7 +277,7 @@ def main(profile: bool = False) -> None:
     from sifsr_tpu_torch import kernels as K
     from sifsr_tpu_torch.cli.predict import load_variables, make_quantized_step
     from sifsr_tpu_torch.data.statistics import Statistics
-    from sifsr_tpu_torch.inference import predict_granule
+    from sifsr_tpu_torch.inference import _batches, predict_granule
     import torch.nn.functional as F
 
     from sifsr_tpu_torch.kernels import _build, conv_i8, conv_px, fused_ops, resize_phases
@@ -910,7 +910,7 @@ def main(profile: bool = False) -> None:
     t_cal = time.perf_counter() - t
     xla_step = make_int8_sr_step(stats, mid="xla", device=dev)
     n_blocks = (lst.shape[0] // 64) * (lst.shape[1] // 64)
-    n_batches = -(-n_blocks // N)
+    n_batches = len(_batches(n_blocks, N, None))        # a granule: 4 batches of 81
     per_batch = {
         "prow": {"upsample_phases": 1, "conv_i8_in1_split": 1, "conv_i8_exact": 2,
                  "conv_i8_exact_dual": 1, "conv_i8_generic": 1, "conv_prow": 6,
@@ -1926,7 +1926,7 @@ def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_s
     device-resident inputs, in two turns, with the conv TFLOP/s of each
     (``modelb2_conv_flops`` a patch). Returns the int8 step's launches."""
     from sifsr_tpu_torch import kernels as K
-    from sifsr_tpu_torch.inference import predict_granule, tile_granule
+    from sifsr_tpu_torch.inference import _batches, predict_granule, tile_granule
     from sifsr_tpu_torch.models.packed import make_packed_sr_step, packed_step_params
     from sifsr_tpu_torch.models.quantized_packed import (
         calibrate_packed_scales,
@@ -1939,7 +1939,7 @@ def packed_phase(torch, dev, card: str, granule, ref, variables, stats, phase5_s
 
     lst, ndvi = granule
     lst_b, ndvi_b, _ = tile_granule(lst, np.clip(ndvi, -1, 1))
-    n_batches = -(-lst_b.shape[0] // N)
+    n_batches = len(_batches(lst_b.shape[0], N, None))
 
     def run(step, params):
         torch.cuda.synchronize()

@@ -14,7 +14,11 @@ granule block by block at batch 1 on the host (predict.py:84-103). Here:
 On a CUDA device the batch loop is pipelined over three streams: the upload
 of batch i+1 (from the pinned staging, its own stream) and the download of
 batch i-1 (into a pinned buffer) overlap the compute of batch i, with
-``pipeline_depth`` batches in flight (``mode='host_pipeline'``). The staging
+``pipeline_depth`` batches in flight (``mode='host_pipeline'``). Each batch
+is filled into the staging just before it is submitted, so the host copies
+batch i+1's inputs in and batch i-1's download out while the card steps
+batch i: a call of 128 blocks or more (a whole 324-block granule) is
+stepped as about four equal batches for that (``_batches``). The staging
 and the download buffers come from torch's caching host allocator, which
 hands a buffer out again only once the copies recorded on it are done: the
 host arrays a call on CUDA creates are its coverage mask and the mosaic it
@@ -29,8 +33,9 @@ static inputs and output of the most rows seen, one memory pool for every
 graph.
 
 Under ``tracing`` each call is a ``predict_granule`` root with the stage
-spans ``tile`` (the staging's allocation, its one copy of the inputs, the
-NDVI's clip in place, the coverage mask, the mosaic's allocation), ``pad``
+spans ``tile`` (the staging's and the mosaic's allocation, then before each
+batch its one copy of the batch's inputs, the NDVI's clip in place and the
+coverage test of its blocks), ``pad``
 (each batch's row slice of the staging; under a mesh this rank's shard,
 its padding rows zeroed in the staging), ``upload`` (the host-to-device
 enqueue from the staging), ``step`` (the serving step and the
@@ -41,10 +46,12 @@ staging), and the counters ``blocks`` (real
 blocks), ``rows`` (batch rows stepped: the real blocks on one device, this
 rank's rows, padding included, under a mesh), ``staged_rows`` (the rows
 stepped straight from the staging: uploaded from it without a copy on
-CUDA, read in place on the CPU) and ``host_bytes`` (the bytes of every
+CUDA, read in place on the CPU), ``host_bytes`` (the bytes of every
 host array the call creates, the CPU's plain staging included; torch's
-cached pinned buffers are not counted). The int8 step adds
-``graph_replays`` and ``graph_captures`` on CUDA.
+cached pinned buffers are not counted) and ``overlapped_rows`` (the rows of
+each batch submitted while an earlier batch of the call is still pending:
+counted only where there is one). The int8 step adds ``graph_replays`` and
+``graph_captures`` on CUDA.
 
 ``device_tiling`` instead uploads the granule once, tiles it, masks by
 coverage, runs the batches and assembles the mosaic on the device, and
@@ -254,14 +261,29 @@ def _staging(rows: int, block: int, dtype: torch.dtype, dev: torch.device) -> to
     return t
 
 
+# a call of at least 2 x _MIN_ROWS blocks goes as about _SPLIT_INTO batches of
+# at least _MIN_ROWS rows, so that the host's copies of one batch run beside
+# the card's step of another (a 324-block granule: 4 x 81)
+_SPLIT_INTO, _MIN_ROWS = 4, 64
+
+
 def _batches(n: int, batch_size: int, mesh) -> list[tuple[int, int, int, int]]:
     """``(start, stop, a, b)`` of each batch: its blocks ``start:stop`` and
     the staging rows ``a:b`` this device steps. On one device those are the
     blocks' own rows; under a mesh they are this rank's equal shard of the
     batch zero-padded to the group's next multiple, its padding the rows
     past the n blocks' (only the last batch is padded: ``batch_size``
-    splits evenly over the group)."""
+    splits evenly over the group).
+
+    ``batch_size`` is the most rows a batch takes. On one device n blocks
+    go as ``min(_SPLIT_INTO, n // _MIN_ROWS)`` equal batches where that is
+    2 or more (n >= 128), still none above ``batch_size``; fewer blocks go
+    in batches of ``batch_size``. Under a mesh every batch but the last has
+    ``batch_size`` rows: each batch's gather is a collective."""
     size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    parts = min(_SPLIT_INTO, n // _MIN_ROWS)
+    if mesh is None and parts >= 2:
+        batch_size = min(batch_size, -(-n // parts))
     out = []
     for start in range(0, n, batch_size):
         stop = min(start + batch_size, n)
@@ -441,7 +463,11 @@ def choose_granule_mode(lst_shape, window: int, factor: int, batch_size: int,
 class _Pipeline:
     """Keeps up to ``depth`` batches in flight and hands finished ones to
     ``consume(start, stop, sr_numpy)`` in order. On CUDA the upload, the
-    compute and the download each run on their own stream."""
+    compute and the download each run on their own stream, and ``submit``
+    returns once they are enqueued: the caller fills the next batch while
+    the card steps this one, and ``consume`` writes a finished batch out
+    while the card steps a later one. A batch submitted while an earlier
+    one is pending counts its rows as ``overlapped_rows``."""
 
     def __init__(self, device: torch.device, depth: int, consume):
         self.device, self.depth, self.consume = device, max(depth, 1), consume
@@ -452,8 +478,11 @@ class _Pipeline:
             self.d2h = torch.cuda.Stream(device)
 
     def submit(self, start, stop, step, params, lst_b, ndvi_b):
-        if tracing.enabled() and (not self.cuda or (lst_b.is_pinned() and ndvi_b.is_pinned())):
-            tracing.count("staged_rows", lst_b.shape[0])
+        if tracing.enabled():
+            if not self.cuda or (lst_b.is_pinned() and ndvi_b.is_pinned()):
+                tracing.count("staged_rows", lst_b.shape[0])
+            if self.pending:
+                tracing.count("overlapped_rows", lst_b.shape[0])
         if not self.cuda:
             with tracing.span("upload"):
                 lst_d, ndvi_d = _to_device(lst_b, self.device), _to_device(ndvi_b, self.device)
@@ -529,9 +558,15 @@ def predict_granule(
 
     sr_step/step_params: serving-step override, e.g. the int8 step of
     ``models.int8_serving``; called as sr_step(step_params, lst_batch,
-    ndvi_batch) on the device. Batches hold ``batch_size`` blocks but the
-    last, which is stepped at its own rows, unpadded: a step takes any
-    batch of 1 to ``batch_size`` rows.
+    ndvi_batch) on the device. ``batch_size`` is the most rows a batch
+    takes: a step takes any batch of 1 to ``batch_size`` rows. The host
+    pipeline steps fewer than 128 blocks (origins under ``overlap``) in
+    batches of ``batch_size``, the last at its own rows, unpadded; 128 or
+    more as about four equal batches of at least 64 rows each (a
+    324-block granule as 4 x 81), so that the host fills each batch into
+    the staging while the card steps the one before, and writes each
+    download into the mosaic while the card steps the one after
+    (``_batches``). ``mesh`` keeps batches of ``batch_size``.
 
     device_tiling (overlap == 0 only): tile extraction, batching and mosaic
     assembly all run on the device: the granule is uploaded once and the
@@ -555,7 +590,10 @@ def predict_granule(
 
     mesh: a ``parallel.Mesh``; every rank of its group calls predict_granule
     on the same granule. ``batch_size`` must split evenly over the group.
-    Each batch is split across the group's devices in equal shards, the last
+    Every batch but the last has ``batch_size`` rows whatever the block
+    count: each batch's gather is a collective, and no cell measures a
+    granule split there. Each batch is split across the group's devices in
+    equal shards, the last
     zero-padded only to the least multiple of the group's size at or above
     its rows: each rank uploads and runs its shard on ``mesh.device``, and
     the shards are gathered so that every rank assembles the whole mosaic. Not
@@ -610,29 +648,33 @@ def predict_granule(
         def batch_step(params, lst_b, ndvi_b):  # noqa: F811: this rank's rows in, all out
             return gather_rows(local_step(params, lst_b, ndvi_b), mesh)
 
-    def stage(n, fill):
-        """The staging of n blocks and the batches over it: ``fill(lst, ndvi)``
-        copies the blocks into their rows, casting as it goes; the NDVI rows
-        are clipped in place (predict.py:88-89: torch's vectorised clamp on
-        the contiguous rows is several times numpy's clip into a strided
-        view, and clipping a float64 before or after its float32 cast gives
-        the same float32); the rows past the blocks (a mesh's padding) are
-        zeroed. Also the coverage test of the staged LST blocks."""
+    def stage(n):
+        """The staging of n blocks, its rows past the blocks (a mesh's
+        padding) zeroed, and the batches over it; the blocks' coverage
+        flags, which ``run_batches`` sets batch by batch."""
         batches = _batches(n, batch_size, mesh)
         rows = max([n] + [b for *_, b in batches])
         lst_rows, ndvi_rows = _staging(rows, window, staged, dev), _staging(rows, fwin, staged, dev)
-        lst_np, ndvi_np = lst_rows.numpy(), ndvi_rows.numpy()
-        fill(lst_np, ndvi_np)
-        if clip_staged:
-            ndvi_rows[:n].clamp_(-1.0, 1.0)
-        lst_np[n:], ndvi_np[n:] = 0, 0
-        keep = _fresh(lst_np[:n] == 0).mean(axis=(1, 2)) <= coverage
-        return (lst_rows, ndvi_rows, batches), keep
+        lst_rows.numpy()[n:], ndvi_rows.numpy()[n:] = 0, 0
+        return (lst_rows, ndvi_rows, batches), np.empty(n, bool)
 
-    def run_batches(staging, consume):
+    def run_batches(staging, keep, fill, consume):
+        """Each batch filled into its staging rows, then submitted:
+        ``fill(lst, ndvi, start, stop)`` copies blocks ``start:stop`` into
+        their rows, casting as it goes; the NDVI rows are clipped in place
+        (predict.py:88-89: torch's vectorised clamp on the contiguous rows
+        is several times numpy's clip into a strided view, and clipping a
+        float64 before or after its float32 cast gives the same float32),
+        and the coverage test reads the staged LST rows."""
         lst_rows, ndvi_rows, batches = staging
+        lst_np, ndvi_np = lst_rows.numpy(), ndvi_rows.numpy()
         pipe = _Pipeline(dev, pipeline_depth, consume)
         for start, stop, a, b in batches:
+            with tracing.span("tile"):
+                fill(lst_np, ndvi_np, start, stop)
+                if clip_staged:
+                    ndvi_rows[start:stop].clamp_(-1.0, 1.0)
+                keep[start:stop] = _fresh(lst_np[start:stop] == 0).mean(axis=(1, 2)) <= coverage
             with tracing.span("pad"):
                 lst_b, ndvi_b = lst_rows[a:b], ndvi_rows[a:b]
             tracing.count("rows", b - a)
@@ -656,26 +698,25 @@ def predict_granule(
     if overlap == 0:
         gh, gw = lst_granule.shape[0] // window, lst_granule.shape[1] // window
         n = gh * gw
-
-        def fill(lst_np, ndvi_np):     # the cast and the layout in one pass
-            rows, cols = slice(0, gh), slice(0, gw)
-            np.copyto(_grid_of(lst_np[:n], rows, cols),
-                      lst_granule[: gh * window, : gw * window].reshape(gh, window, gw, window))
-            np.copyto(_grid_of(ndvi_np[:n], rows, cols),
-                      ndvi_granule[: gh * fwin, : gw * fwin].reshape(gh, fwin, gw, fwin))
-
         with tracing.span("tile"):
-            staging, keep = stage(n, fill)
+            staging, keep = stage(n)
             mosaic = _fresh(np.empty((gh * fwin, gw * fwin), np.float32))
             out4 = mosaic.reshape(gh, fwin, gw, fwin)
+            lst4 = lst_granule[: gh * window, : gw * window].reshape(gh, window, gw, window)
+            ndvi4 = ndvi_granule[: gh * fwin, : gw * fwin].reshape(gh, fwin, gw, fwin)
         tracing.count("blocks", n)
         put_out = _put_decoded if wire == "int" else np.copyto
+
+        def fill(lst_np, ndvi_np, start, stop):     # the cast and the layout in one pass
+            for i, j, rows, cols in _grid_runs(start, stop, gw):
+                np.copyto(_grid_of(lst_np[i:j], rows, cols), lst4[rows, :, cols])
+                np.copyto(_grid_of(ndvi_np[i:j], rows, cols), ndvi4[rows, :, cols])
 
         def consume(start, stop, sr):   # a batch's download, straight into the mosaic
             for i, j, rows, cols in _grid_runs(start, stop, gw):
                 put_out(out4[rows, :, cols], _grid_of(sr[i - start:j - start], rows, cols))
 
-        run_batches(staging, consume)
+        run_batches(staging, keep, fill, consume)
         with tracing.span("mosaic"):
             out4.transpose(0, 2, 1, 3)[~keep.reshape(gh, gw)] = 0.0
             del staging         # the staging goes back to its allocator in this stage
@@ -694,14 +735,15 @@ def predict_granule(
         xs.append(w_lim - window)
     origins = [(y, x) for y in ys for x in xs]
 
-    def fill_origins(lst_np, ndvi_np):
-        for k, (y, x) in enumerate(origins):
+    def fill_origins(lst_np, ndvi_np, start, stop):
+        for k in range(start, stop):
+            y, x = origins[k]
             np.copyto(lst_np[k], lst_granule[y : y + window, x : x + window])
             np.copyto(ndvi_np[k], ndvi_granule[factor * y : factor * (y + window),
                                                factor * x : factor * (x + window)])
 
     with tracing.span("tile"):
-        staging, keep = stage(len(origins), fill_origins)
+        staging, keep = stage(len(origins))
 
         ramp = overlap * factor
         taper_1d = np.ones(fwin, np.float32)
@@ -724,7 +766,7 @@ def predict_granule(
             acc[sl] += _fresh(sr[k] * taper)
             wacc[sl] += taper
 
-    run_batches(staging, consume)
+    run_batches(staging, keep, fill_origins, consume)
     with tracing.span("mosaic"):
         del staging
         covered = _fresh(wacc > 0)

@@ -1383,8 +1383,9 @@ def _composed_cuda(step, params, lst, ndvi, batch_size):
 @pytest.mark.parametrize("kind", ["prow", "float32"])
 def test_predict_granule_stages_straight_cuda(granule_steps, kind, blocks, batch_size):
     """Areas cut from the granule as ``int8-aoi`` cuts them (strided views;
-    the whole granule at 324 blocks, its partial edge dropped), batches of
-    324 and batches that split grid rows: the mosaic equals the plain
+    the whole granule at 324 blocks, its partial edge dropped, stepped as
+    four batches of 81), batches of 324 and batches that split grid rows:
+    the mosaic equals the plain
     composition bit for bit, every row is stepped straight from the pinned
     staging, and the call's only fresh host arrays are the coverage mask and
     the mosaic. A second call on another area returns a new array and
@@ -1404,6 +1405,7 @@ def test_predict_granule_stages_straight_cuda(granule_steps, kind, blocks, batch
                                step_params=params, device="cuda")
 
     first_area = area(0, 0) if blocks == 324 else area(37, 101)
+    rows = 81 if blocks == 324 else batch_size        # a granule goes as four batches of 81
     tracing.enable()
     try:
         tracing.clear()
@@ -1414,11 +1416,54 @@ def test_predict_granule_stages_straight_cuda(granule_steps, kind, blocks, batch
         tracing.clear()
     assert counts["blocks"] == counts["rows"] == counts["staged_rows"] == blocks
     assert counts["host_bytes"] == first.nbytes + blocks * 64 * 64
-    want = _composed_cuda(step, params, *first_area, batch_size)
+    want = _composed_cuda(step, params, *first_area, rows)
     assert first.shape == want.shape == (int(blocks ** 0.5) * 256,) * 2
     np.testing.assert_array_equal(first, want)
     second_area = (lst[::-1], ndvi[::-1]) if blocks == 324 else area(500, 612)
     second = predict(second_area)
     assert second is not first and not np.shares_memory(first, second)
     np.testing.assert_array_equal(first, want)
-    np.testing.assert_array_equal(second, _composed_cuda(step, params, *second_area, batch_size))
+    np.testing.assert_array_equal(second, _composed_cuda(step, params, *second_area, rows))
+
+
+def test_a_granule_in_four_batches_is_within_the_f32_limits_of_one_step(granule_steps):
+    """The float32 step over a 1200² granule as ``predict_granule`` steps it,
+    four batches of 81 filled and written out beside the step, against one
+    step over all 324 blocks: within ``modelB2-f32``'s limits (RMSE 1e-4 K,
+    max 1e-3 K; cuDNN may pick another algorithm at 81 rows than at 324),
+    and bit-equal on the blocks that fail coverage (zero in both). Prints
+    the largest gap."""
+    from sifsr_tpu_torch.inference import predict_granule, tile_granule, untile_mosaic
+
+    stats, steps, lst, ndvi = granule_steps
+    step, params = steps["float32"]
+    lst = lst.copy()
+    lst[:64, 64:128] = 0.0             # block (0, 1) all 0 K
+    lst[576:616, 320:384] = 0.0        # block (9, 5) 62.5 %
+    lst[1100:1110, 1088:1152] = 0.0    # block (17, 17) 15.6 %: kept
+    seen = []
+
+    def recording(p, lst_b, ndvi_b):
+        seen.append(int(lst_b.shape[0]))
+        return step(p, lst_b, ndvi_b)
+
+    got = predict_granule({}, lst, ndvi, stats, batch_size=324, coverage=0.5,
+                          sr_step=recording, step_params=params, device="cuda")
+    assert seen == [81] * 4
+    lst_b, ndvi_b, grid = tile_granule(lst, np.clip(ndvi, -1.0, 1.0))
+    with torch.no_grad():
+        one = step(params, torch.from_numpy(np.ascontiguousarray(lst_b)).cuda(),
+                   torch.from_numpy(np.ascontiguousarray(ndvi_b)).cuda()).cpu().numpy()
+    assert one.dtype == got.dtype == np.float32
+    keep = (lst_b == 0).mean(axis=(1, 2)) <= 0.5
+    assert list(np.nonzero(~keep)[0]) == [1, 9 * 18 + 5]
+    one[~keep] = 0.0
+    want = untile_mosaic(one, grid)
+    blocks = got.reshape(18, 256, 18, 256).transpose(0, 2, 1, 3).reshape(324, 256, 256)
+    np.testing.assert_array_equal(blocks[~keep], one[~keep])
+    assert not np.any(np.all(blocks[keep] == 0.0, axis=(1, 2)))
+    d = got.astype(np.float64) - want
+    rmse, worst = float(np.sqrt(np.mean(d ** 2))), float(np.abs(d).max())
+    print(f"four batches of 81 against one step of 324 (float32): RMSE {rmse!r} K, "
+          f"max {worst!r} K, {int((d != 0).sum())} of {d.size} pixels differ")
+    assert rmse < 1e-4 and worst < 1e-3

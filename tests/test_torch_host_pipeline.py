@@ -110,19 +110,20 @@ CASES = {
 }
 
 
-def _plain(lst, ndvi, step, params, batch_size, coverage=1.0, ndvi_clip=True, wire=None):
+def _plain(lst, ndvi, step, params, batch_size, coverage=1.0, ndvi_clip=True, wire=None,
+           window=WINDOW):
     """The composition: clip, tile, the step over the same batches, mask,
     untile."""
     if ndvi_clip:
         ndvi = np.clip(ndvi, -1.0, 1.0)
     if wire == "int":
         lst_w, ndvi_w = inference.encode_wire(lst, ndvi)
-        lst_b, ndvi_b, grid = inference.tile_granule(lst_w.view(np.int16), ndvi_w, WINDOW,
+        lst_b, ndvi_b, grid = inference.tile_granule(lst_w.view(np.int16), ndvi_w, window,
                                                      FACTOR)
         step = inference._wire_step(step, torch.device("cpu"))
     else:
         lst_b, ndvi_b, grid = inference.tile_granule(np.asarray(lst, np.float32),
-                                                     np.asarray(ndvi, np.float32), WINDOW,
+                                                     np.asarray(ndvi, np.float32), window,
                                                      FACTOR)
     lst_t = torch.from_numpy(np.ascontiguousarray(lst_b))
     ndvi_t = torch.from_numpy(np.ascontiguousarray(ndvi_b))
@@ -208,3 +209,121 @@ def test_staged_row_share_reads_the_program_counter(stats):
             tracing.count("blocks", b)
             tracing.count("rows", b)
     assert _reading([1, 4]) is None
+
+
+# ---- calls of 128 blocks or more: about four batches, each filled just before its step
+LARGE = 8                      # the window of the large granules
+LARGE_FWIN = LARGE * FACTOR
+
+
+def _large(seed=11, gh=18, gw=18):
+    """A gh x gw grid of blocks at window 8 (324 blocks at 18 x 18), the NDVI
+    partly past [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    lst = (296.0 + 20.0 * rng.random((gh * LARGE, gw * LARGE))).astype(np.float32)
+    ndvi = (-0.2 + 1.4 * rng.random((4 * gh * LARGE, 4 * gw * LARGE))).astype(np.float32)
+    return lst, ndvi
+
+
+def _large_cloudy(seed=11):
+    """324 blocks: block (0, 1) all 0 K, block (10, 5) a quarter, the last
+    one half; the first and the third fail a coverage of 0.4."""
+    lst, ndvi = _large(seed)
+    lst = lst.copy()
+    lst[0:8, 8:16] = 0.0
+    lst[80:82, 40:48] = 0.0
+    lst[140:144, 136:144] = 0.0
+    return lst, ndvi
+
+
+def _cloudy_144(seed=11):
+    """The first 12 x 12 blocks of ``_large_cloudy``'s granule: at overlap 2
+    its origins lie at stride 6, 16 x 16 of them."""
+    lst, ndvi = _large_cloudy(seed)
+    return lst[:12 * LARGE, :12 * LARGE], ndvi[:48 * LARGE, :48 * LARGE]
+
+
+def _plain_overlap(lst, ndvi, step, params, batch_rows, overlap, coverage=1.0):
+    """The overlap path's composition: the origins at stride window - overlap
+    (the last flush with the edge), their blocks cut from the clipped
+    granule, the step over the same batches, the coverage test, each kept
+    block weighted by the separable trapezoid and summed in float64 in
+    origin order, the sum over the weights."""
+    ndvi = np.clip(ndvi, -1.0, 1.0)
+    h, w = (s // LARGE * LARGE for s in lst.shape)
+    ys = sorted(set(range(0, h - LARGE + 1, LARGE - overlap)) | {h - LARGE})
+    xs = sorted(set(range(0, w - LARGE + 1, LARGE - overlap)) | {w - LARGE})
+    origins = [(y, x) for y in ys for x in xs]
+    lst_b = np.stack([lst[y:y + LARGE, x:x + LARGE] for y, x in origins])
+    ndvi_b = np.stack([ndvi[FACTOR * y:FACTOR * (y + LARGE), FACTOR * x:FACTOR * (x + LARGE)]
+                       for y, x in origins])
+    lst_t, ndvi_t = torch.from_numpy(lst_b), torch.from_numpy(ndvi_b)
+    out = torch.cat([step(params, lst_t[i:i + batch_rows], ndvi_t[i:i + batch_rows])
+                     for i in range(0, len(origins), batch_rows)]).numpy()
+    ramp = overlap * FACTOR
+    taper_1d = np.ones(LARGE_FWIN, np.float32)
+    taper_1d[:ramp] = np.linspace(1.0 / (ramp + 1), 1.0, ramp, endpoint=False)
+    taper_1d[-ramp:] = taper_1d[:ramp][::-1]
+    taper = np.outer(taper_1d, taper_1d)
+    acc = np.zeros((FACTOR * h, FACTOR * w))
+    wacc = np.zeros_like(acc)
+    for k, (y, x) in enumerate(origins):
+        if (lst_b[k] == 0).mean() <= coverage:
+            sl = np.s_[FACTOR * y:FACTOR * y + LARGE_FWIN, FACTOR * x:FACTOR * x + LARGE_FWIN]
+            acc[sl] += out[k] * taper
+            wacc[sl] += taper
+    return np.where(wacc > 0, acc / np.maximum(wacc, 1e-12), 0.0).astype(np.float32)
+
+
+# inputs, predict_granule's options, the rows of each step call
+LARGE_CASES = {
+    "granule_324": (_large, {}, [81] * 4),
+    "grid_144": (lambda seed=11: _large(seed, 12, 12), {}, [72] * 2),
+    "grid_200": (lambda seed=11: _large(seed, 10, 20), {}, [67, 67, 66]),
+    "capped_by_batch_size": (_large, dict(batch_size=50), [50] * 6 + [24]),
+    "coverage": (_large_cloudy, dict(coverage=0.4), [81] * 4),
+    "wire_int": (_large, dict(wire="int"), [81] * 4),
+    "float32_step": (lambda seed=11: _large(seed, 12, 12), dict(step="float32"), [72] * 2),
+    "overlap": (lambda seed=11: _large(seed, 12, 12), dict(overlap=4), [133] * 3 + [130]),
+    "overlap_float32_step": (_cloudy_144, dict(overlap=2, coverage=0.4, step="float32"),
+                             [64] * 4),
+}
+
+
+@pytest.mark.parametrize("case", list(LARGE_CASES))
+def test_a_large_call_is_stepped_in_about_four_batches(stats, f32_step, case):
+    """128 blocks (origins) or more go as about four equal batches of at
+    least 64 rows, none above ``batch_size``; the mosaic is the composition's
+    over the same batches bit for bit, and every row is stepped straight
+    from the staging."""
+    inputs, opts, want_rows = LARGE_CASES[case]
+    opts = dict(opts)
+    step, params = f32_step if opts.pop("step", None) == "float32" else (_stub_step, None)
+    opts.setdefault("batch_size", 324)
+    seen = []
+
+    def recording(p, lst_b, ndvi_b):
+        seen.append(lst_b.shape[0])
+        assert ndvi_b.shape[0] == lst_b.shape[0]
+        return step(p, lst_b, ndvi_b)
+
+    lst, ndvi = inputs()
+    tracing.enable()
+    got = inference.predict_granule({}, lst, ndvi, stats, window=LARGE, factor=FACTOR,
+                                    sr_step=recording, step_params=params, device="cpu", **opts)
+    (root,) = [r for r in tracing.records() if r["name"] == "predict_granule"]
+    assert seen == want_rows
+    n = sum(want_rows)
+    assert root["counts"]["blocks"] == root["counts"]["rows"] == root["counts"]["staged_rows"] == n
+    if opts.get("overlap"):
+        want = _plain_overlap(lst, ndvi, step, params, want_rows[0], opts["overlap"],
+                              opts.get("coverage", 1.0))
+    else:
+        want = _plain(lst, ndvi, step, params, want_rows[0], opts.get("coverage", 1.0),
+                      wire=opts.get("wire"), window=LARGE)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if case == "coverage":
+        f = LARGE_FWIN
+        assert np.all(got[:f, f:2 * f] == 0.0) and np.all(got[-f:, -f:] == 0.0)
+        assert np.all(got[10 * f:11 * f, 5 * f:6 * f] > 0.0)

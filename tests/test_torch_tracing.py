@@ -235,6 +235,69 @@ def test_wire_host_pipeline_counts_encode_and_decode(granule, stats):
     assert root["counts"] == {"blocks": n, "rows": n, "staged_rows": n, "host_bytes": want}
 
 
+def _grid(gh, gw, window=8, seed=3):
+    """A gh x gw grid of blocks at ``window`` and its NDVI, partly past [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    lst = (296.0 + 20.0 * rng.random((gh * window, gw * window))).astype(np.float32)
+    ndvi = (-0.2 + 1.4 * rng.random((FACTOR * gh * window, FACTOR * gw * window)))
+    return lst, ndvi.astype(np.float32)
+
+
+@pytest.mark.parametrize("wire", [None, "int"])
+@pytest.mark.parametrize("overlap", [0, 2])
+def test_a_large_call_counts_what_one_batch_counts(stats, monkeypatch, overlap, wire):
+    """324 blocks (256 origins at overlap 2 over 12 x 12 blocks) go as four
+    batches, each filled under a ``tile`` span of its own: the root counts
+    the blocks, rows, staged rows and host bytes of the same call stepped
+    as one batch, and the rows of the three batches submitted while the
+    first was pending as ``overlapped_rows``; the mosaic is the one batch's."""
+    gh = 18 if overlap == 0 else 12
+    lst, ndvi = _grid(gh, gh)
+    tracing.enable()
+    got = {}
+    for parts in (4, 1):                 # one part: the whole call in one batch
+        monkeypatch.setattr(inference, "_SPLIT_INTO", parts)
+        seen = []
+        tracing.clear()
+        out = inference.predict_granule({}, lst, ndvi, stats, batch_size=324, window=8,
+                                        factor=FACTOR, overlap=overlap, wire=wire,
+                                        sr_step=_recording(_stub_step, seen), device="cpu")
+        (root,) = _roots()
+        _check_tree(root)
+        assert all(s["parent"] == root["id"] for s in root["spans"])
+        assert {s["name"] for s in root["spans"]} == STAGES
+        names = [s["name"] for s in root["spans"]]
+        # ``tile``: the inputs' clip and encoding, the staging, then one a batch
+        assert names.count("step") == len(seen) and names.count("tile") == 2 + len(seen)
+        got[parts] = out, [r for r, _ in seen], dict(root["counts"])
+    (chunked, rows, counts), (one, one_rows, one_counts) = got[4], got[1]
+    n = 324 if overlap == 0 else 256
+    assert rows == [n // 4] * 4 and one_rows == [n]
+    assert counts.pop("overlapped_rows") == n - rows[0]
+    assert "overlapped_rows" not in one_counts
+    assert counts == one_counts and counts["blocks"] == counts["rows"] == n
+    np.testing.assert_array_equal(chunked, one)
+
+
+@pytest.mark.parametrize("gh,gw,batch,want", [(3, 3, 324, [9]), (11, 11, 324, [121]),
+                                              (1, 127, 324, [127]), (11, 11, 50, [50, 50, 21]),
+                                              (8, 16, 324, [64, 64])])
+def test_the_step_calls_by_block_count(stats, gh, gw, batch, want):
+    """Under 128 blocks the batches are ``batch_size`` rows, the last at its
+    own: a 9-block area is one step call and counts no ``overlapped_rows``.
+    From 128 blocks the call splits, here into two batches of 64."""
+    seen = []
+    tracing.enable()
+    inference.predict_granule({}, *_grid(gh, gw), stats, batch_size=batch, window=8,
+                              factor=FACTOR, sr_step=_recording(_stub_step, seen), device="cpu")
+    (root,) = _roots()
+    assert [r for r, _ in seen] == want
+    if len(want) == 1:
+        assert "overlapped_rows" not in root["counts"]
+    else:
+        assert root["counts"]["overlapped_rows"] == sum(want) - want[0]
+
+
 def test_profiler_annotations_without_enable(granule, stats):
     acts = [torch.profiler.ProfilerActivity.CPU]
     with torch.profiler.profile(activities=acts) as prof:
